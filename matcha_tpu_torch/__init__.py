@@ -1,0 +1,24 @@
+"""Matcha-TTS in PyTorch for NVIDIA Hopper (H100).
+
+A port of the ``matcha_tpu`` serving path (phoneme ids -> wav) that keeps
+the reference torch parameter names, so a reference checkpoint or a
+bridged JAX param tree (``matcha_tpu_torch.convert``) loads as-is. The
+narrow HiFi-GAN MRF stages run as a hand-written CUDA kernel
+(``ops/mrf.py``, ``csrc/mrf_stage.cu``); everything else is plain torch.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless ``device`` says
+    otherwise. Raises when no device is given and no GPU is present —
+    never carries on quietly on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device found; pass device='cpu' (or --cpu) to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,54 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``build/matcha_tpu_torch/`` of the checkout (gitignored), keyed on a hash
+of the source and the flags, and loaded with ``ctypes``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "matcha_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    The build writes a file of its own and renames it into place, so
+    processes that build at once do not see each other's partial output."""
+    if name not in _loaded:
+        path = library_path(name)
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                   str(CSRC / f"{name}.cu")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n"
+                                   f"{proc.stdout}")
+            os.replace(tmp, path)
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

@@ -1,0 +1,170 @@
+"""Fused HiFi-GAN MRF stage: the CUDA kernel's wrapper and its plain version.
+
+``fused_mrf_stage`` is the port of
+``matcha_tpu/ops/mrf_pallas.py::fused_mrf_stage`` with the same layouts:
+x (B, C, T) f32 channels-first; ``weights`` a flat tuple with, per
+ResBlock1 chain, W1 (n_dil, k, C_in, C_out), B1 (n_dil, C_out), W2, B2.
+A CUDA tensor launches the kernel in ``csrc/mrf_stage.cu`` (or raises); a
+CPU tensor takes ``fused_mrf_stage_reference``.
+
+The kernel reads all of a stage's weights from one buffer. ``pack_mrf_weights``
+copies the tuple into it once, when a model is loaded, and returns the tuple
+as views of that buffer; the kernel takes only weights packed so.
+"""
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from matcha_tpu_torch.ops import cuda_build
+
+#: launches of the CUDA kernel in this process (the CPU path does not count)
+LAUNCHES = {"mrf_stage": 0}
+
+HALO = 64  # halo per side in the kernel; >= the stage's receptive field
+MARGIN = 32  # zero columns per buffer side; >= the widest tap reach c0 * d
+MAX_BLOCKS = MAX_DIL = 4
+KERNEL_SIZES = (3, 7, 11)  # the kernel's compiled tap counts (HiFi-GAN v1, v2)
+MAX_THREADS = 384
+SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
+
+
+def receptive_field(kernel_sizes, dilations) -> int:
+    """Samples one side of the stage reaches: per chain, sum over its
+    dilations of c0 * d (conv 1) + c0 (conv 2), c0 = (k - 1) // 2."""
+    return max(sum((k - 1) // 2 * (int(d) + 1) for d in dils)
+               for k, dils in zip(kernel_sizes, dilations))
+
+
+def pick_t_tile(C: int, T: int) -> int:
+    """Central tile length: the largest multiple of 128 whose two shared
+    buffers of C x (t_tile + 2*HALO + 2*MARGIN) f32 fit the block's shared
+    memory, no longer than T rounded up to 128."""
+    e_max = SMEM_LIMIT // (2 * C * 4) - 2 * MARGIN
+    t_tile = (e_max - 2 * HALO) // 128 * 128
+    if t_tile < 128:
+        raise ValueError(f"C={C} is too wide for the fused MRF kernel's shared memory")
+    return min(t_tile, -(-T // 128) * 128)
+
+
+def fused_mrf_stage_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                              kernel_sizes=(3, 7, 11),
+                              dilations=((1, 3, 5),) * 3) -> torch.Tensor:
+    """Plain torch version: 6 F.conv1d per chain. Each conv zero-pads at
+    the true sequence edges, which is the kernel's re-zero after every
+    conv."""
+    xs = None
+    for blk, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
+        W1, B1, W2, B2 = weights[4 * blk:4 * blk + 4]
+        xb = x
+        for j, d in enumerate(dils):
+            xt = F.leaky_relu(xb, 0.1)
+            xt = F.conv1d(xt, W1[j].permute(2, 1, 0), B1[j], padding=(k - 1) // 2 * d,
+                          dilation=int(d))
+            xt = F.leaky_relu(xt, 0.1)
+            xt = F.conv1d(xt, W2[j].permute(2, 1, 0), B2[j], padding=(k - 1) // 2)
+            xb = xt + xb
+        xs = xb if xs is None else xs + xb
+    return xs / len(kernel_sizes)
+
+
+def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("fused_mrf_stage takes a contiguous (B, C, T) float32 tensor")
+    B, C, T = x.shape
+    n_blocks, n_dil = len(kernel_sizes), len(dilations[0])
+    if not (1 <= n_blocks <= MAX_BLOCKS and 1 <= n_dil <= MAX_DIL):
+        raise ValueError(f"{n_blocks} chains x {n_dil} dilations: at most {MAX_BLOCKS} x {MAX_DIL}")
+    if any(len(d) != n_dil for d in dilations) or len(dilations) != n_blocks:
+        raise ValueError("every chain needs the same number of dilations")
+    if C % 16:
+        raise ValueError(f"C={C}: the kernel needs a multiple of 16 channels")
+    if receptive_field(kernel_sizes, dilations) > HALO:
+        raise ValueError(f"receptive field exceeds the kernel's halo of {HALO}")
+    if max((k - 1) // 2 * int(d) for k, dils in zip(kernel_sizes, dilations) for d in dils) > MARGIN:
+        raise ValueError(f"a tap reaches past the kernel's {MARGIN}-column margin")
+    if any(k not in KERNEL_SIZES for k in kernel_sizes):
+        raise ValueError(f"kernel sizes {kernel_sizes}: the kernel is built for {KERNEL_SIZES}")
+    if len(weights) != 4 * n_blocks:
+        raise ValueError(f"expected {4 * n_blocks} weight tensors, got {len(weights)}")
+    for blk, k in enumerate(kernel_sizes):
+        shapes = [(n_dil, k, C, C), (n_dil, C), (n_dil, k, C, C), (n_dil, C)]
+        for w, shape in zip(weights[4 * blk:4 * blk + 4], shapes):
+            if tuple(w.shape) != shape or w.dtype != torch.float32 or w.device != x.device:
+                raise ValueError(f"chain {blk}: weight {tuple(w.shape)} {w.dtype} {w.device}, "
+                                 f"expected {shape} float32 on {x.device}")
+    offset = weights[0].data_ptr()
+    for w in weights:
+        if w.data_ptr() != offset or not w.is_contiguous():
+            raise ValueError("the kernel takes weights packed into one buffer by pack_mrf_weights")
+        offset += 4 * w.numel()
+    return n_blocks, n_dil
+
+
+@functools.cache
+def _library():
+    lib = cuda_build.load("mrf_stage")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mrf_stage_launch.argtypes = [p, p, p, i, i, i, i, i, i,
+                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                                     i, p]
+    lib.mrf_stage_launch.restype = ctypes.c_int
+    lib.mrf_error_string.argtypes = [ctypes.c_int]
+    lib.mrf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x, weights, kernel_sizes, dilations) -> torch.Tensor:
+    n_blocks, n_dil = _check(x, weights, kernel_sizes, dilations)
+    B, C, T = x.shape
+    t_tile = pick_t_tile(C, T)
+    n_items = (C // 16) * ((t_tile + 2 * HALO) // 128)
+    threads = 32 * min(n_items, MAX_THREADS // 32)
+    y = torch.empty_like(x)
+    ks = (ctypes.c_int * n_blocks)(*kernel_sizes)
+    ds = (ctypes.c_int * (n_blocks * n_dil))(*(int(d) for dils in dilations for d in dils))
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mrf_stage_launch(x.data_ptr(), weights[0].data_ptr(), y.data_ptr(), B, C, T,
+                                   t_tile, n_blocks, n_dil, ks, ds, threads, stream)
+    if err != 0:
+        raise RuntimeError(f"mrf_stage launch failed: {lib.mrf_error_string(err).decode()}")
+    LAUNCHES["mrf_stage"] += 1
+    return y
+
+
+def fused_mrf_stage(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                    kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3) -> torch.Tensor:
+    """One whole MRF stage (mean of the ResBlock1 chains), (B, C, T) f32.
+    CUDA tensors run the hand-written kernel; CPU tensors the plain
+    version."""
+    kernel_sizes = tuple(int(k) for k in kernel_sizes)
+    dilations = tuple(tuple(int(d) for d in dils) for dils in dilations)
+    if x.device.type == "cpu":
+        return fused_mrf_stage_reference(x, weights, kernel_sizes, dilations)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mrf_stage runs on CUDA or CPU tensors, not {x.device}")
+    return _launch(x, weights, kernel_sizes, dilations)
+
+
+def pack_mrf_weights(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Copy the weight tuple into one flat buffer, in the order the kernel
+    reads it, and return the tuple as views of that buffer."""
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    parts = flat.split([w.numel() for w in weights])
+    return tuple(part.view(w.shape) for part, w in zip(parts, weights))
+
+
+def mrf_weights_from_resblocks(blocks) -> Tuple[torch.Tensor, ...]:
+    """Torch ResBlock1 convs (weight (out, in, k)) -> the kernel's packed
+    weights: per block W1 (n_dil, k, in, out), B1, W2, B2."""
+    flat = []
+    for blk in blocks:
+        for convs in (blk.convs1, blk.convs2):
+            flat.append(torch.stack([c.weight.permute(2, 1, 0) for c in convs]))
+            flat.append(torch.stack([c.bias for c in convs]))
+    return pack_mrf_weights(flat)
