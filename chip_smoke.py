@@ -7,12 +7,15 @@ Phases, one output line each (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA /
    nvcc / Triton versions;
-2. the build of K1's CUDA source from ``matcha_tpu_torch/csrc`` and its
-   seconds;
+2. the build of both CUDA sources in ``matcha_tpu_torch/csrc`` (one
+   ``nvcc`` each, started together) and its seconds;
 3. kernel K1 (the fused MRF stage) against its plain PyTorch version on
    the card, TF32 off, at C in {32, 64}, B in {1, 4}, T shorter than one
-   tile, T not a multiple of the tile, and the main path's T;
-4. the main path at full width: LJSpeech MatchaTTS + HiFi-GAN v1 with
+   tile, T not a multiple of the tile, and the main path's T; kernel K2
+   (Monotonic Alignment Search) against its plain version on the card,
+   which must be EQUAL, over B, T_x, T_y, ragged lengths, ties and mask
+   dtypes;
+4. the serving path at full width: LJSpeech MatchaTTS + HiFi-GAN v1 with
    weights drawn from a seed, phoneme ids -> wav through ``TTSPipeline``
    on a few sentences, with K1's launch count read around it; then the
    same pipeline on a short sentence on the GPU and on the CPU (plain
@@ -22,17 +25,31 @@ Phases, one output line each (any failure exits non-zero):
    busy time and idle share over that request (``torch.profiler``), and K1 per
    stage at the path's shapes and at a 512-frame mel, beside its bound,
    its plain version and a chain of cuDNN ``F.conv1d`` calls;
-6. the ``kernels`` line (every TPU kernel of the repo: K1 ported, K2 and
+6. the training path at full width (the LJSpeech config, batch 32, no
+   segment cut) on a synthetic corpus written from the seed: 5 steps of
+   ``python -m matcha_tpu_torch.train`` (through ``train.main``) with
+   checkpoints, K2's launches counted against the MAS calls, then one
+   step resumed from the ``last`` checkpoint; one ``losses`` + backward on
+   the card and on the CPU, which must agree; step time, mel frames per
+   second, peak memory, one step split by phase, the card's busy time
+   over a step, and K2 at the step's shape beside its bound and its plain
+   version;
+7. the ``kernels`` line (every TPU kernel of the repo: K1 and K2 ported,
    K3 not yet, with null times), then the last line
    ``{"ok": true, "device": {...}}``.
 
 All f32 with TF32 off, so that every comparison is against full f32.
 """
 
+import csv
+import itertools
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 1234
@@ -48,6 +65,25 @@ CLEANER = "english_cleaners_no_espeak"
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 K1_TOL = 1e-4  # f32 sums over up to 704 products per conv, taken in another order
+# GPU against CPU for one training step's losses and gradient norm: f32
+# sums in another order through the full-width model (TF32 off)
+TRAIN_RTOL = 1e-4
+SR, HOP = 22050, 256
+N_TRAIN, N_VAL = 64, 8
+TRAIN_STEPS = 5
+# public-domain sentences (the Harvard sentences); the corpus cuts runs of
+# their words to each clip's length
+CORPUS_TEXT = (
+    "The birch canoe slid on the smooth planks. Glue the sheet to the dark blue background. "
+    "It's easy to tell the depth of a well. These days a chicken leg is a rare dish. "
+    "Rice is often served in round bowls. The juice of lemons makes fine punch. "
+    "The box was thrown beside the parked truck. The hogs were fed chopped corn and garbage. "
+    "Four hours of steady work faced us. A large size in stockings is hard to sell. "
+    "The boy was there when the sun rose. A rod is used to catch pink salmon. "
+    "The source of the huge river is the clear spring. Kick the ball straight and follow "
+    "through. Help the woman get back to her feet. A pot of tea helps to pass the evening. "
+    "Smoky fires lack flame and heat. The soft cushion broke the man's fall. "
+    "The salt breeze came across from the sea. The girl at the booth sold fifty bonds.")
 
 
 def emit(obj) -> None:
@@ -115,6 +151,310 @@ def device_busy(request, latency_ms: float) -> dict:
                     "share against the unprofiled p50 latency of the same request"}
 
 
+def k2_bound_ms(B: int, T_x: int, T_y: int, t_xs, t_ys):
+    """Least time for one MAS call: the larger of its bytes (the log-prior
+    read once, the path written once, both (B, T_x, T_y) f32) over HBM and
+    its operations (a max, an add and a compare per cell of each row's
+    t_x x t_y grid) over the f32 peak."""
+    bytes_ = 2 * 4.0 * B * T_x * T_y
+    ops = 3.0 * sum(int(a) * int(b) for a, b in zip(t_xs, t_ys))
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mas_problem(gen, dev, B, T_x, T_y, t_xs, t_ys, values, bool_mask):
+    """(value, mask) on ``dev``: per-row lengths t_xs, t_ys; values normal,
+    all zero, or small integers (ties everywhere)."""
+    import torch
+
+    if values == "normal":
+        value = torch.randn(B, T_x, T_y, generator=gen) * 3
+    elif values == "zeros":
+        value = torch.zeros(B, T_x, T_y)
+    else:
+        value = torch.randint(-2, 3, (B, T_x, T_y), generator=gen).float()
+    t_xs, t_ys = torch.tensor(t_xs), torch.tensor(t_ys)
+    mask = ((torch.arange(T_x)[None, :, None] < t_xs[:, None, None])
+            & (torch.arange(T_y)[None, None, :] < t_ys[:, None, None]))
+    return value.to(dev), (mask if bool_mask else mask.float()).to(dev)
+
+
+def k2_check(dev) -> list:
+    """K2 against its plain version on the card: the paths must be EQUAL."""
+    import torch
+
+    from matcha_tpu_torch.ops import mas
+
+    gen = torch.Generator().manual_seed(SEED)
+    ragged32 = [int(v) for v in torch.randint(1, 385, (32,), generator=gen)]
+    cases = [  # B, T_x, T_y, t_xs, t_ys, values, bool mask
+        (1, 1, 8, [1], [8], "normal", False),
+        (4, 37, 901, [37, 30, 5, 1], [901, 500, 37, 8], "normal", False),
+        (4, 37, 901, [37, 30, 5, 1], [901, 500, 37, 8], "zeros", True),
+        (32, 384, 901, ragged32, [min(901, 3 * v) for v in ragged32], "normal", False),
+        (32, 384, 901, ragged32, [min(901, 2 * v + 7) for v in ragged32], "ints", True),
+        (4, 700, 2048, [700, 600, 384, 1], [2048, 1800, 901, 8], "normal", False),
+        (4, 700, 2048, [700, 600, 384, 1], [2048, 1800, 901, 8], "zeros", False),
+        (1, 700, 901, [700], [901], "ints", False),
+        (32, 37, 8, [8] * 16 + [3] * 16, [8] * 32, "ints", False),
+        (4, 384, 901, [384, 384, 37, 1], [200, 901, 8, 1], "normal", False),  # t_x > t_y
+    ]
+    out = []
+    for B, T_x, T_y, t_xs, t_ys, values, bool_mask in cases:
+        value, mask = mas_problem(gen, dev, B, T_x, T_y, t_xs, t_ys, values, bool_mask)
+        got = mas.maximum_path(value, mask)
+        want = mas.maximum_path_reference(value, mask)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want) and got.dtype == mask.dtype
+        out.append({"B": B, "T_x": T_x, "T_y": T_y, "values": values,
+                    "mask": "bool" if bool_mask else "float32", "equal": equal,
+                    "cells_on_path": int(got.sum())})
+        if not equal:
+            raise AssertionError(f"K2 differs from its plain version: {out[-1]}")
+    return out
+
+
+def write_corpus(root: str, seed: int = SEED) -> dict:
+    """A synthetic single-speaker corpus at LJSpeech's clip lengths: 64
+    train and 8 val 22,050 Hz wavs of 1.5-10 s (tones, vibrato and noise),
+    each with a run of real words long enough for about 3 mel frames per
+    id (blanks included), as in LJSpeech. Returns the filelist paths."""
+    import numpy as np
+
+    from matcha_tpu_torch.utils.utils import write_wav
+
+    rng = np.random.default_rng(seed)
+    words = CORPUS_TEXT.split()
+    lines = []
+    for i in range(N_TRAIN + N_VAL):
+        n = int(rng.uniform(1.5, 10.0) * SR)
+        chars = max(8, round((n / HOP / 3 - 1) / 2))  # ids = 2 * chars + 1
+        start, text = int(rng.integers(len(words))), []
+        while len(" ".join(text)) < chars:
+            text.append(words[(start + len(text)) % len(words)])
+        t = np.arange(n) / SR
+        f0 = rng.uniform(90, 250)
+        audio = (0.3 * np.sin(2 * np.pi * (f0 * t + 3 * np.sin(2 * np.pi * 0.7 * t)))
+                 + 0.1 * np.sin(2 * np.pi * 3.1 * f0 * t) + rng.normal(0, 0.02, n))
+        path = os.path.join(root, f"clip_{i:03d}.wav")
+        write_wav(path, audio.astype(np.float32), SR)
+        lines.append(f"{path}|{' '.join(text)}")
+    paths = {"train": os.path.join(root, "train.txt"), "val": os.path.join(root, "val.txt")}
+    for name, part in (("train", lines[:N_TRAIN]), ("val", lines[N_TRAIN:])):
+        with open(paths[name], "w", encoding="utf-8") as f:
+            f.write("\n".join(part) + "\n")
+    return paths
+
+
+def train_overrides(corpus: dict, out_dir: str) -> list:
+    """The full-width LJSpeech training config (batch 32, out_size null)
+    on the synthetic corpus: cleaners without espeak, CSV metrics every
+    step, checkpoints on."""
+    return ["experiment=ljspeech", f"data.train_filelist_path={corpus['train']}",
+            f"data.valid_filelist_path={corpus['val']}", f"data.cleaners=[{CLEANER}]",
+            "data.frontend=numpy", "logger=csv", "trainer.log_every_n_steps=1",
+            f"paths.output_dir={out_dir}"]
+
+
+def read_metrics(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "csv", "metrics.csv"), encoding="utf-8") as f:
+        return [{k: float(v) for k, v in row.items() if v} for row in csv.DictReader(f)]
+
+
+def run_train(argv) -> dict:
+    """``train.main(argv)`` with K2's launches and the MAS calls counted
+    from 0 over it."""
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.models import matcha as matcha_module
+    from matcha_tpu_torch.ops import mas
+
+    calls = [0]
+    search = matcha_module.maximum_path
+
+    def counted(value, mask):
+        calls[0] += 1
+        return search(value, mask)
+
+    matcha_module.maximum_path = counted
+    mas.LAUNCHES["maximum_path"] = 0
+    t0 = time.perf_counter()
+    try:
+        train.main(argv)
+    finally:
+        matcha_module.maximum_path = search
+    return {"seconds": time.perf_counter() - t0, "mas_calls": calls[0],
+            "k2_launches": mas.LAUNCHES["maximum_path"]}
+
+
+def train_path(root: str) -> dict:
+    """The training path through its entry point: 5 steps with
+    checkpoints, then 1 step resumed from ``last``."""
+    corpus = write_corpus(root)
+    out_dir, resume_dir = os.path.join(root, "run"), os.path.join(root, "resumed")
+    run = run_train(train_overrides(corpus, out_dir) + [f"trainer.max_steps={TRAIN_STEPS}"])
+    rows = read_metrics(out_dir)
+    train_rows = [r for r in rows if "loss/train" in r]
+    val_rows = [r for r in rows if "loss/val" in r]
+    losses = [v for r in rows for k, v in r.items() if k.startswith(("loss/", "sub_loss/"))]
+    last = os.path.join(out_dir, "checkpoints", "last")
+    if len(train_rows) != TRAIN_STEPS or not val_rows or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training logged {len(train_rows)} steps, {len(val_rows)} "
+                             f"validations, finite: {all(map(math.isfinite, losses))}")
+    if run["k2_launches"] != run["mas_calls"] or run["mas_calls"] < TRAIN_STEPS:
+        raise AssertionError(f"K2 launched {run['k2_launches']} times for {run['mas_calls']} "
+                             "MAS calls")
+    if not os.path.exists(last):
+        raise AssertionError("no `last` checkpoint")
+    resumed = run_train(train_overrides(corpus, resume_dir)
+                        + [f"trainer.max_steps={TRAIN_STEPS + 1}", f"ckpt_path={last}"])
+    with open(os.path.join(resume_dir, "checkpoints", "last.hparams.json"), encoding="utf-8") as f:
+        resumed_step = json.load(f)["step"]
+    resumed_rows = [r for r in read_metrics(resume_dir) if "loss/train" in r]
+    if (resumed_step != TRAIN_STEPS + 1 or len(resumed_rows) != 1
+            or resumed["k2_launches"] != resumed["mas_calls"]
+            or not math.isfinite(resumed_rows[0]["loss/train"])):
+        raise AssertionError(f"resume: step {resumed_step}, rows {resumed_rows}, {resumed}")
+    return {"corpus": corpus, "out_dir": out_dir, "run": run, "resumed": resumed,
+            "train_rows": train_rows, "val_rows": val_rows, "resumed_row": resumed_rows[0]}
+
+
+def train_gpu_vs_cpu(dev, cfg, batch) -> dict:
+    """One ``losses`` + backward on the first 2 items, on the card and on
+    the CPU: same weights, t and z, dropout off."""
+    import torch
+
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.training.trainer import global_norm
+
+    small = {k: torch.from_numpy(batch[k][:2]) for k in ("x", "x_lengths", "y", "y_lengths")}
+    torch.manual_seed(SEED)
+    model = train.build_model_from_cfg(cfg).eval()
+    g = torch.Generator().manual_seed(SEED)
+    t = torch.rand(2, generator=g)
+    z = torch.randn(small["y"].shape, generator=g)
+    results = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        model.to(device).zero_grad(set_to_none=True)
+        out = model.losses(small["x"].long().to(device), small["x_lengths"].to(device),
+                           small["y"].to(device), small["y_lengths"].to(device),
+                           t=t.to(device), z=z.to(device))
+        sum(out[:3]).backward()
+        norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+        results[name] = {"losses": [float(v.detach()) for v in out[:3]],
+                         "attn": out[3].detach().cpu(),
+                         "grad_norm": float(norm)}
+    gpu, cpu = results["gpu"], results["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(gpu["losses"] + [gpu["grad_norm"]],
+                                              cpu["losses"] + [cpu["grad_norm"]])]
+    attn_equal = torch.equal(gpu["attn"], cpu["attn"])
+    line = {"T_x": int(small["x"].shape[1]), "T_y": int(small["y"].shape[1]),
+            "attn_equal": attn_equal, "losses_gpu": gpu["losses"], "losses_cpu": cpu["losses"],
+            "grad_norm_gpu": gpu["grad_norm"], "grad_norm_cpu": cpu["grad_norm"],
+            "max_rel_diff": max(rel), "rtol": TRAIN_RTOL}
+    if not attn_equal or not max(rel) <= TRAIN_RTOL:
+        raise AssertionError(f"training step differs between GPU and CPU: {line}")
+    return line
+
+
+def train_time(dev, cfg) -> tuple:
+    """Step time and its split, peak memory and the card's busy share
+    over one step, at the training config's full width. Steps run twice:
+    on batches loaded beforehand (no loader thread runs beside the step),
+    then as the trainer runs them, with the loader thread preparing the
+    next batch meanwhile."""
+    import torch
+
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.training.trainer import (
+        make_optimizer,
+        prefetch_iterator,
+        to_device,
+        train_step,
+    )
+
+    torch.manual_seed(SEED)
+    dm = train.build_datamodule_from_cfg(cfg)
+    model = train.build_model_from_cfg(cfg).to(dev)
+    opt, sched = make_optimizer(model, lr=float(cfg.model.optimizer.lr))
+    step = itertools.count()
+
+    def run_steps(source):
+        ms, frames, shapes = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            raw = next(source)
+            train_step(model, opt, sched, to_device(raw, dev), next(step), SEED)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            frames.append(int(raw["y_lengths"].sum()))
+            shapes.append(tuple(raw["y"].shape[:2]) + (int(raw["x"].shape[1]),))
+        return ms, frames, shapes, raw
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # whole epochs, so that no loader thread is left running
+    loaded = [b for epoch in range(3) for b in list(dm.train_batches(epoch))][:TRAIN_STEPS]
+    pre_ms, _, _, raw = run_steps(iter(loaded))
+    pre_p50 = statistics.median(pre_ms[1:])
+    batch = to_device(raw, dev)
+    busy = device_busy(lambda: train_step(model, opt, sched, batch, next(step), SEED), pre_p50)
+
+    loader = prefetch_iterator((b for epoch in itertools.count()
+                                for b in dm.train_batches(epoch)), pin=True)
+    step_ms, frames, shapes, raw = run_steps(loader)
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    mark("start")
+    split_raw = next(loader)
+    split_batch = to_device(split_raw, dev)
+    mark("data_wait")
+    train_step(model, opt, sched, split_batch, next(step), SEED, on_phase=mark)
+    split = {name: (t - t_prev) * 1e3 for (_, t_prev), (name, t) in zip(marks, marks[1:])}
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(step_ms[1:])
+    line = {"batch": len(raw["x_lengths"]), "shapes_B_Ty_Tx": shapes, "step_ms": step_ms,
+            "step_ms_p50_steps_2_5": p50,
+            "mel_frames_per_s": sum(frames[1:]) / (sum(step_ms[1:]) / 1e3),
+            "max_memory_allocated_GiB": peak / 2**30, "split_ms": split,
+            "preloaded_step_ms": pre_ms, "preloaded_step_ms_p50_steps_2_5": pre_p50,
+            "device_busy_preloaded_step": busy,
+            "note": "host clock, synchronised after each step; p50 of steps 2-5; step_ms with "
+                    "the trainer's loader thread running, preloaded_step_ms on batches loaded "
+                    "beforehand; the split is one more loader step with a synchronise after "
+                    "each phase; the busy time is one preloaded step under torch.profiler, its "
+                    "idle share against preloaded_step_ms_p50"}
+    return line, raw
+
+
+def k2_time(dev, raw) -> dict:
+    """K2 at the training step's batch shape and lengths (log-prior values
+    drawn from the seed), beside its bound and its plain version."""
+    import torch
+
+    from matcha_tpu_torch.ops import mas
+
+    B, T_x, T_y = len(raw["x_lengths"]), raw["x"].shape[1], raw["y"].shape[1]
+    t_xs, t_ys = [int(v) for v in raw["x_lengths"]], [int(v) for v in raw["y_lengths"]]
+    gen = torch.Generator().manual_seed(SEED)
+    value, mask = mas_problem(gen, dev, B, T_x, T_y, t_xs, t_ys, "normal", False)
+    ms = cuda_ms(lambda: mas.maximum_path(value, mask), 20)
+    plain_ms = cuda_ms(lambda: mas.maximum_path_reference(value, mask), 2)
+    equal = torch.equal(mas.maximum_path(value, mask), mas.maximum_path_reference(value, mask))
+    if not equal:
+        raise AssertionError("K2 differs from its plain version at the step's shape")
+    bound_ms, bound_by = k2_bound_ms(B, T_x, T_y, t_xs, t_ys)
+    return {"B": B, "T_x": T_x, "T_y": T_y, "max_t_x": max(t_xs), "max_t_y": max(t_ys),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "serial_steps": 2 * max(t_ys), "library_ms": None, "equal": equal,
+            "library": "none: no PyTorch call computes MAS",
+            "note": "CUDA events, mean of 20 (kernel wrapper) and 2 (plain) calls; "
+                    "serial_steps = the forward's and the backtrack's dependent row steps"}
+
+
 def main() -> int:
     import torch
 
@@ -156,11 +496,12 @@ def main() -> int:
           "cuda": torch.version.cuda, "nvcc": nvcc, "triton": triton_version,
           "python": sys.version.split()[0], "device_count": torch.cuda.device_count()})
 
-    # 2. build K1
-    compiled = not cuda_build.library_path("mrf_stage").exists()
+    # 2. build K1 and K2, one nvcc each, started together
+    names = ("mrf_stage", "mas")
+    compiled = [n for n in names if not cuda_build.library_path(n).exists()]
     t0 = time.perf_counter()
-    cuda_build.load("mrf_stage")
-    emit({"phase": "build", "kernel": "mrf_stage", "seconds": round(time.perf_counter() - t0, 3),
+    cuda_build.load_all(names)
+    emit({"phase": "build", "kernels": list(names), "seconds": round(time.perf_counter() - t0, 3),
           "compiled": compiled})
 
     # 3. K1 against its plain version
@@ -185,6 +526,8 @@ def main() -> int:
                 if not err < K1_TOL:
                     raise AssertionError(f"K1 disagrees at C={C} B={B} T={T}: {err}")
     emit({"phase": "k1_check", "tolerance": K1_TOL, "max_abs_err": worst, "cases": cases})
+    k2_cases = k2_check(dev)
+    emit({"phase": "k2_check", "rule": "torch.equal", "cases": k2_cases})
 
     # 4. the main path at full width, weights from the seed
     torch.manual_seed(SEED)
@@ -322,8 +665,30 @@ def main() -> int:
                 x = vocoder.mrf_stage(i, x)
     torch.cuda.synchronize()
 
-    # 6. kernels: ms, plain_ms, bound_ms, library_ms summed over the two
-    # narrow stages of one vocoder call at the main path's shape
+    # 6. the training path at full width, on a corpus written from the seed
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.utils.config import compose
+
+    del pipe, cpu_pipe, model, vocoder, bias
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        trained = train_path(root)
+        emit({"phase": "train", "config": "experiment=ljspeech, batch 32, out_size null",
+              "corpus": f"{N_TRAIN} train + {N_VAL} val synthetic wavs, 1.5-10 s",
+              "run": trained["run"], "train_losses": trained["train_rows"],
+              "val_losses": trained["val_rows"], "resumed": trained["resumed"],
+              "resumed_step": trained["resumed_row"]})
+        cfg = compose("train", train_overrides(trained["corpus"], trained["out_dir"]))
+        first = next(train.build_datamodule_from_cfg(cfg).train_batches(0))
+        emit({"phase": "train_gpu_vs_cpu", **train_gpu_vs_cpu(dev, cfg, first)})
+        line, raw = train_time(dev, cfg)
+        emit({"phase": "train_time", **line})
+        k2 = k2_time(dev, raw)
+        emit({"phase": "k2_time", **k2})
+
+    # 7. kernels: K1's ms, plain_ms, bound_ms, library_ms summed over the
+    # two narrow stages of one vocoder call at the serving path's shape;
+    # K2's at the training step's shape
     path = [s for s in stages if s["shape"] == "main_path"]
     not_ported = {"route": None, "source": None, "launches": 0, "max_abs_err": None, "ms": None,
                   "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
@@ -339,8 +704,12 @@ def main() -> int:
          "bound_by": ("operations" if all(s["bound_by"] == "operations" for s in path)
                       else "bytes"),
          "library_ms": sum(s["library_ms"] for s in path)},
-        {"name": "maximum_path", "status": "not ported", "path": "training",
-         "replaces": "matcha_tpu/ops/mas_pallas.py:69", **not_ported},
+        {"name": "maximum_path", "route": "cuda", "status": "ported", "path": "training",
+         "source": "matcha_tpu_torch/csrc/mas.cu",
+         "replaces": "matcha_tpu/ops/mas_pallas.py:69",
+         "launches": trained["run"]["k2_launches"], "max_abs_err": 0.0, "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None},
         {"name": "mrf_stage_phase", "status": "not ported", "path": "opt-in narrow_impl='phase'",
          "replaces": "matcha_tpu/ops/mrf_pallas.py:347", **not_ported},
     ]})

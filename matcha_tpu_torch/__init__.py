@@ -1,12 +1,15 @@
 """Matcha-TTS in PyTorch for NVIDIA Hopper (H100).
 
-A port of the ``matcha_tpu`` serving path (phoneme ids -> wav) that keeps
-the reference torch parameter names, so a reference checkpoint or a
-bridged JAX param tree (``matcha_tpu_torch.convert``) loads as-is. The
-narrow HiFi-GAN MRF stages run as a hand-written CUDA kernel
-(``ops/mrf.py``, ``csrc/mrf_stage.cu``); everything else is plain torch.
+A port of the ``matcha_tpu`` serving path (phoneme ids -> wav) and its
+training path (``python -m matcha_tpu_torch.train``) that keeps the
+reference torch parameter names, so a reference checkpoint or a bridged
+JAX param tree (``matcha_tpu_torch.convert``) loads as-is. Two hand-written
+CUDA kernels: the narrow HiFi-GAN MRF stages (``ops/mrf.py``,
+``csrc/mrf_stage.cu``) and Monotonic Alignment Search (``ops/mas.py``,
+``csrc/mas.cu``); everything else is plain torch.
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+Entry points run on CUDA unless the caller passes ``device="cpu"`` (for
+training, ``trainer.accelerator=cpu``).
 """
 
 import torch

@@ -14,7 +14,6 @@ import argparse
 import os
 import sys
 import time
-import wave
 from pathlib import Path
 from typing import Optional
 
@@ -28,6 +27,7 @@ from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import fused_stage_weights, generator_apply_fused
 from matcha_tpu_torch.models.matcha import MatchaTTS
 from matcha_tpu_torch.text import intersperse, sequence_to_text, text_to_sequence
+from matcha_tpu_torch.utils.utils import PCM24_SCALE, write_wav
 
 X_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 Y_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -36,9 +36,6 @@ Y_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
 VOC_BUCKETS = tuple(range(128, 2049, 128))
 HOP = 256
 SAMPLE_RATE = 22050
-
-#: 24-bit PCM full scale
-_PCM24_SCALE = 2**23 - 1
 
 
 def pick_bucket(n: int, buckets) -> int:
@@ -53,7 +50,7 @@ def _pack_pcm24(wav: torch.Tensor, mel_lengths: torch.Tensor) -> torch.Tensor:
     the waveform's device (clip, scale by 2^23-1, truncate toward zero,
     low 3 bytes), with mel_lengths appended as one trailing sample per
     row."""
-    v = (torch.clamp(wav, -1.0, 1.0) * _PCM24_SCALE).to(torch.int32)
+    v = (torch.clamp(wav, -1.0, 1.0) * PCM24_SCALE).to(torch.int32)
     v = torch.cat([v, mel_lengths[:, None].to(torch.int32)], dim=1)
     b = torch.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF], dim=-1)
     return b.to(torch.uint8).reshape(v.shape[0], -1)
@@ -65,7 +62,7 @@ def _unpack_pcm24(arr: np.ndarray):
     u = arr.reshape(arr.shape[0], -1, 3).astype(np.int32)
     v = u[..., 0] | (u[..., 1] << 8) | (u[..., 2] << 16)
     v = (v ^ 0x800000) - 0x800000  # sign-extend 24 -> 32 bit
-    wav = (v[:, :-1] / np.float32(_PCM24_SCALE)).astype(np.float32)
+    wav = (v[:, :-1] / np.float32(PCM24_SCALE)).astype(np.float32)
     return wav, v[:, -1].astype(np.int32)
 
 
@@ -237,18 +234,6 @@ def load_vocoder(checkpoint_path, device=None):
 # ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
-
-
-def write_wav(path, audio: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
-    """Mono waveform -> 24-bit PCM .wav."""
-    clipped = np.clip(np.asarray(audio, dtype=np.float32).squeeze(), -1.0, 1.0)
-    scaled = (clipped * _PCM24_SCALE).astype("<i4")
-    frames = np.frombuffer(scaled.tobytes(), dtype=np.uint8).reshape(-1, 4)[:, :3].tobytes()
-    with wave.open(str(path), "wb") as f:
-        f.setnchannels(1)
-        f.setsampwidth(3)
-        f.setframerate(sample_rate)
-        f.writeframes(frames)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -79,7 +79,8 @@ class Decoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  channels: Tuple[int, ...] = (256, 256), attention_head_dim: int = 64,
                  n_blocks: int = 1, num_mid_blocks: int = 2, num_heads: int = 4,
-                 act_fn: str = "snakebeta", mask_mode: str = "additive_reference"):
+                 act_fn: str = "snakebeta", mask_mode: str = "additive_reference",
+                 dropout: float = 0.05):
         super().__init__()
         channels = tuple(channels)
         time_embed_dim = channels[0] * 4
@@ -88,7 +89,8 @@ class Decoder(nn.Module):
 
         def tblocks(dim):
             return nn.ModuleList(
-                BasicTransformerBlock(dim, num_heads, attention_head_dim, act_fn, mask_mode)
+                BasicTransformerBlock(dim, num_heads, attention_head_dim, act_fn, mask_mode,
+                                      dropout)
                 for _ in range(n_blocks))
 
         self.down_blocks = nn.ModuleList()

@@ -1,8 +1,9 @@
 """OT-CFM sampling: integrate the learned vector field with fixed-step Euler.
 
-Port of ``matcha_tpu/models/components/flow_matching.py`` (inference
-only). The terminal noise is either handed in as a unit-normal ``z`` (the
-tests pass JAX's draw, which torch cannot reproduce) or drawn from an
+Port of ``matcha_tpu/models/components/flow_matching.py``: sampling and
+the training loss. The noise (the terminal ``z`` of sampling; the flow
+time ``t`` and the source ``z`` of the loss) is either handed in (the
+tests pass JAX's draws, which torch cannot reproduce) or drawn from an
 explicit ``torch.Generator``.
 """
 
@@ -49,9 +50,31 @@ class CFM(nn.Module):
     """Holds the U-Net as ``estimator`` (the reference's ``decoder``
     module, so its keys read ``decoder.estimator.*``)."""
 
-    def __init__(self, estimator: Decoder):
+    def __init__(self, estimator: Decoder, sigma_min: float = 1e-4):
         super().__init__()
         self.estimator = estimator
+        self.sigma_min = sigma_min
 
     def forward(self, mu, mask, n_timesteps, temperature=1.0, z=None, generator=None):
         return cfm_sample(self.estimator, mu, mask, n_timesteps, temperature, z, generator)
+
+    def compute_loss(self, x1: torch.Tensor, mask: torch.Tensor, mu: torch.Tensor,
+                     t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """OT-CFM loss: regress the estimator at ``y_t = (1 - (1 - sigma_min) t) z
+        + t x1`` onto ``u = x1 - (1 - sigma_min) z``. ``x1``, ``mu``: (B, T,
+        n_feats); ``mask`` (B, T, 1); ``t`` (B,) uniform in [0, 1) and ``z``
+        unit normal like ``x1``, drawn from ``generator`` when not given.
+        The squared error is summed over the whole padded tensor and divided
+        by sum(mask) * n_feats, the reference normalisation."""
+        B = x1.shape[0]
+        if t is None:
+            t = torch.rand(B, generator=generator, device=x1.device, dtype=x1.dtype)
+        if z is None:
+            z = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        t = t.to(x1.device, x1.dtype).reshape(B, 1, 1)
+        z = z.to(x1.device, x1.dtype)
+        y = (1.0 - (1.0 - self.sigma_min) * t) * z + t * x1
+        u = x1 - (1.0 - self.sigma_min) * z
+        pred = self.estimator(y, mask, mu, t[:, 0, 0])
+        return torch.sum((pred - u) ** 2) / (torch.sum(mask) * u.shape[-1])

@@ -2,7 +2,10 @@
 
 The port of ``matcha_tpu/models/components/text_encoder.py`` with the
 reference module names (``emb``, ``prenet``, ``encoder``, ``proj_m``,
-``proj_w``). Tensors are (B, T, C); masks are (B, T, 1) floats.
+``proj_w``). Tensors are (B, T, C); masks are (B, T, 1) floats. Dropout
+sits where the JAX package has it (attention probabilities, FFN hidden,
+both residual branches, prenet, duration predictor) and is active only
+in ``train()`` mode.
 """
 
 import math
@@ -38,7 +41,8 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with RoPE on half the head dims; padded keys get
     -1e4."""
 
-    def __init__(self, channels: int, out_channels: int, n_heads: int):
+    def __init__(self, channels: int, out_channels: int, n_heads: int,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.channels = channels
         self.n_heads = n_heads
@@ -47,6 +51,7 @@ class MultiHeadAttention(nn.Module):
         self.conv_k = PointwiseConv1d(channels, channels)
         self.conv_v = PointwiseConv1d(channels, channels)
         self.conv_o = PointwiseConv1d(channels, out_channels)
+        self.drop = nn.Dropout(p_dropout)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
@@ -63,7 +68,7 @@ class MultiHeadAttention(nn.Module):
 
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.k_channels)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
-        probs = torch.softmax(scores, dim=-1)
+        probs = self.drop(torch.softmax(scores, dim=-1))
         out = torch.matmul(probs, v).transpose(1, 2).reshape(B, T, self.channels)
         return self.conv_o(out)
 
@@ -72,15 +77,16 @@ class FFN(nn.Module):
     """Conv feed-forward with masking between the convs."""
 
     def __init__(self, in_channels: int, out_channels: int, filter_channels: int,
-                 kernel_size: int):
+                 kernel_size: int, p_dropout: float = 0.0):
         super().__init__()
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size,
                              padding=kernel_size // 2)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size,
                              padding=kernel_size // 2)
+        self.drop = nn.Dropout(p_dropout)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.conv_1(x * x_mask))
+        x = self.drop(torch.relu(self.conv_1(x * x_mask)))
         x = self.conv_2(x * x_mask)
         return x * x_mask
 
@@ -89,15 +95,16 @@ class Encoder(nn.Module):
     """Stack of post-norm attention + conv-FFN layers."""
 
     def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
-                 n_layers: int, kernel_size: int = 1):
+                 n_layers: int, kernel_size: int = 1, p_dropout: float = 0.0):
         super().__init__()
+        self.drop = nn.Dropout(p_dropout)
         self.attn_layers = nn.ModuleList(
-            MultiHeadAttention(hidden_channels, hidden_channels, n_heads)
+            MultiHeadAttention(hidden_channels, hidden_channels, n_heads, p_dropout)
             for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(
             ChannelLayerNorm(hidden_channels) for _ in range(n_layers))
         self.ffn_layers = nn.ModuleList(
-            FFN(hidden_channels, hidden_channels, filter_channels, kernel_size)
+            FFN(hidden_channels, hidden_channels, filter_channels, kernel_size, p_dropout)
             for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(
             ChannelLayerNorm(hidden_channels) for _ in range(n_layers))
@@ -107,8 +114,8 @@ class Encoder(nn.Module):
         for attn, norm1, ffn, norm2 in zip(self.attn_layers, self.norm_layers_1,
                                            self.ffn_layers, self.norm_layers_2):
             x = x * x_mask
-            x = norm1(x + attn(x, attn_mask))
-            x = norm2(x + ffn(x, x_mask))
+            x = norm1(x + self.drop(attn(x, attn_mask)))
+            x = norm2(x + self.drop(ffn(x, x_mask)))
         return x * x_mask
 
 
@@ -116,8 +123,9 @@ class ConvReluNorm(nn.Module):
     """Residual conv prenet (n_layers x conv + channel LN + relu)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int,
-                 kernel_size: int, n_layers: int):
+                 kernel_size: int, n_layers: int, p_dropout: float = 0.0):
         super().__init__()
+        self.drop = nn.Dropout(p_dropout)
         self.conv_layers = nn.ModuleList(
             Conv1d(in_channels if i == 0 else hidden_channels, hidden_channels,
                    kernel_size, padding=kernel_size // 2)
@@ -129,15 +137,17 @@ class ConvReluNorm(nn.Module):
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         x_org = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
-            x = torch.relu(norm(conv(x * x_mask)))
+            x = self.drop(torch.relu(norm(conv(x * x_mask))))
         return (x_org + self.proj(x)) * x_mask
 
 
 class DurationPredictor(nn.Module):
     """Two masked convs + channel LN -> one log-duration per token."""
 
-    def __init__(self, in_channels: int, filter_channels: int, kernel_size: int):
+    def __init__(self, in_channels: int, filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.drop = nn.Dropout(p_dropout)
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size,
                              padding=kernel_size // 2)
         self.norm_1 = ChannelLayerNorm(filter_channels)
@@ -147,8 +157,8 @@ class DurationPredictor(nn.Module):
         self.proj = PointwiseConv1d(filter_channels, 1)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        x = self.norm_1(torch.relu(self.conv_1(x * x_mask)))
-        x = self.norm_2(torch.relu(self.conv_2(x * x_mask)))
+        x = self.drop(self.norm_1(torch.relu(self.conv_1(x * x_mask))))
+        x = self.drop(self.norm_2(torch.relu(self.conv_2(x * x_mask))))
         return self.proj(x * x_mask) * x_mask
 
 
@@ -159,15 +169,17 @@ class TextEncoder(nn.Module):
     def __init__(self, n_vocab: int, n_feats: int, n_channels: int = 192,
                  filter_channels: int = 768, filter_channels_dp: int = 256,
                  n_heads: int = 2, n_layers: int = 6, kernel_size: int = 3,
-                 prenet: bool = True, dp_kernel_size: int = 3):
+                 prenet: bool = True, dp_kernel_size: int = 3, p_dropout: float = 0.1):
         super().__init__()
         self.n_channels = n_channels
         self.emb = nn.Embedding(n_vocab, n_channels)
         self.prenet = (ConvReluNorm(n_channels, n_channels, n_channels, kernel_size=5,
-                                    n_layers=3) if prenet else None)
-        self.encoder = Encoder(n_channels, filter_channels, n_heads, n_layers, kernel_size)
+                                    n_layers=3, p_dropout=0.5) if prenet else None)
+        self.encoder = Encoder(n_channels, filter_channels, n_heads, n_layers, kernel_size,
+                               p_dropout)
         self.proj_m = PointwiseConv1d(n_channels, n_feats)
-        self.proj_w = DurationPredictor(n_channels, filter_channels_dp, dp_kernel_size)
+        self.proj_w = DurationPredictor(n_channels, filter_channels_dp, dp_kernel_size,
+                                        p_dropout)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor):
         h = self.emb(x) * math.sqrt(self.n_channels)
@@ -175,5 +187,7 @@ class TextEncoder(nn.Module):
             h = self.prenet(h, x_mask)
         h = self.encoder(h, x_mask)
         mu = self.proj_m(h) * x_mask
-        logw = self.proj_w(h, x_mask)
+        # the duration predictor sees a detached copy: the duration loss
+        # trains only the predictor, never the encoder
+        logw = self.proj_w(h.detach(), x_mask)
         return mu, logw

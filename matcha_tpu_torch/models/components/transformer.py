@@ -4,6 +4,10 @@ Port of ``matcha_tpu/models/components/transformer.py`` with the
 reference parameter names (``norm1``, ``attn1.to_q/to_k/to_v/to_out.0``,
 ``norm3``, ``ff.net.0.proj``, ``ff.net.0.alpha/beta``, ``ff.net.2``).
 Attention is a plain matmul + softmax, as the JAX package writes it.
+Dropout sits at the JAX package's two sites (after the feed-forward's
+activation, after the attention's output projection), in the reference's
+parameter-free slots ``ff.net.1`` and ``attn1.to_out.1``, and is active
+only in ``train()`` mode.
 
 ``mask_mode="additive_reference"`` (default) ADDS the 0/1 key mask to the
 scores, the reference/diffusers behaviour converted checkpoints were
@@ -55,9 +59,10 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """``net`` = [activation with its projection, dropout slot, Linear]."""
+    """``net`` = [activation with its projection, dropout, Linear]."""
 
-    def __init__(self, dim: int, mult: int = 4, activation_fn: str = "snakebeta"):
+    def __init__(self, dim: int, mult: int = 4, activation_fn: str = "snakebeta",
+                 dropout: float = 0.0):
         super().__init__()
         inner = dim * mult
         if activation_fn == "snakebeta":
@@ -70,7 +75,7 @@ class FeedForward(nn.Module):
             act = GEGLU(dim, inner)
         else:
             raise ValueError(f"Unknown activation_fn {activation_fn!r}")
-        self.net = nn.ModuleList([act, nn.Identity(), nn.Linear(inner, dim)])
+        self.net = nn.ModuleList([act, nn.Dropout(dropout), nn.Linear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.net:
@@ -83,7 +88,7 @@ class Attention(nn.Module):
     1/sqrt(head_dim), mask per ``mask_mode`` (see module doc)."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 mask_mode: str = "additive_reference"):
+                 mask_mode: str = "additive_reference", dropout: float = 0.0):
         super().__init__()
         if mask_mode not in ("additive_reference", "proper"):
             raise ValueError(f"Unknown mask_mode {mask_mode!r}")
@@ -92,7 +97,7 @@ class Attention(nn.Module):
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(query_dim, inner, bias=False)
         self.to_v = nn.Linear(query_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Dropout(dropout)])
 
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -111,19 +116,20 @@ class Attention(nn.Module):
                 scores = scores + key_mask
         probs = torch.softmax(scores, dim=-1)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(B, T, self.heads * self.dim_head)
-        return self.to_out[0](out)
+        return self.to_out[1](self.to_out[0](out))
 
 
 class BasicTransformerBlock(nn.Module):
     """Pre-norm self-attention + feed-forward, each with a residual."""
 
     def __init__(self, dim: int, num_attention_heads: int, attention_head_dim: int,
-                 activation_fn: str = "snakebeta", mask_mode: str = "additive_reference"):
+                 activation_fn: str = "snakebeta", mask_mode: str = "additive_reference",
+                 dropout: float = 0.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, num_attention_heads, attention_head_dim, mask_mode)
+        self.attn1 = Attention(dim, num_attention_heads, attention_head_dim, mask_mode, dropout)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim, activation_fn=activation_fn)
+        self.ff = FeedForward(dim, activation_fn=activation_fn, dropout=dropout)
 
     def forward(self, hidden_states: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -34,21 +34,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed.
-    The build writes a file of its own and renames it into place, so
-    processes that build at once do not see each other's partial output."""
-    if name not in _loaded:
+def _finish(name: str, proc: subprocess.Popen, tmp: Path, path: Path) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{out}")
+    os.replace(tmp, path)
+
+
+def load_all(names) -> dict:
+    """The loaded libraries for ``csrc/<name>.cu``, each name built first
+    if needed, all missing ones at once (one ``nvcc`` each, started
+    together). A build writes a file of its own and renames it into
+    place, so processes that build at once do not see each other's
+    partial output."""
+    builds = []
+    for name in names:
         path = library_path(name)
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(CSRC / f"{name}.cu")],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n"
-                                   f"{proc.stdout}")
-            os.replace(tmp, path)
-        _loaded[name] = ctypes.CDLL(str(path))
-    return _loaded[name]
+        if name in _loaded or path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds.append((name, proc, tmp, path))
+    try:
+        for build in builds:
+            _finish(*build)
+    finally:
+        for _, proc, _, _ in builds:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name in names:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return {name: _loaded[name] for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    return load_all([name])[name]

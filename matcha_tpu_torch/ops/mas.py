@@ -1,0 +1,128 @@
+"""Monotonic Alignment Search: the CUDA kernel's wrapper and its plain version.
+
+``maximum_path(value, mask)`` is the port of ``matcha_tpu/ops/mas.py``
+(and of the Pallas kernel ``matcha_tpu/ops/mas_pallas.py``) with the same
+contract: value and mask (B, T_x, T_y), the per-row lengths read off the
+mask, a 0/1 path (B, T_x, T_y) in the mask's dtype. A CUDA tensor
+launches the kernel in ``csrc/mas.cu`` (or raises); a CPU tensor takes
+``maximum_path_reference``. Both are bit-identical to the JAX package's
+``scan`` and Pallas paths, ties included: they add, max and compare the
+same f32 values in the same order.
+
+No gradient flows through the search; its inputs are detached.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from matcha_tpu_torch.ops import cuda_build
+
+#: launches of the CUDA kernel in this process (the CPU path does not count)
+LAUNCHES = {"maximum_path": 0}
+
+MAX_NEG_VAL = -1e9
+MAX_CHUNKS = 4  # x cells per thread, compiled into the kernel
+MAX_THREADS = 1024
+MAX_T_X = MAX_CHUNKS * MAX_THREADS
+
+
+def _lengths(mask_f: torch.Tensor):
+    t_xs = mask_f[:, :, 0].sum(dim=1).to(torch.int32)
+    t_ys = mask_f[:, 0, :].sum(dim=1).to(torch.int32)
+    return t_xs, t_ys
+
+
+def maximum_path_reference(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain version: the banded Viterbi forward, one row of y at a time
+    over all B and x at once, keeping every row, then the backtrack from
+    ``index = t_x - 1``. The port of ``matcha_tpu/ops/mas_ref.py``."""
+    value, mask = value.detach(), mask.detach()
+    B, T_x, T_y = value.shape
+    dev = value.device
+    mask_f = mask.to(torch.float32)
+    lp = value.to(torch.float32) * mask_f
+    t_xs, t_ys = _lengths(mask_f)
+    xs = torch.arange(T_x, dtype=torch.int32, device=dev)[None, :]
+    t_x, t_y = t_xs[:, None], t_ys[:, None]
+
+    neg = torch.full((B, 1), MAX_NEG_VAL, dtype=torch.float32, device=dev)
+    first = torch.zeros((B, 1), dtype=torch.float32, device=dev)
+    prev = torch.full((B, T_x), MAX_NEG_VAL, dtype=torch.float32, device=dev)
+    rows = []
+    for y in range(T_y):
+        shifted = torch.cat([first if y == 0 else neg, prev[:, :-1]], dim=1)
+        new = torch.maximum(prev, shifted) + lp[:, :, y]
+        in_band = (xs <= y) & (xs >= t_x + y - t_y) & (xs < t_x) & (y < t_y)
+        prev = torch.where(in_band, new, neg)
+        rows.append(prev)
+
+    path = torch.zeros((B, T_x, T_y), dtype=torch.float32, device=dev)
+    batch = torch.arange(B, device=dev)
+    index = (t_xs - 1).long()
+    for y in range(T_y - 1, -1, -1):
+        active = y < t_ys
+        hit = active & (index >= 0)
+        path[batch[hit], index[hit], y] = 1.0
+        if y == 0:
+            break
+        row = rows[y - 1]
+        v_idx = row.gather(1, index.clamp(min=0)[:, None])[:, 0]
+        v_im1 = row.gather(1, (index - 1).clamp(min=0)[:, None])[:, 0]
+        move = (index != 0) & ((index == y) | (v_idx < v_im1)) & active
+        index = index - move.long()
+    return (path * mask_f).to(mask.dtype)
+
+
+@functools.cache
+def _library():
+    lib = cuda_build.load("mas")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mas_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.mas_launch.restype = ctypes.c_int
+    lib.mas_error_string.argtypes = [ctypes.c_int]
+    lib.mas_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    if value.dim() != 3 or value.shape != mask.shape:
+        raise ValueError(f"maximum_path takes value and mask of one (B, T_x, T_y) shape, "
+                         f"got {tuple(value.shape)} and {tuple(mask.shape)}")
+    if value.device != mask.device:
+        raise ValueError(f"value on {value.device}, mask on {mask.device}")
+    B, T_x, T_y = value.shape
+    if T_x > MAX_T_X:
+        raise ValueError(f"T_x={T_x}: the MAS kernel takes at most {MAX_T_X} text positions")
+    if B == 0 or T_x == 0 or T_y == 0:
+        return torch.zeros_like(mask)
+    mask_f = mask.detach().to(torch.float32)
+    lp = (value.detach().to(torch.float32) * mask_f).contiguous()
+    t_xs, t_ys = _lengths(mask_f)
+    threads = min(MAX_THREADS, -(-T_x // 32) * 32)
+    chunks = -(-T_x // threads)
+    words = -(-T_x // 32)
+    bits = torch.empty((B, T_y, words), dtype=torch.int32, device=value.device)
+    path = torch.zeros((B, T_x, T_y), dtype=torch.float32, device=value.device)
+    lib = _library()
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        err = lib.mas_launch(lp.data_ptr(), t_xs.data_ptr(), t_ys.data_ptr(), bits.data_ptr(),
+                             path.data_ptr(), B, T_x, T_y, threads, stream)
+    if err != 0:
+        raise RuntimeError(f"maximum_path launch failed: {lib.mas_error_string(err).decode()} "
+                           f"(B={B}, T_x={T_x}, T_y={T_y}, {threads} threads x {chunks} chunks)")
+    LAUNCHES["maximum_path"] += 1
+    return (path * mask_f).to(mask.dtype)
+
+
+def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The most likely monotonic alignment, (B, T_x, T_y) 0/1 in the
+    mask's dtype. CUDA tensors run the hand-written kernel; CPU tensors
+    the plain version."""
+    if value.device.type == "cpu":
+        return maximum_path_reference(value, mask)
+    if value.device.type != "cuda":
+        raise ValueError(f"maximum_path runs on CUDA or CPU tensors, not {value.device}")
+    return _launch(value, mask)

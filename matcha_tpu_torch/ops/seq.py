@@ -1,4 +1,5 @@
-"""Sequence math: masks, length rounding, the duration path."""
+"""Sequence math: masks, length rounding, the duration path, the
+duration loss and the mel normalisation."""
 
 import math
 
@@ -18,6 +19,11 @@ def fix_len_compatibility(length: int, num_downsamplings_in_unet: int = 2) -> in
     return int(math.ceil(length / factor) * factor)
 
 
+def round_up(n: int, grid: int) -> int:
+    """Round ``n`` up to a multiple of ``grid`` (the data buckets)."""
+    return ((n + grid - 1) // grid) * grid
+
+
 def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Expand per-token durations (B, T_x) into a 0/1 alignment
     (B, T_x, T_y): row x covers frames [cumsum_{<x}, cumsum_{<=x})."""
@@ -27,6 +33,18 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     path = path.reshape(b, t_x, t_y)
     path = path - torch.nn.functional.pad(path, (0, 0, 1, 0))[:, :-1]
     return path * mask
+
+
+def duration_loss(logw: torch.Tensor, logw_: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """MSE between predicted and target log-durations, normalised by the
+    total token count."""
+    return torch.sum((logw - logw_) ** 2) / torch.sum(lengths)
+
+
+def normalize(data, mu: float, std: float):
+    """Mel normalisation: (data - mu) / std."""
+    return (data - mu) / std
 
 
 def denormalize(data: torch.Tensor, mu: float, std: float) -> torch.Tensor:

@@ -1,0 +1,525 @@
+"""Training loop on one device: Adam, global-norm clipping, checkpoints.
+
+The port of ``matcha_tpu/training/trainer.py`` for a single device:
+
+* ``make_optimizer``: ``torch.optim.Adam`` (or ``AdamW`` with weight
+  decay) and, for the config's ``scheduler``, a ``LambdaLR`` with optax's
+  ``exponential_decay`` (non-staircase) or ``cosine_decay_schedule``;
+* ``clip_by_global_norm_``: optax's formula, ``g / norm * max_norm`` when
+  ``norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 and
+  differs), computed on the device with no host sync;
+* ``train_step`` / ``eval_step``: the noise of a step (flow time, source
+  noise, segment offsets) comes from a generator seeded from
+  ``(seed, step)``, as the JAX step folds the step into its key; dropout
+  draws from the global generator, seeded the same way;
+* ``Trainer``: ``fit``, ``validate``, ``log_every_n_steps``,
+  ``max_steps``/``max_epochs``, ``fast_dev_run``, ``limit_*_batches``,
+  ``overfit_batches``, ``last`` and top-k checkpoints with the
+  ``topk.json`` ledger, and resume from a checkpoint;
+* ``MetricLogger``: CSV, plus tensorboard when it is installed. Metric
+  names are the reference's (``loss/train``, ``sub_loss/train_dur_loss``,
+  ..., ``grad_norm/total``).
+
+Precision: params, gradients and Adam moments are f32. ``"bf16"``,
+``"bf16-mixed"`` and ``"16-mixed"`` are not ported; every other string
+(the config's ``"bf16-compute"`` included) trains in f32.
+"""
+
+import json
+import logging
+import math
+import os
+import queue
+import sys
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from matcha_tpu_torch.models.matcha import MatchaTTS
+from matcha_tpu_torch.utils.checkpoints import load_native_checkpoint, save_native_checkpoint
+
+log = logging.getLogger(__name__)
+
+BF16_PRECISIONS = ("bf16", "bf16-mixed", "16-mixed")
+
+
+def make_schedule(scheduler: Optional[dict] = None) -> Optional[Callable[[int], float]]:
+    """The learning-rate factor at an update count, or None for a constant
+    rate. {"name": "exponential", "gamma": g, "interval_steps": n} gives
+    g ** (step / n); {"name": "cosine", "decay_steps": n} gives
+    (1 + cos(pi * min(step, n) / n)) / 2."""
+    if not scheduler:
+        return None
+    name = scheduler.get("name", "exponential")
+    if name == "exponential":
+        gamma = float(scheduler.get("gamma", 0.999))
+        interval = int(scheduler.get("interval_steps", 1000))
+        return lambda step: gamma ** (step / interval)
+    if name == "cosine":
+        decay_steps = int(scheduler.get("decay_steps", 100_000))
+        return lambda step: 0.5 * (1.0 + math.cos(math.pi * min(step, decay_steps) / decay_steps))
+    raise ValueError(f"Unknown scheduler {name!r}")
+
+
+def make_optimizer(model: torch.nn.Module, lr: float = 1e-4, weight_decay: float = 0.0,
+                   scheduler: Optional[dict] = None):
+    """(optimizer, lr_scheduler or None): Adam, AdamW with decay."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    if weight_decay:
+        opt = torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+    else:
+        opt = torch.optim.Adam(params, lr=lr)
+    factor = make_schedule(scheduler)
+    return opt, (torch.optim.lr_scheduler.LambdaLR(opt, factor) if factor else None)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as optax.global_norm."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """Clip in place with optax's rule: leave ``grads`` as they are when
+    their global norm is below ``max_norm``, else ``g / norm * max_norm``.
+    Returns the norm before clipping. No host sync."""
+    grads = list(grads)
+    norm = global_norm(grads)
+    if max_norm:
+        keep = norm < max_norm
+        one = torch.ones_like(norm)
+        torch._foreach_div_(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
+    return norm
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of a step's noise: a function of the run's seed and the
+    step count only, so a resumed run draws what an unbroken one would."""
+    return ((seed + 17) * 1_000_003 + step) % (2**63)
+
+
+def to_device(batch: dict, device) -> dict:
+    """Numpy batch -> tensors on ``device`` (ids as int64)."""
+    out = {}
+    for k, v in batch.items():
+        if v is None:
+            out[k] = None
+            continue
+        t = torch.as_tensor(v).to(device, non_blocking=True)
+        out[k] = t.long() if k == "x" else t
+    return out
+
+
+def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int, seed: int,
+               out_size: Optional[int] = None, gradient_clip_val: float = 5.0,
+               noise: Optional[dict] = None,
+               on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+    """One update on a batch of tensors on the model's device. ``noise``:
+    optional ``t``, ``z``, ``offsets`` for ``MatchaTTS.losses``, else
+    drawn from the step's generator. ``on_phase(name)`` is called after
+    "forward", "backward" and "optimizer" (for timing). Returns the
+    metrics as 0-d tensors on the device."""
+    model.train()
+    device = batch["y"].device
+    gen = torch.Generator(device=device).manual_seed(step_seed(seed, step))
+    torch.manual_seed(step_seed(seed + 1, step))  # dropout
+    dur, prior, diff, _ = model.losses(
+        batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], out_size,
+        durations=batch.get("durations"), generator=gen, **(noise or {}))
+    loss = dur + prior + diff
+    if on_phase:
+        on_phase("forward")
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    if on_phase:
+        on_phase("backward")
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    grad_norm = clip_by_global_norm_(grads, gradient_clip_val)
+    optimizer.step()
+    if lr_scheduler is not None:
+        lr_scheduler.step()
+    if on_phase:
+        on_phase("optimizer")
+    return {"dur_loss": dur.detach(), "prior_loss": prior.detach(), "diff_loss": diff.detach(),
+            "loss": loss.detach(), "grad_norm": grad_norm}
+
+
+@torch.no_grad()
+def eval_step(model: MatchaTTS, batch: dict, out_size: Optional[int] = None
+              ) -> Dict[str, torch.Tensor]:
+    """The losses of a batch with dropout off, noise from a fixed seed."""
+    model.eval()
+    gen = torch.Generator(device=batch["y"].device).manual_seed(0)
+    dur, prior, diff, _ = model.losses(
+        batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], out_size,
+        durations=batch.get("durations"), generator=gen)
+    return {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff, "loss": dur + prior + diff}
+
+
+class MetricLogger:
+    """Scalars to CSV (``csv_path``) and to tensorboard (``logdir``) when
+    ``torch.utils.tensorboard`` can be imported; other backends are not
+    ported and are skipped with a warning."""
+
+    def __init__(self, logdir: Optional[str], csv_path: Optional[str] = None,
+                 backends: Optional[dict] = None):
+        self.writer = None
+        self._csv = None
+        self._csv_fields = None
+        self._csv_path = csv_path
+        if logdir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                os.makedirs(logdir, exist_ok=True)
+                self.writer = SummaryWriter(logdir)
+            except ImportError:
+                log.warning("tensorboard not available; metrics not persisted there")
+        if csv_path:
+            os.makedirs(os.path.dirname(csv_path) or ".", exist_ok=True)
+            self._csv = open(csv_path, "a", encoding="utf-8", buffering=1)
+        for name in backends or {}:
+            log.warning(f"logger backend {name!r} is not ported; skipping")
+
+    def scalars(self, metrics: Dict[str, float], step: int) -> None:
+        if self.writer:
+            for k, v in metrics.items():
+                self.writer.add_scalar(k, float(v), step)
+        if self._csv:
+            new_fields = [k for k in sorted(metrics)
+                          if self._csv_fields is None or k not in self._csv_fields]
+            if self._csv_fields is None:
+                self._csv_fields = ["step"] + new_fields
+                self._csv.write(",".join(self._csv_fields) + "\n")
+            elif new_fields:
+                # the key set grew (the first validation adds its columns):
+                # rewrite the file under the widened header
+                self._csv_fields += new_fields
+                self._csv.close()
+                with open(self._csv_path, encoding="utf-8") as f:
+                    lines = f.read().splitlines()
+                pad = "," * len(new_fields)
+                self._csv = open(self._csv_path, "w", encoding="utf-8", buffering=1)
+                self._csv.write(",".join(self._csv_fields) + "\n")
+                for line in lines[1:]:
+                    self._csv.write(line + pad + "\n")
+            row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+            self._csv.write(",".join(str(row.get(f, "")) for f in self._csv_fields) + "\n")
+
+    def hparams(self, hparams: dict) -> None:
+        if self.writer:
+            text = "\n".join(f"{k}: {v}" for k, v in hparams.items())
+            self.writer.add_text("hparams", "```\n" + text + "\n```", 0)
+
+    def close(self) -> None:
+        if self.writer:
+            self.writer.close()
+        if self._csv:
+            self._csv.close()
+
+
+def summarize_params(model: torch.nn.Module, max_depth: int = 3) -> str:
+    """Parameter counts grouped by module path up to ``max_depth``."""
+    counts: Dict[str, int] = {}
+    for name, p in model.named_parameters():
+        key = ".".join(name.split(".")[:max_depth])
+        counts[key] = counts.get(key, 0) + p.numel()
+    width = max([len(k) for k in counts] + [6])
+    lines = [f"{'module':<{width}}  params"]
+    lines += [f"{k:<{width}}  {v:,}" for k, v in sorted(counts.items())]
+    lines.append(f"{'TOTAL':<{width}}  {sum(counts.values()):,}")
+    return "\n".join(lines)
+
+
+def prefetch_iterator(iterator, depth: int = 2, pin: bool = False):
+    """Batches from ``iterator`` made ahead in a background thread (numpy
+    -> torch, pinned when ``pin``), so the host prepares the next batch
+    while the card runs this one."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    failure = []
+
+    def convert(batch):
+        out = {}
+        for k, v in batch.items():
+            t = None if v is None else torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t.pin_memory() if pin and t is not None else t
+        return out
+
+    def producer():
+        try:
+            for item in iterator:
+                q.put(convert(item))
+        except BaseException as e:  # handed to the consumer, which re-raises it
+            failure.append(e)
+        finally:
+            q.put(end)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            if failure:
+                raise failure[0]
+            return
+        yield item
+
+
+class Trainer:
+    """Epoch-driven training on one device (the Lightning Trainer analog)."""
+
+    def __init__(
+        self,
+        model: MatchaTTS,
+        datamodule,
+        device,
+        out_size: Optional[int] = None,
+        lr: float = 1e-4,
+        weight_decay: float = 0.0,
+        gradient_clip_val: float = 5.0,
+        max_epochs: int = -1,
+        max_steps: int = -1,
+        check_val_every_n_epoch: int = 1,
+        log_every_n_steps: int = 10,
+        output_dir: str = "logs/train/runs/default",
+        seed: int = 1234,
+        fast_dev_run: bool = False,
+        overfit_batches: int = 0,
+        limit_train_batches: Optional[float] = None,
+        limit_val_batches: Optional[float] = None,
+        detect_anomaly: bool = False,
+        save_every_n_epochs: int = 100,
+        save_top_k: int = 10,
+        monitor: str = "epoch",
+        monitor_mode: str = "max",
+        enable_checkpointing: bool = True,
+        save_last: bool = True,
+        model_summary_depth: int = 0,
+        enable_progress_bar: bool = False,
+        precision: str = "f32",
+        hparams: Optional[dict] = None,
+        scheduler: Optional[dict] = None,
+        loggers: Optional[dict] = None,
+    ):
+        if precision in BF16_PRECISIONS:
+            raise NotImplementedError(f"precision={precision!r} is not ported; the port "
+                                      "trains in f32")
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.dm = datamodule
+        self.out_size = out_size
+        self.gradient_clip_val = gradient_clip_val
+        self.max_epochs = max_epochs
+        self.max_steps = max_steps
+        self.check_val_every_n_epoch = check_val_every_n_epoch
+        self.log_every_n_steps = log_every_n_steps
+        self.output_dir = output_dir
+        self.seed = seed
+        self.fast_dev_run = fast_dev_run
+        self.overfit_batches = overfit_batches
+        self.limit_train_batches = limit_train_batches
+        self.limit_val_batches = limit_val_batches
+        self.detect_anomaly = detect_anomaly
+        self.save_every_n_epochs = save_every_n_epochs
+        self.save_top_k = save_top_k
+        # top-k keeps the best `monitor` values: `epoch` max keeps the most
+        # recent k, `loss/val` min the best-validating k
+        self.monitor = monitor
+        self.monitor_mode = monitor_mode
+        self.enable_checkpointing = enable_checkpointing
+        self.save_last = save_last
+        self.model_summary_depth = model_summary_depth
+        self.enable_progress_bar = enable_progress_bar
+        self.hparams = hparams or {}
+        self.optimizer, self.lr_scheduler = make_optimizer(model, lr, weight_decay, scheduler)
+        self.step = 0
+        self._start_epoch = 0
+        self._last_val: Dict[str, float] = {}
+        self._last_val_epoch = -1
+        loggers = loggers if loggers is not None else {"tensorboard": {}}
+        tb_dir = os.path.join(output_dir, "tensorboard") if "tensorboard" in loggers else None
+        csv_path = os.path.join(output_dir, "csv", "metrics.csv") if "csv" in loggers else None
+        self.logger = MetricLogger(tb_dir, csv_path, backends={
+            k: v for k, v in loggers.items() if k not in ("tensorboard", "csv")})
+        # the top-k ledger survives restarts in checkpoints/topk.json, so a
+        # resumed run keeps pruning the checkpoints of the earlier one
+        self._ckpt_epochs: list = []
+        self._ckpt_seq = 0
+        self._load_topk_ledger()
+
+    # ------------------------------------------------------------------
+    def _topk_ledger_path(self) -> str:
+        return os.path.join(self.output_dir, "checkpoints", "topk.json")
+
+    def _load_topk_ledger(self) -> None:
+        try:
+            with open(self._topk_ledger_path()) as f:
+                entries = json.load(f)
+        except (OSError, ValueError):
+            return
+        ckpt_dir = os.path.join(self.output_dir, "checkpoints")
+        for score, seq, name in entries:
+            path = os.path.join(ckpt_dir, name)
+            if os.path.exists(path):  # checkpoints deleted by hand drop out
+                self._ckpt_epochs.append((float(score), int(seq), path))
+                self._ckpt_seq = max(self._ckpt_seq, int(seq) + 1)
+
+    def _save_topk_ledger(self) -> None:
+        entries = [(s, q, os.path.basename(p)) for s, q, p in self._ckpt_epochs]
+        tmp = self._topk_ledger_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(entries, f)
+        os.replace(tmp, self._topk_ledger_path())
+
+    def restore(self, path: str) -> None:
+        """Continue from a native checkpoint: weights, Adam moments, the
+        schedule's position, the step and the completed epochs."""
+        payload = load_native_checkpoint(path, map_location=self.device)
+        self.model.load_state_dict(payload["model"])
+        if "optimizer" in payload:
+            self.optimizer.load_state_dict(payload["optimizer"])
+        else:
+            log.warning("Checkpoint has no optimizer state; re-initialising Adam moments")
+        if self.lr_scheduler is not None and "scheduler" in payload:
+            self.lr_scheduler.load_state_dict(payload["scheduler"])
+        self.step = int(payload["step"])
+        self._start_epoch = int(payload.get("epoch", 0))
+        log.info(f"Restored checkpoint at step {self.step} (epoch {self._start_epoch}) "
+                 f"from {path}")
+
+    # ------------------------------------------------------------------
+    def fit(self, restore_from: Optional[str] = None) -> Dict[str, float]:
+        if restore_from:
+            self.restore(restore_from)
+        self.dm.setup()
+        n_params = sum(p.numel() for p in self.model.parameters())
+        log.info(f"Model parameters: {n_params / 1e6:.2f}M | device: {self.device}")
+        if self.model_summary_depth > 0:
+            log.info("Model summary:\n" + summarize_params(self.model, self.model_summary_depth))
+        self.logger.hparams({**self.hparams, "n_params": n_params})
+        pin = self.device.type == "cuda"
+
+        last_metrics: Dict[str, float] = {}
+        epoch = self._start_epoch
+        max_epochs = (epoch + 1 if self.fast_dev_run  # one step, even resumed
+                      else (self.max_epochs if self.max_epochs > 0 else 10**9))
+        stop = False
+        with torch.autograd.set_detect_anomaly(self.detect_anomaly):
+            while epoch < max_epochs and not stop:
+                t_epoch = time.time()
+                if self.overfit_batches:
+                    batches = self.dm.train_batches(0)
+                    batches = [b for _, b in zip(range(self.overfit_batches), batches)]
+                else:
+                    batches = self.dm.train_batches(epoch, limit=self.limit_train_batches)
+                for batch in prefetch_iterator(batches, pin=pin):
+                    metrics = train_step(self.model, self.optimizer, self.lr_scheduler,
+                                         to_device(batch, self.device), self.step, self.seed,
+                                         self.out_size, self.gradient_clip_val)
+                    self.step += 1
+                    if self.step % self.log_every_n_steps == 0 or self.fast_dev_run:
+                        host = {k: float(v) for k, v in metrics.items()}
+                        last_metrics = host
+                        self.logger.scalars({
+                            "step": self.step,
+                            "loss/train": host["loss"],
+                            "sub_loss/train_dur_loss": host["dur_loss"],
+                            "sub_loss/train_prior_loss": host["prior_loss"],
+                            "sub_loss/train_diff_loss": host["diff_loss"],
+                            "grad_norm/total": host["grad_norm"],
+                        }, self.step)
+                        log.info(f"epoch {epoch} step {self.step}: loss={host['loss']:.4f} "
+                                 f"(dur {host['dur_loss']:.4f} prior {host['prior_loss']:.4f} "
+                                 f"diff {host['diff_loss']:.4f}) "
+                                 f"grad_norm={host['grad_norm']:.3f}")
+                    if self.enable_progress_bar and sys.stdout.isatty():
+                        print(f"\repoch {epoch} | step {self.step}", end="", flush=True)
+                    if self.fast_dev_run or (self.max_steps > 0 and self.step >= self.max_steps):
+                        stop = True
+                        break
+
+                if (epoch + 1) % self.check_val_every_n_epoch == 0 or self.fast_dev_run:
+                    val = self.validate(epoch)
+                    self._last_val = val
+                    self._last_val_epoch = epoch + 1
+                    last_metrics.update({f"val_{k}": v for k, v in val.items()})
+                self._maybe_checkpoint(epochs_done=epoch + 1)
+                log.info(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s")
+                epoch += 1
+
+        self.logger.close()
+        return {"loss/train": last_metrics.get("loss", float("nan")),
+                "loss/val": last_metrics.get("val_loss", float("nan"))}
+
+    # ------------------------------------------------------------------
+    def validate(self, epoch: int) -> Dict[str, float]:
+        sums: Dict[str, torch.Tensor] = {}
+        count = 0
+        for batch in self.dm.val_batches(limit=self.limit_val_batches):
+            m = eval_step(self.model, to_device(batch, self.device), self.out_size)
+            for k, v in m.items():
+                sums[k] = sums.get(k, 0.0) + v
+            count += 1
+            if self.fast_dev_run:
+                break
+        if count == 0:
+            return {}
+        means = {k: float(v) / count for k, v in sums.items()}
+        self.logger.scalars({
+            "loss/val": means["loss"],
+            "sub_loss/val_dur_loss": means["dur_loss"],
+            "sub_loss/val_prior_loss": means["prior_loss"],
+            "sub_loss/val_diff_loss": means["diff_loss"],
+        }, self.step)
+        log.info(f"epoch {epoch} validation: loss={means['loss']:.4f}")
+        return means
+
+    # ------------------------------------------------------------------
+    def _monitor_score(self, epoch: int) -> float:
+        """Top-k rank of a checkpoint (larger is better). A validation
+        metric ranks only when it was computed this epoch; otherwise the
+        epoch's recency does, below every fresh score."""
+        if self.monitor == "epoch":
+            val = float(epoch)
+        else:
+            key = self.monitor.replace("loss/val", "loss").replace("val_", "")
+            val = self._last_val.get(key, float("nan"))
+            if self._last_val_epoch != epoch or val != val:
+                return -1e30 + float(epoch)
+        if self.monitor_mode == "min":
+            val = -val
+        return val if val == val else float("-inf")
+
+    def _maybe_checkpoint(self, epochs_done: int) -> None:
+        if not self.enable_checkpointing:
+            return
+        if self.save_last:
+            self._save(epochs_done, tag="last")
+        if self.save_every_n_epochs and epochs_done % self.save_every_n_epochs == 0:
+            path = self._save(epochs_done)
+            # a re-run over the same output_dir re-saves a listed step:
+            # replace its entry rather than list the path twice
+            self._ckpt_epochs = [e for e in self._ckpt_epochs if e[2] != path]
+            self._ckpt_epochs.append((self._monitor_score(epochs_done), self._ckpt_seq, path))
+            self._ckpt_seq += 1
+            if len(self._ckpt_epochs) > self.save_top_k:
+                self._ckpt_epochs.sort()
+                _, _, old = self._ckpt_epochs.pop(0)  # the worst score
+                for stale in (old, old + ".hparams.json"):
+                    try:
+                        os.remove(stale)
+                    except OSError:
+                        pass
+            self._save_topk_ledger()
+
+    def _save(self, epochs_done: int, tag: Optional[str] = None) -> str:
+        """The full training state, so a resume continues bit for bit."""
+        return save_native_checkpoint(
+            os.path.join(self.output_dir, "checkpoints"), self.model,
+            {**self.hparams, "epoch": epochs_done}, step=self.step,
+            optimizer=self.optimizer, scheduler=self.lr_scheduler, epoch=epochs_done,
+            name="last" if tag == "last" else None)

@@ -12,7 +12,7 @@ import torch
 
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused
-from matcha_tpu_torch.ops import mrf
+from matcha_tpu_torch.ops import mas, mrf
 
 KS, DILS = (3, 7, 11), ((1, 3, 5),) * 3
 
@@ -77,3 +77,55 @@ def test_kernel_refuses_what_it_cannot_take(cuda_f32):
                   for k in KS for shape in ((3, k, 32, 32), (3, 32), (3, k, 32, 32), (3, 32)))
     with pytest.raises(ValueError, match="pack_mrf_weights"):
         mrf.fused_mrf_stage(x, loose, KS, DILS)
+
+
+def _mas_problem(seed, B, T_x, T_y, t_xs, t_ys, values):
+    """(value, mask) on the CPU: ragged lengths, values normal, all zero or
+    small integers (ties everywhere)."""
+    g = torch.Generator().manual_seed(seed)
+    if values == "normal":
+        value = torch.randn(B, T_x, T_y, generator=g) * 3
+    elif values == "zeros":
+        value = torch.zeros(B, T_x, T_y)
+    else:
+        value = torch.randint(-2, 3, (B, T_x, T_y), generator=g).float()
+    t_xs, t_ys = torch.tensor(t_xs), torch.tensor(t_ys)
+    mask = ((torch.arange(T_x)[None, :, None] < t_xs[:, None, None])
+            & (torch.arange(T_y)[None, None, :] < t_ys[:, None, None])).float()
+    return value, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_x,T_y,t_xs,t_ys,values,bool_mask", [
+    (1, 1, 8, [1], [8], "normal", False),
+    (3, 37, 901, [37, 20, 1], [901, 400, 60], "normal", False),
+    (3, 37, 901, [37, 20, 1], [901, 400, 60], "zeros", True),
+    (2, 384, 901, [384, 300], [901, 777], "ints", False),
+    (2, 700, 2048, [700, 513], [2048, 1500], "normal", True),
+    (2, 1500, 300, [1500, 40], [300, 300], "normal", False),  # t_x > t_y, 2 chunks per thread
+    (2, 12, 16, [9, 0], [4, 6], "normal", False),  # infeasible and empty rows
+])
+def test_mas_kernel_equals_plain(cuda_f32, B, T_x, T_y, t_xs, t_ys, values, bool_mask):
+    """The kernel's path is EQUAL to the plain version's, ties included."""
+    value, mask = _mas_problem(T_x * 7 + T_y, B, T_x, T_y, t_xs, t_ys, values)
+    if bool_mask:
+        mask = mask.bool()
+    want = mas.maximum_path(value, mask)  # the plain version on the CPU
+    before = mas.LAUNCHES["maximum_path"]
+    got = mas.maximum_path(value.to(cuda_f32), mask.to(cuda_f32))
+    torch.cuda.synchronize()
+    assert mas.LAUNCHES["maximum_path"] == before + 1
+    assert got.dtype == mask.dtype and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(mas.maximum_path_reference(value.to(cuda_f32), mask.to(cuda_f32)).cpu(),
+                       want)
+
+
+@pytest.mark.cuda
+def test_mas_kernel_refuses_what_it_cannot_take(cuda_f32):
+    with pytest.raises(ValueError, match="one \\(B, T_x, T_y\\) shape"):
+        mas.maximum_path(torch.zeros(1, 4, 8, device=cuda_f32),
+                         torch.zeros(1, 4, 9, device=cuda_f32))
+    big = torch.zeros(1, mas.MAX_T_X + 1, 2, device=cuda_f32)
+    with pytest.raises(ValueError, match="at most"):
+        mas.maximum_path(big, big)

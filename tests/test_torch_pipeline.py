@@ -67,7 +67,7 @@ def test_pipeline_matches_jax_dynamic_path(fabricated_ckpts):  # noqa: F811
     wav_u, ml = port_cli._unpack_pcm24(packed.numpy())
     np.testing.assert_array_equal(ml, got["mel_lengths"].numpy())
     # the denoiser may overshoot +-1 slightly; packing clips
-    np.testing.assert_allclose(wav_u, np.clip(wav_t, -1, 1), atol=2.0 / port_cli._PCM24_SCALE)
+    np.testing.assert_allclose(wav_u, np.clip(wav_t, -1, 1), atol=2.0 / port_cli.PCM24_SCALE)
 
 
 def test_pack_pcm24_bytes_are_identical():
