@@ -7,24 +7,34 @@ Phases, one output line each (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA /
    nvcc / Triton versions;
-2. the build of both CUDA sources in ``matcha_tpu_torch/csrc`` (one
+2. the build of the three CUDA sources in ``matcha_tpu_torch/csrc`` (one
    ``nvcc`` each, started together) and its seconds;
 3. kernel K1 (the fused MRF stage) against its plain PyTorch version on
-   the card, TF32 off, at C in {32, 64}, B in {1, 4}, T shorter than one
-   tile, T not a multiple of the tile, and the main path's T; kernel K2
-   (Monotonic Alignment Search) against its plain version on the card,
-   which must be EQUAL, over B, T_x, T_y, ragged lengths, ties and mask
-   dtypes;
+   the card, TF32 off, at C in {32, 64, 128}, B in {1, 4}, T shorter than
+   one tile, T not a multiple of the tile, and the main path's T; kernel
+   K3 (the MRF stage on channels-last activations) against its plain
+   version (the phase-packed products) and against K1 on the transposed
+   input, at C in {16, 32, 64}, B in {1, 3}, T in {100, 700, two tiles +
+   37, 8192}; kernel K2 (Monotonic Alignment Search) against its plain
+   version on the card, which must be EQUAL, over B, T_x, T_y, ragged
+   lengths, ties and mask dtypes;
 4. the serving path at full width: LJSpeech MatchaTTS + HiFi-GAN v1 with
    weights drawn from a seed, phoneme ids -> wav through ``TTSPipeline``
-   on a few sentences, with K1's launch count read around it; then the
-   same pipeline on a short sentence on the GPU and on the CPU (plain
+   on a few sentences, with the kernels' launch counts read around it;
+   the vocoder's variant path (``generator_apply_fused`` with subpixel
+   upsamples, K3 on the narrow stages, the fused cap at 128) at the main
+   path's shape and at the profilers' B = 8 x 1,024 frames, each variant
+   against the plain generator with its K1 and K3 launches counted; then
+   the pipeline on a short sentence on the GPU and on the CPU (plain
    path), which must agree;
 5. times after warm-up: per-request latency and real-time factor, one
    request split by stage (encode, decode, vocoder, denoise), the card's
    busy time and idle share over that request (``torch.profiler``), and K1 per
    stage at the path's shapes and at a 512-frame mel, beside its bound,
-   its plain version and a chain of cuDNN ``F.conv1d`` calls;
+   its plain version and a chain of cuDNN ``F.conv1d`` calls; K3 per
+   narrow stage and K1 at C = 128 at the main path's shape and at
+   B = 8 x 1,024 frames, likewise (K3's yardstick: a transpose, the cuDNN
+   chain, and a transpose back);
 6. the training path at full width (the LJSpeech config, batch 32, no
    segment cut) on a synthetic corpus written from the seed: 5 steps of
    ``python -m matcha_tpu_torch.train`` (through ``train.main``) with
@@ -34,9 +44,8 @@ Phases, one output line each (any failure exits non-zero):
    second, peak memory, one step split by phase, the card's busy time
    over a step, and K2 at the step's shape beside its bound and its plain
    version;
-7. the ``kernels`` line (every TPU kernel of the repo: K1 and K2 ported,
-   K3 not yet, with null times), then the last line
-   ``{"ok": true, "device": {...}}``.
+7. the ``kernels`` line (every TPU kernel of the repo: K1, K2 and K3, all
+   ported), then the last line ``{"ok": true, "device": {...}}``.
 
 All f32 with TF32 off, so that every comparison is against full f32.
 """
@@ -65,6 +74,22 @@ CLEANER = "english_cleaners_no_espeak"
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 K1_TOL = 1e-4  # f32 sums over up to 704 products per conv, taken in another order
+# a full-width vocoder variant against the plain generator, on the tanh
+# output: the fused stages' f32 sums in another order than cuDNN's
+VARIANT_TOL = 1e-5
+# vocoder variants: generator_apply_fused options (None: the plain
+# generator) and the K1 and K3 launches each call must make
+VARIANTS = {
+    "full_pallas_dilated": ({}, 2, 0),
+    "full_pallas_subpixel": ({"upsample_impl": "subpixel"}, 2, 0),
+    "full_xla_dilated": (None, 0, 0),
+    "full_xla_subpixel": (None, 0, 0),
+    "full_pallas_phase": ({"narrow_impl": "phase"}, 0, 2),
+    "full_pallas_phase_subpixel": ({"narrow_impl": "phase", "upsample_impl": "subpixel"}, 0, 2),
+    "cap128_plain": ({"max_fused_channels": 128}, 3, 0),
+    "cap128_phase": ({"max_fused_channels": 128, "narrow_impl": "phase"}, 1, 2),
+}
+PROFILER_SHAPE = (8, 1024)  # B, T_mel of scripts/profile_vocoder*.py
 # GPU against CPU for one training step's losses and gradient norm: f32
 # sums in another order through the full-width model (TF32 off)
 TRAIN_RTOL = 1e-4
@@ -455,6 +480,166 @@ def k2_time(dev, raw) -> dict:
                     "serial_steps = the forward's and the backtrack's dependent row steps"}
 
 
+def random_stage_weights(gen, C: int, dev, kernel_sizes):
+    """One MRF stage's weights from ``gen``, packed as the kernels take them."""
+    import torch
+
+    from matcha_tpu_torch.ops import mrf
+
+    return mrf.pack_mrf_weights([
+        (torch.randn(shape, generator=gen) * (0.3 / (k * C) ** 0.5)).to(dev)
+        for k in kernel_sizes for shape in ((3, k, C, C), (3, C), (3, k, C, C), (3, C))])
+
+
+def k3_check(dev, gen, kernel_sizes, dilations) -> dict:
+    """K3 against its plain version (the phase-packed products) and
+    against K1 on the transposed input, on the card: T shorter than one
+    tile, 700, two tiles + 37 (not a multiple of the tile), 8192."""
+    import torch
+
+    from matcha_tpu_torch.ops import mrf, mrf_phase
+
+    worst, cases = 0.0, []
+    for C in (16, 32, 64):
+        tile = mrf_phase.pick_t_tile(C, 10**6)
+        for B in (1, 3):
+            for T in (100, 700, 2 * tile + 37, 8192):
+                x = torch.randn(B, T, C, generator=gen).to(dev)
+                weights = random_stage_weights(gen, C, dev, kernel_sizes)
+                got = mrf_phase.fused_mrf_stage_phase(x, weights, kernel_sizes, dilations)
+                want = mrf_phase.fused_mrf_stage_phase_reference(x, weights, kernel_sizes,
+                                                                 dilations)
+                k1 = mrf.fused_mrf_stage(x.transpose(1, 2).contiguous(), weights, kernel_sizes,
+                                         dilations)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                err_k1 = (got - k1.transpose(1, 2)).abs().max().item()
+                cases.append({"C": C, "B": B, "T": T, "t_tile": tile, "max_abs_err": err,
+                              "max_abs_err_vs_k1": err_k1})
+                worst = max(worst, err, err_k1)
+                if not (got.shape == x.shape and err < K1_TOL and err_k1 < K1_TOL):
+                    raise AssertionError(f"K3 disagrees: {cases[-1]}")
+    return {"tolerance": K1_TOL, "max_abs_err": worst, "cases": cases}
+
+
+def vocoder_variants(dev, vocoder, shapes) -> dict:
+    """The vocoder's variant path at full width: every variant at each
+    (label, B, T_mel) shape on one mel from the seed, 3 calls each, held
+    against the plain generator with the same upsample; K1's and K3's
+    launches set to 0 before and read after each variant's calls."""
+    import torch
+
+    from matcha_tpu_torch.models.hifigan import Generator
+    from matcha_tpu_torch.models.hifigan_fused import fused_stage_weights, generator_apply_fused
+    from matcha_tpu_torch.ops import mrf, mrf_phase
+
+    reps = 3
+    plain = {"dilated": vocoder, "subpixel": Generator(vocoder.h, upsample_impl="subpixel")}
+    plain["subpixel"].load_state_dict(vocoder.state_dict())
+    plain["subpixel"].to(dev).eval()
+    packed = {64: fused_stage_weights(vocoder), 128: fused_stage_weights(vocoder, 128)}
+    gen = torch.Generator().manual_seed(SEED + 7)
+    out = {"tolerance": VARIANT_TOL, "calls_per_variant": reps, "shapes": []}
+    totals = {"k1": 0, "k3": 0}
+    for label, B, T_mel in shapes:
+        mel = torch.randn(B, T_mel, vocoder.h.num_mels, generator=gen).to(dev)
+        want = {impl: g(mel) for impl, g in plain.items()}
+        rows = {}
+        for name, (kwargs, k1_per_call, k3_per_call) in VARIANTS.items():
+            impl = "subpixel" if "subpixel" in name else "dilated"
+            if kwargs is None:
+                def fn(impl=impl):
+                    return plain[impl](mel)
+            else:
+                weights = packed[kwargs.get("max_fused_channels", 64)]
+
+                def fn(kwargs=kwargs, weights=weights):
+                    return generator_apply_fused(vocoder, mel, weights, **kwargs)
+            torch.cuda.synchronize()
+            mrf.LAUNCHES["mrf_stage"] = mrf_phase.LAUNCHES["mrf_stage_phase"] = 0
+            err = 0.0
+            for _ in range(reps):
+                wav = fn()
+                err = max(err, (wav - want["dilated" if kwargs is None else impl]).abs().max().item())
+            torch.cuda.synchronize()
+            k1, k3 = mrf.LAUNCHES["mrf_stage"], mrf_phase.LAUNCHES["mrf_stage_phase"]
+            totals["k1"] += k1
+            totals["k3"] += k3
+            rows[name] = {"k1_launches": k1, "k3_launches": k3, "max_abs_err": err,
+                          "ms": cuda_ms(fn, reps)}
+            if (k1, k3) != (reps * k1_per_call, reps * k3_per_call):
+                raise AssertionError(f"{name} at {label}: K1 launched {k1} and K3 {k3} times in "
+                                     f"{reps} calls, expected {k1_per_call} and {k3_per_call} each")
+            if not (wav.shape == (B, T_mel * 256, 1) and err < VARIANT_TOL
+                    and bool(torch.isfinite(wav).all())):
+                raise AssertionError(f"{name} at {label}: {tuple(wav.shape)}, error {err}")
+        out["shapes"].append({"shape": label, "B": B, "T_mel": T_mel, "variants": rows})
+    out["launches"] = totals
+    out["note"] = ("error against the plain generator with the same upsample (the subpixel plain "
+                   "generator against the dilated one); ms: CUDA events, mean of 3 calls after "
+                   "the checked ones")
+    return out
+
+
+def stage_times(dev, vocoder, shapes) -> tuple:
+    """K3 at every narrow stage (C <= 64) and K1 at C = 128, at each
+    (label, B, T_mel) shape, on the activations a random mel gives there:
+    each beside its bound, its plain version and its cuDNN yardstick, and
+    K3 beside K1 on the same data."""
+    import torch
+
+    from matcha_tpu_torch.ops import mrf, mrf_phase
+
+    h = vocoder.h
+    ks, dils = h.resblock_kernel_sizes, h.resblock_dilation_sizes
+    gen = torch.Generator().manual_seed(SEED + 8)
+    k3_rows, k1_rows = [], []
+    for label, B, T_mel in shapes:
+        reps = 20 if B * T_mel <= 256 else 5
+        mel = torch.randn(B, T_mel, h.num_mels, generator=gen).to(dev)
+        with torch.inference_mode():
+            x = vocoder.conv_pre(mel.transpose(1, 2))
+            for i in range(len(vocoder.ups)):
+                x = vocoder.upsample(i, x)
+                C, T = x.shape[1], x.shape[2]
+                if C == mrf.MAX_CHANNELS or 128 // C >= 2:
+                    weights = mrf.mrf_weights_from_resblocks(vocoder.stage_blocks(i))
+                    xc = x.contiguous()
+                    b_ms, b_by = k1_bound_ms(B, C, T, ks, dils)
+                    row = {"shape": label, "B": B, "T_mel": T_mel, "C": C, "T": T,
+                           "bound_ms": b_ms, "bound_by": b_by}
+                    if C == mrf.MAX_CHANNELS:
+                        got = mrf.fused_mrf_stage(xc, weights, ks, dils)
+                        want = mrf.fused_mrf_stage_reference(xc, weights, ks, dils)
+                        row.update(
+                            ms=cuda_ms(lambda: mrf.fused_mrf_stage(xc, weights, ks, dils), reps),
+                            plain_ms=cuda_ms(lambda: mrf.fused_mrf_stage_reference(
+                                xc, weights, ks, dils), reps),
+                            library_ms=cuda_ms(lambda i=i: vocoder.mrf_stage(i, xc), reps),
+                            max_abs_err=(got - want).abs().max().item())
+                        k1_rows.append(row)
+                    else:
+                        xt = x.transpose(1, 2).contiguous()
+                        got = mrf_phase.fused_mrf_stage_phase(xt, weights, ks, dils)
+                        want = mrf_phase.fused_mrf_stage_phase_reference(xt, weights, ks, dils)
+                        row.update(
+                            ms=cuda_ms(lambda: mrf_phase.fused_mrf_stage_phase(
+                                xt, weights, ks, dils), reps),
+                            plain_ms=cuda_ms(lambda: mrf_phase.fused_mrf_stage_phase_reference(
+                                xt, weights, ks, dils), reps),
+                            library_ms=cuda_ms(lambda i=i: vocoder.mrf_stage(
+                                i, xt.transpose(1, 2).contiguous()).transpose(1, 2).contiguous(),
+                                reps),
+                            k1_ms=cuda_ms(lambda: mrf.fused_mrf_stage(xc, weights, ks, dils), reps),
+                            max_abs_err=(got - want).abs().max().item())
+                        k3_rows.append(row)
+                    if not row["max_abs_err"] < K1_TOL:
+                        raise AssertionError(f"kernel disagrees at {row}")
+                x = vocoder.mrf_stage(i, x)
+    torch.cuda.synchronize()
+    return k3_rows, k1_rows
+
+
 def main() -> int:
     import torch
 
@@ -475,7 +660,7 @@ def main() -> int:
     from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
     from matcha_tpu_torch.models.hifigan_fused import MAX_FUSED_CHANNELS, generator_apply_fused
     from matcha_tpu_torch.models.matcha import MatchaTTS
-    from matcha_tpu_torch.ops import cuda_build, mrf
+    from matcha_tpu_torch.ops import cuda_build, mrf, mrf_phase
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -496,8 +681,8 @@ def main() -> int:
           "cuda": torch.version.cuda, "nvcc": nvcc, "triton": triton_version,
           "python": sys.version.split()[0], "device_count": torch.cuda.device_count()})
 
-    # 2. build K1 and K2, one nvcc each, started together
-    names = ("mrf_stage", "mas")
+    # 2. build K1, K2 and K3, one nvcc each, started together
+    names = ("mrf_stage", "mas", "mrf_phase")
     compiled = [n for n in names if not cuda_build.library_path(n).exists()]
     t0 = time.perf_counter()
     cuda_build.load_all(names)
@@ -510,13 +695,11 @@ def main() -> int:
     gen_cpu = torch.Generator().manual_seed(SEED)
     worst = 0.0
     cases = []
-    for C in (32, 64):
+    for C in (32, 64, 128):
         for B in (1, 4):
             for T in (100, 1000, 2 * 128 * 64 // (C // 32)):
                 x = torch.randn(B, C, T, generator=gen_cpu).to(dev)
-                weights = mrf.pack_mrf_weights([
-                    (torch.randn(shape, generator=gen_cpu) * (0.3 / (k * C) ** 0.5)).to(dev)
-                    for k in ks for shape in ((3, k, C, C), (3, C), (3, k, C, C), (3, C))])
+                weights = random_stage_weights(gen_cpu, C, dev, ks)
                 got = mrf.fused_mrf_stage(x, weights, ks, dils)
                 want = mrf.fused_mrf_stage_reference(x, weights, ks, dils)
                 torch.cuda.synchronize()
@@ -526,6 +709,8 @@ def main() -> int:
                 if not err < K1_TOL:
                     raise AssertionError(f"K1 disagrees at C={C} B={B} T={T}: {err}")
     emit({"phase": "k1_check", "tolerance": K1_TOL, "max_abs_err": worst, "cases": cases})
+    k3 = k3_check(dev, gen_cpu, ks, dils)
+    emit({"phase": "k3_check", **k3})
     k2_cases = k2_check(dev)
     emit({"phase": "k2_check", "rule": "torch.equal", "cases": k2_cases})
 
@@ -536,15 +721,17 @@ def main() -> int:
     bias = compute_bias_spec(lambda m: generator_apply_fused(vocoder, m), device=dev)
     pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
     texts = [process_text(i, s, CLEANER) for i, s in enumerate(SENTENCES)]
-    mrf.LAUNCHES["mrf_stage"] = 0
+    mrf.LAUNCHES["mrf_stage"] = mrf_phase.LAUNCHES["mrf_stage_phase"] = 0
     outs = []
     for i, tp in enumerate(texts):
         g = torch.Generator(dev).manual_seed(SEED + i)
         outs.append(pipe.synthesise_batch(tp["x"], tp["x_lengths"], generator=g))
     torch.cuda.synchronize()
     launches = mrf.LAUNCHES["mrf_stage"]
-    if launches != 2 * len(texts):
-        raise AssertionError(f"K1 launched {launches} times for {len(texts)} vocoder calls")
+    if launches != 2 * len(texts) or mrf_phase.LAUNCHES["mrf_stage_phase"]:
+        raise AssertionError(f"K1 launched {launches} times and K3 "
+                             f"{mrf_phase.LAUNCHES['mrf_stage_phase']} for {len(texts)} vocoder "
+                             "calls")
     requests = []
     for tp, out in zip(texts, outs):
         ml, T_y = int(out["mel_lengths"][0]), out["mel"].shape[-1]
@@ -558,6 +745,11 @@ def main() -> int:
                          "T_voc": T_voc, "samples": int(wav.shape[-1])})
     emit({"phase": "main_path", "model": "MatchaTTS LJSpeech defaults + HiFi-GAN v1, seed weights",
           "requests": requests, "k1_launches": launches, "vocoder_calls": len(texts)})
+
+    # the vocoder's variant path, at the main path's shape and the profilers'
+    shapes = [("main_path", 1, requests[0]["T_voc"]), ("profilers", *PROFILER_SHAPE)]
+    variants = vocoder_variants(dev, vocoder, shapes)
+    emit({"phase": "vocoder_variants", **variants})
 
     # the same pipeline on the CPU (plain path) must agree on a short input
     tp = process_text(99, SHORT_SENTENCE, CLEANER)
@@ -664,6 +856,11 @@ def main() -> int:
                     emit({"phase": "k1_time", **stages[-1]})
                 x = vocoder.mrf_stage(i, x)
     torch.cuda.synchronize()
+    k3_rows, k1_wide = stage_times(dev, vocoder, shapes)
+    for row in k3_rows:
+        emit({"phase": "k3_time", **row})
+    for row in k1_wide:
+        emit({"phase": "k1_wide_time", **row})
 
     # 6. the training path at full width, on a corpus written from the seed
     from matcha_tpu_torch import train
@@ -686,12 +883,11 @@ def main() -> int:
         k2 = k2_time(dev, raw)
         emit({"phase": "k2_time", **k2})
 
-    # 7. kernels: K1's ms, plain_ms, bound_ms, library_ms summed over the
-    # two narrow stages of one vocoder call at the serving path's shape;
-    # K2's at the training step's shape
+    # 7. kernels: K1's and K3's ms, plain_ms, bound_ms, library_ms summed
+    # over the two narrow stages of one vocoder call at the serving path's
+    # shape; K2's at the training step's shape
     path = [s for s in stages if s["shape"] == "main_path"]
-    not_ported = {"route": None, "source": None, "launches": 0, "max_abs_err": None, "ms": None,
-                  "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
+    k3_path = [s for s in k3_rows if s["shape"] == "main_path"]
     emit({"kernels": [
         {"name": "mrf_stage", "route": "cuda", "status": "ported",
          "source": "matcha_tpu_torch/csrc/mrf_stage.cu",
@@ -710,8 +906,18 @@ def main() -> int:
          "launches": trained["run"]["k2_launches"], "max_abs_err": 0.0, "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
-        {"name": "mrf_stage_phase", "status": "not ported", "path": "opt-in narrow_impl='phase'",
-         "replaces": "matcha_tpu/ops/mrf_pallas.py:347", **not_ported},
+        {"name": "mrf_stage_phase", "route": "cuda", "status": "ported",
+         "path": "vocoder variants, narrow_impl='phase'",
+         "source": "matcha_tpu_torch/csrc/mrf_phase.cu",
+         "replaces": "matcha_tpu/ops/mrf_pallas.py:347",
+         "launches": variants["launches"]["k3"],
+         "max_abs_err": max([k3["max_abs_err"]] + [s["max_abs_err"] for s in k3_rows]),
+         "ms": sum(s["ms"] for s in k3_path),
+         "plain_ms": sum(s["plain_ms"] for s in k3_path),
+         "bound_ms": sum(s["bound_ms"] for s in k3_path),
+         "bound_by": ("operations" if all(s["bound_by"] == "operations" for s in k3_path)
+                      else "bytes"),
+         "library_ms": sum(s["library_ms"] for s in k3_path)},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,10 +3,13 @@
 A port of the ``matcha_tpu`` serving path (phoneme ids -> wav) and its
 training path (``python -m matcha_tpu_torch.train``) that keeps the
 reference torch parameter names, so a reference checkpoint or a bridged
-JAX param tree (``matcha_tpu_torch.convert``) loads as-is. Two hand-written
-CUDA kernels: the narrow HiFi-GAN MRF stages (``ops/mrf.py``,
-``csrc/mrf_stage.cu``) and Monotonic Alignment Search (``ops/mas.py``,
-``csrc/mas.cu``); everything else is plain torch.
+JAX param tree (``matcha_tpu_torch.convert``) loads as-is. Three
+hand-written CUDA kernels: the fused HiFi-GAN MRF stage (``ops/mrf.py``,
+``csrc/mrf_stage.cu``), the same stage on channels-last activations
+(``ops/mrf_phase.py``, ``csrc/mrf_phase.cu``) and Monotonic Alignment
+Search (``ops/mas.py``, ``csrc/mas.cu``); everything else is plain torch.
+The vocoder profilers are ``python -m matcha_tpu_torch.scripts.profile_vocoder``
+and ``...profile_vocoder_stages``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"`` (for
 training, ``trainer.accelerator=cpu``).

@@ -36,6 +36,12 @@
 //   * The chain sum is accumulated in the output tensor: each block owns
 //     its central tile, and the same thread writes the same outputs for
 //     every chain, so no synchronisation is needed for it.
+//   * Above C = 80 two buffers no longer fit with a 128-sample tile. Then
+//     (HB_GLOBAL) only xb stays in shared memory and hb lives in a global
+//     scratch region of the block's own, C x (E + 2 * MARGIN) f32 (229 KB
+//     at C = 128, t_tile 256): conv 1 writes it once and conv 2 reads it
+//     k times per output, mostly from L2. C = 32 and C = 64 keep both
+//     buffers in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -169,25 +175,32 @@ __device__ __forceinline__ void conv_dispatch(
     }
 }
 
-extern "C" __global__ void __launch_bounds__(MAX_THREADS)
+// HB_GLOBAL: hb is the block's own region of `hscratch` (C x W f32 per
+// block) instead of the second half of shared memory.
+template <bool HB_GLOBAL>
+__global__ void __launch_bounds__(MAX_THREADS)
 mrf_stage_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
-                 int C, int T, int t_tile, MrfConfig cfg)
+                 float* hscratch, int C, int T, int t_tile, MrfConfig cfg)
 {
     extern __shared__ float smem[];
     const int E = t_tile + 2 * HALO;
     const int W = E + 2 * MARGIN;
     float* xb = smem;
-    float* hb = smem + C * W;
+    float* hb = HB_GLOBAL
+        ? hscratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * C * W
+        : smem + C * W;
     const int b = blockIdx.y;
     const int g0 = blockIdx.x * t_tile - HALO;  // global position of window column 0
     const float* xg = x + (size_t)b * C * T;
     float* yg = y + (size_t)b * C * T;
 
     // zero the margin columns of both buffers once; nothing writes them later
-    for (int i = threadIdx.x; i < 2 * C * 2 * MARGIN; i += blockDim.x) {
+    for (int i = threadIdx.x; i < C * 2 * MARGIN; i += blockDim.x) {
         const int row = i / (2 * MARGIN);
         const int m = i % (2 * MARGIN);
-        smem[row * W + (m < MARGIN ? m : E + m)] = 0.f;
+        const int col = m < MARGIN ? m : E + m;
+        xb[row * W + col] = 0.f;
+        hb[row * W + col] = 0.f;
     }
 
     for (int blk = 0; blk < cfg.n_blocks; ++blk) {
@@ -222,10 +235,12 @@ mrf_stage_kernel(const float* __restrict__ x, const float* __restrict__ w, float
 // Launches the stage on `stream`. x, y: (B, C, T) f32 contiguous; w: the
 // stage's weights packed per block as W1 (n_dil, k, C, C), B1 (n_dil, C),
 // W2 (n_dil, k, C, C), B2 (n_dil, C). ks, dils: host arrays (n_blocks,)
-// and (n_blocks, n_dil). Returns the CUDA error code of the launch.
-extern "C" int mrf_stage_launch(const float* x, const float* w, float* y, int B, int C, int T,
-                                int t_tile, int n_blocks, int n_dil, const int* ks,
-                                const int* dils, int threads, void* stream)
+// and (n_blocks, n_dil). hscratch: null to keep both buffers in shared
+// memory, else B * ceil(T / t_tile) * C * (t_tile + 2 * HALO + 2 * MARGIN)
+// f32 of device memory for hb. Returns the CUDA error code of the launch.
+extern "C" int mrf_stage_launch(const float* x, const float* w, float* y, float* hscratch,
+                                int B, int C, int T, int t_tile, int n_blocks, int n_dil,
+                                const int* ks, const int* dils, int threads, void* stream)
 {
     if (n_blocks < 1 || n_blocks > MAX_BLOCKS || n_dil < 1 || n_dil > MAX_DIL ||
         C % TCO != 0 || t_tile % (32 * TT) != 0 || threads > MAX_THREADS || threads % 32 != 0)
@@ -249,12 +264,14 @@ extern "C" int mrf_stage_launch(const float* x, const float* w, float* y, int B,
         off += (long long)n_dil * C;
     }
     const int E = t_tile + 2 * HALO;
-    const size_t smem = 2ull * C * (E + 2 * MARGIN) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(mrf_stage_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem = (hscratch ? 1ull : 2ull) * C * (E + 2 * MARGIN) * sizeof(float);
+    void (*kernel)(const float*, const float*, float*, float*, int, int, int, MrfConfig) =
+        hscratch ? mrf_stage_kernel<true> : mrf_stage_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((T + t_tile - 1) / t_tile, B);
-    mrf_stage_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(x, w, y, C, T, t_tile, cfg);
+    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(x, w, y, hscratch, C, T, t_tile, cfg);
     return (int)cudaGetLastError();
 }
 

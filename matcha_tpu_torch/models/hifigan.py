@@ -7,15 +7,19 @@ reference's final activation uses torch's default slope 0.01, not 0.1;
 kept. Parameter names are the reference's (``conv_pre``, ``ups.i``,
 ``resblocks.n.convs1.j``, ``conv_post``). ``Generator.forward`` maps a mel
 (B, T, num_mels) to a waveform (B, T * hop, 1); inside, activations are
-channels-first (B, C, T).
+channels-first (B, C, T). ``upsample_impl="subpixel"`` computes the
+upsamples as a dense conv plus a depth-to-space interleave
+(``components/common.py``) from the same ``ups.i`` parameters.
 """
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from matcha_tpu_torch.models.components.common import subpixel_conv_transpose1d
 
 LRELU_SLOPE = 0.1
 
@@ -78,10 +82,15 @@ class ResBlock2(nn.Module):
 class Generator(nn.Module):
     """Mel (B, T, num_mels) -> waveform (B, T * prod(upsample_rates), 1)."""
 
-    def __init__(self, h: HiFiGANConfig = None):
+    UPSAMPLE_IMPLS = ("dilated", "subpixel")
+
+    def __init__(self, h: HiFiGANConfig = None, upsample_impl: str = "dilated"):
         super().__init__()
         h = h or HiFiGANConfig()
+        if upsample_impl not in self.UPSAMPLE_IMPLS:
+            raise ValueError(f"upsample_impl={upsample_impl!r}: one of {self.UPSAMPLE_IMPLS}")
         self.h = h
+        self.upsample_impl = upsample_impl
         self.num_kernels = len(h.resblock_kernel_sizes)
         resblock = ResBlock1 if h.resblock == "1" else ResBlock2
         self.conv_pre = nn.Conv1d(h.num_mels, h.upsample_initial_channel, 7, padding=3)
@@ -105,8 +114,17 @@ class Generator(nn.Module):
             xs = block(x) if xs is None else xs + block(x)
         return xs / self.num_kernels
 
-    def upsample(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        return self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
+    def upsample(self, i: int, x: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+        """leaky(0.1) -> upsample ``i`` on (B, C, T), by ``impl`` (default:
+        the generator's ``upsample_impl``)."""
+        x, up = F.leaky_relu(x, LRELU_SLOPE), self.ups[i]
+        impl = impl or self.upsample_impl
+        if impl == "dilated":
+            return up(x)
+        if impl != "subpixel":
+            raise ValueError(f"upsample impl {impl!r}: one of {self.UPSAMPLE_IMPLS}")
+        return subpixel_conv_transpose1d(x, up.weight, up.bias, up.stride[0], up.padding[0],
+                                         channels_first=True)
 
     def post(self, x: torch.Tensor) -> torch.Tensor:
         """leaky(0.01) -> conv_post -> tanh, (B, C, T) -> (B, T, 1)."""

@@ -9,12 +9,14 @@ CPU tensor takes ``fused_mrf_stage_reference``.
 
 The kernel reads all of a stage's weights from one buffer. ``pack_mrf_weights``
 copies the tuple into it once, when a model is loaded, and returns the tuple
-as views of that buffer; the kernel takes only weights packed so.
+as views of that buffer; the kernel takes only weights packed so. It takes
+every multiple of 16 channels up to 128; above C = 80 its conv-1 buffer
+moves from shared memory to a global scratch the wrapper allocates.
 """
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +31,7 @@ MARGIN = 32  # zero columns per buffer side; >= the widest tap reach c0 * d
 MAX_BLOCKS = MAX_DIL = 4
 KERNEL_SIZES = (3, 7, 11)  # the kernel's compiled tap counts (HiFi-GAN v1, v2)
 MAX_THREADS = 384
+MAX_CHANNELS = 128
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
 
 
@@ -39,15 +42,31 @@ def receptive_field(kernel_sizes, dilations) -> int:
                for k, dils in zip(kernel_sizes, dilations))
 
 
-def pick_t_tile(C: int, T: int) -> int:
-    """Central tile length: the largest multiple of 128 whose two shared
-    buffers of C x (t_tile + 2*HALO + 2*MARGIN) f32 fit the block's shared
-    memory, no longer than T rounded up to 128."""
-    e_max = SMEM_LIMIT // (2 * C * 4) - 2 * MARGIN
-    t_tile = (e_max - 2 * HALO) // 128 * 128
-    if t_tile < 128:
-        raise ValueError(f"C={C} is too wide for the fused MRF kernel's shared memory")
-    return min(t_tile, -(-T // 128) * 128)
+def _most_tile(C: int, buffers: int) -> int:
+    """The largest multiple of 128 whose ``buffers`` shared buffers of
+    C x (t_tile + 2*HALO + 2*MARGIN) f32 fit the block's shared memory."""
+    e_max = SMEM_LIMIT // (buffers * C * 4) - 2 * MARGIN
+    return (e_max - 2 * HALO) // 128 * 128
+
+
+def hb_in_global(C: int) -> bool:
+    """Whether the kernel keeps its conv-1 buffer in global scratch: when
+    two shared buffers leave no room for a 128-sample tile (C > 80)."""
+    return _most_tile(C, 2) < 128
+
+
+def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None) -> int:
+    """Central tile length: ``t_tile`` when given (a multiple of 128 that
+    fits), else the largest multiple of 128 whose shared buffers fit the
+    block's shared memory; no longer than T rounded up to 128."""
+    most = _most_tile(C, 1 if hb_in_global(C) else 2)
+    if C > MAX_CHANNELS or most < 128:
+        raise ValueError(f"C={C} is too wide for the fused MRF kernel "
+                         f"(at most {MAX_CHANNELS} channels)")
+    if t_tile is not None and (t_tile % 128 or not 128 <= t_tile <= most):
+        raise ValueError(f"t_tile={t_tile}: at C={C} the kernel takes a multiple of 128 "
+                         f"up to {most}")
+    return min(t_tile or most, -(-T // 128) * 128)
 
 
 def fused_mrf_stage_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -74,7 +93,14 @@ def fused_mrf_stage_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
 def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_mrf_stage takes a contiguous (B, C, T) float32 tensor")
-    B, C, T = x.shape
+    return check_stage(x.shape[1], x.device, weights, kernel_sizes, dilations)
+
+
+def check_stage(C: int, device, weights, kernel_sizes, dilations) -> Tuple[int, int]:
+    """What both MRF kernels need of a stage of C channels on ``device``:
+    chain geometry within the halo and margin, compiled kernel sizes, and
+    weights of the right shapes packed into one buffer. Returns (chains,
+    dilations per chain)."""
     n_blocks, n_dil = len(kernel_sizes), len(dilations[0])
     if not (1 <= n_blocks <= MAX_BLOCKS and 1 <= n_dil <= MAX_DIL):
         raise ValueError(f"{n_blocks} chains x {n_dil} dilations: at most {MAX_BLOCKS} x {MAX_DIL}")
@@ -82,6 +108,9 @@ def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
         raise ValueError("every chain needs the same number of dilations")
     if C % 16:
         raise ValueError(f"C={C}: the kernel needs a multiple of 16 channels")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"C={C} is too wide for the fused MRF kernel "
+                         f"(at most {MAX_CHANNELS} channels)")
     if receptive_field(kernel_sizes, dilations) > HALO:
         raise ValueError(f"receptive field exceeds the kernel's halo of {HALO}")
     if max((k - 1) // 2 * int(d) for k, dils in zip(kernel_sizes, dilations) for d in dils) > MARGIN:
@@ -93,9 +122,9 @@ def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
     for blk, k in enumerate(kernel_sizes):
         shapes = [(n_dil, k, C, C), (n_dil, C), (n_dil, k, C, C), (n_dil, C)]
         for w, shape in zip(weights[4 * blk:4 * blk + 4], shapes):
-            if tuple(w.shape) != shape or w.dtype != torch.float32 or w.device != x.device:
+            if tuple(w.shape) != shape or w.dtype != torch.float32 or w.device != device:
                 raise ValueError(f"chain {blk}: weight {tuple(w.shape)} {w.dtype} {w.device}, "
-                                 f"expected {shape} float32 on {x.device}")
+                                 f"expected {shape} float32 on {device}")
     offset = weights[0].data_ptr()
     for w in weights:
         if w.data_ptr() != offset or not w.is_contiguous():
@@ -108,7 +137,7 @@ def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
 def _library():
     lib = cuda_build.load("mrf_stage")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mrf_stage_launch.argtypes = [p, p, p, i, i, i, i, i, i,
+    lib.mrf_stage_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
                                      i, p]
     lib.mrf_stage_launch.restype = ctypes.c_int
@@ -117,19 +146,25 @@ def _library():
     return lib
 
 
-def _launch(x, weights, kernel_sizes, dilations) -> torch.Tensor:
+def _launch(x, weights, kernel_sizes, dilations, t_tile) -> torch.Tensor:
     n_blocks, n_dil = _check(x, weights, kernel_sizes, dilations)
     B, C, T = x.shape
-    t_tile = pick_t_tile(C, T)
+    t_tile = pick_t_tile(C, T, t_tile)
     n_items = (C // 16) * ((t_tile + 2 * HALO) // 128)
     threads = 32 * min(n_items, MAX_THREADS // 32)
     y = torch.empty_like(x)
+    scratch = None
+    if hb_in_global(C):
+        n_tiles = -(-T // t_tile)
+        scratch = torch.empty(B * n_tiles * C * (t_tile + 2 * HALO + 2 * MARGIN),
+                              dtype=torch.float32, device=x.device)
     ks = (ctypes.c_int * n_blocks)(*kernel_sizes)
     ds = (ctypes.c_int * (n_blocks * n_dil))(*(int(d) for dils in dilations for d in dils))
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mrf_stage_launch(x.data_ptr(), weights[0].data_ptr(), y.data_ptr(), B, C, T,
+        err = lib.mrf_stage_launch(x.data_ptr(), weights[0].data_ptr(), y.data_ptr(),
+                                   None if scratch is None else scratch.data_ptr(), B, C, T,
                                    t_tile, n_blocks, n_dil, ks, ds, threads, stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage launch failed: {lib.mrf_error_string(err).decode()}")
@@ -138,17 +173,21 @@ def _launch(x, weights, kernel_sizes, dilations) -> torch.Tensor:
 
 
 def fused_mrf_stage(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                    kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3) -> torch.Tensor:
+                    kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3,
+                    t_tile: Optional[int] = None) -> torch.Tensor:
     """One whole MRF stage (mean of the ResBlock1 chains), (B, C, T) f32.
     CUDA tensors run the hand-written kernel; CPU tensors the plain
-    version."""
+    version. ``t_tile``: the kernel's central tile in samples (checked on
+    both devices when given; None = ``pick_t_tile``'s largest)."""
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilations = tuple(tuple(int(d) for d in dils) for dils in dilations)
+    if t_tile is not None:
+        pick_t_tile(x.shape[1], x.shape[2], t_tile)
     if x.device.type == "cpu":
         return fused_mrf_stage_reference(x, weights, kernel_sizes, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mrf_stage runs on CUDA or CPU tensors, not {x.device}")
-    return _launch(x, weights, kernel_sizes, dilations)
+    return _launch(x, weights, kernel_sizes, dilations, t_tile)
 
 
 def pack_mrf_weights(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:

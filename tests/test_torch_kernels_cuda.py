@@ -12,7 +12,7 @@ import torch
 
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused
-from matcha_tpu_torch.ops import mas, mrf
+from matcha_tpu_torch.ops import mas, mrf, mrf_phase
 
 KS, DILS = (3, 7, 11), ((1, 3, 5),) * 3
 
@@ -60,6 +60,89 @@ def test_fused_generator_matches_plain_on_cuda(cuda_f32):
     assert mrf.LAUNCHES["mrf_stage"] == before + 2
     assert got.shape == (2, 37 * 256, 1)
     assert (got - want).abs().max().item() < 1e-5
+
+
+def _stage_weights(g, C, device):
+    return mrf.pack_mrf_weights([
+        (torch.randn(shape, generator=g) * (0.3 / (k * C) ** 0.5)).to(device)
+        for k in KS for shape in ((3, k, C, C), (3, C), (3, k, C, C), (3, C))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B,T", [(96, 1, 100), (96, 2, 1000), (128, 1, 100), (128, 3, 1000),
+                                   (128, 1, 8192)])
+def test_wide_fused_mrf_kernel_matches_plain(cuda_f32, C, B, T):
+    """K1 above C = 80, its conv-1 buffer in global scratch; atol 1e-4."""
+    g = torch.Generator().manual_seed(C * 1000 + T)
+    x = torch.randn(B, C, T, generator=g).to(cuda_f32)
+    weights = _stage_weights(g, C, cuda_f32)
+    before = mrf.LAUNCHES["mrf_stage"]
+    got = mrf.fused_mrf_stage(x, weights, KS, DILS)
+    want = mrf.fused_mrf_stage_reference(x, weights, KS, DILS)
+    torch.cuda.synchronize()
+    assert mrf.LAUNCHES["mrf_stage"] == before + 1
+    assert (got - want).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("B,T", [(1, 100), (3, 700), (1, "ragged"), (3, 8192)])
+def test_phase_kernel_matches_plain(cuda_f32, C, B, T):
+    """K3 against its plain version (the phase-packed products) and
+    against K1 on the transposed input, atol 1e-4: T shorter than one
+    tile, not a multiple of it, and B > 1."""
+    if T == "ragged":
+        T = 2 * mrf_phase.pick_t_tile(C, 10**6) + 37
+    g = torch.Generator().manual_seed(C * 1000 + T)
+    x = torch.randn(B, T, C, generator=g).to(cuda_f32)
+    weights = _stage_weights(g, C, cuda_f32)
+    before = mrf_phase.LAUNCHES["mrf_stage_phase"], mrf.LAUNCHES["mrf_stage"]
+    got = mrf_phase.fused_mrf_stage_phase(x, weights, KS, DILS)
+    torch.cuda.synchronize()
+    assert (mrf_phase.LAUNCHES["mrf_stage_phase"], mrf.LAUNCHES["mrf_stage"]) == \
+        (before[0] + 1, before[1])
+    want = mrf_phase.fused_mrf_stage_phase_reference(x, weights, KS, DILS)
+    k1 = mrf.fused_mrf_stage(x.transpose(1, 2).contiguous(), weights, KS, DILS).transpose(1, 2)
+    assert got.shape == x.shape
+    assert (got - want).abs().max().item() < 1e-4
+    assert (got - k1).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_phase_generator_matches_plain_on_cuda(cuda_f32):
+    """Full-width HiFi-GAN v1, seed weights: narrow_impl="phase" (two K3
+    launches), then with the cap at 128 (one K1 at C = 128, two K3),
+    against the plain generator, atol 1e-5 on the tanh output."""
+    torch.manual_seed(0)
+    gen = Generator(HiFiGANConfig()).to(cuda_f32).eval()
+    mel = torch.randn(2, 37, 80, device=cuda_f32)
+    want = gen(mel)
+    for cap, k1, k3 in ((64, 0, 2), (128, 1, 2)):
+        before = mrf.LAUNCHES["mrf_stage"], mrf_phase.LAUNCHES["mrf_stage_phase"]
+        got = generator_apply_fused(gen, mel, max_fused_channels=cap, narrow_impl="phase")
+        torch.cuda.synchronize()
+        assert (mrf.LAUNCHES["mrf_stage"] - before[0],
+                mrf_phase.LAUNCHES["mrf_stage_phase"] - before[1]) == (k1, k3)
+        assert got.shape == (2, 37 * 256, 1)
+        assert (got - want).abs().max().item() < 1e-5
+
+
+@pytest.mark.cuda
+def test_phase_kernel_refuses_what_it_cannot_take(cuda_f32):
+    weights = _stage_weights(torch.Generator().manual_seed(0), 32, cuda_f32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mrf_phase.fused_mrf_stage_phase(torch.zeros(1, 64, 24, device=cuda_f32), weights)
+    with pytest.raises(ValueError, match="float32"):
+        mrf_phase.fused_mrf_stage_phase(
+            torch.zeros(1, 64, 32, device=cuda_f32, dtype=torch.float64), weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        mrf_phase.fused_mrf_stage_phase(torch.zeros(1, 128, 32, device=cuda_f32)[:, ::2],
+                                        weights)
+    loose = tuple(w.clone() for w in weights)
+    with pytest.raises(ValueError, match="pack_mrf_weights"):
+        mrf_phase.fused_mrf_stage_phase(torch.zeros(1, 64, 32, device=cuda_f32), loose)
+    with pytest.raises(ValueError, match="too wide"):  # P = 1: K1 refuses C = 256
+        mrf_phase.fused_mrf_stage_phase(torch.zeros(1, 64, 256, device=cuda_f32), weights)
 
 
 @pytest.mark.cuda
