@@ -9,9 +9,11 @@ Phases, one output line each (any failure exits non-zero):
    nvcc / Triton versions;
 2. the build of the three CUDA sources in ``matcha_tpu_torch/csrc`` (one
    ``nvcc`` each, started together) and its seconds;
-3. kernel K1 (the fused MRF stage) against its plain PyTorch version on
-   the card, TF32 off, at C in {32, 64, 128}, B in {1, 4}, T shorter than
-   one tile, T not a multiple of the tile, and the main path's T; kernel
+3. kernel K1 (the fused MRF stage, 3xTF32 on the tensor cores) against
+   its plain PyTorch version on the card, TF32 off, at every C in 16..128
+   in steps of 16, B in {1, 3}, T shorter than one tile, 1000, two tiles
+   + 37 (not a multiple of the tile) and 8192, and one chain of one
+   dilation; kernel
    K3 (the MRF stage on channels-last activations) against its plain
    version (the phase-packed products) and against K1 on the transposed
    input, at C in {16, 32, 64}, B in {1, 3}, T in {100, 700, two tiles +
@@ -30,8 +32,9 @@ Phases, one output line each (any failure exits non-zero):
 5. times after warm-up: per-request latency and real-time factor, one
    request split by stage (encode, decode, vocoder, denoise), the card's
    busy time and idle share over that request (``torch.profiler``), and K1 per
-   stage at the path's shapes and at a 512-frame mel, beside its bound,
-   its plain version and a chain of cuDNN ``F.conv1d`` calls; K3 per
+   stage at the path's shapes and at a 512-frame mel, beside its f32 and
+   tensor-core bounds, its plain version and a chain of cuDNN ``F.conv1d``
+   calls; K1 over explicit tiles at two short T (the tile floor); K3 per
    narrow stage and K1 at C = 128 at the main path's shape and at
    B = 8 x 1,024 frames, likewise (K3's yardstick: a transpose, the cuDNN
    chain, and a transpose back);
@@ -70,10 +73,14 @@ SENTENCES = [
 ]
 SHORT_SENTENCE = "Hello world."
 CLEANER = "english_cleaners_no_espeak"
-# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor cores,
+# TF32 on the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-K1_TOL = 1e-4  # f32 sums over up to 704 products per conv, taken in another order
+# 3xTF32 products summed in f32 over up to 1,408 terms per conv, in another
+# order than cuDNN's
+K1_TOL = 1e-4
 # a full-width vocoder variant against the plain generator, on the tanh
 # output: the fused stages' f32 sums in another order than cuDNN's
 VARIANT_TOL = 1e-5
@@ -130,15 +137,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_bound_ms(B: int, C: int, T: int, kernel_sizes, dilations):
+def k1_bound_ms(B: int, C: int, T: int, kernel_sizes, dilations) -> dict:
     """Least time for one stage: the larger of its conv FLOPs over the f32
-    peak and its bytes (x read, y written, weights read once) over HBM."""
+    peak and its bytes (x read, y written, weights read once) over HBM
+    (``bound_ms``); and with the products as K1 takes them, 3 TF32
+    products per f32 product over the TF32 tensor-core peak
+    (``bound_tc_ms``, bytes alike)."""
     taps = 2 * sum(k * len(d) for k, d in zip(kernel_sizes, dilations))
     flops = 2.0 * B * T * C * C * taps
     weight_floats = sum(2 * len(d) * (k * C * C + C) for k, d in zip(kernel_sizes, dilations))
-    bytes_ = 4.0 * (2 * B * C * T + weight_floats)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    t_bytes = 4.0 * (2 * B * C * T + weight_floats) / PEAK_BYTES_PER_S
+    t_ops, t_tc = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_tc_ms": 1e3 * max(t_tc, t_bytes)}
 
 
 def device_busy(request, latency_ms: float) -> dict:
@@ -480,7 +492,7 @@ def k2_time(dev, raw) -> dict:
                     "serial_steps = the forward's and the backtrack's dependent row steps"}
 
 
-def random_stage_weights(gen, C: int, dev, kernel_sizes):
+def random_stage_weights(gen, C: int, dev, kernel_sizes, n_dil: int = 3):
     """One MRF stage's weights from ``gen``, packed as the kernels take them."""
     import torch
 
@@ -488,7 +500,55 @@ def random_stage_weights(gen, C: int, dev, kernel_sizes):
 
     return mrf.pack_mrf_weights([
         (torch.randn(shape, generator=gen) * (0.3 / (k * C) ** 0.5)).to(dev)
-        for k in kernel_sizes for shape in ((3, k, C, C), (3, C), (3, k, C, C), (3, C))])
+        for k in kernel_sizes
+        for shape in ((n_dil, k, C, C), (n_dil, C), (n_dil, k, C, C), (n_dil, C))])
+
+
+def k1_check(dev, gen, kernel_sizes, dilations) -> tuple:
+    """K1 against its plain version on the card at every width it takes:
+    T shorter than one tile, 1000, two tiles + 37 (not a multiple of the
+    tile), 8192; then one chain of one dilation (k = 3, d = 1)."""
+    import torch
+
+    from matcha_tpu_torch.ops import mrf
+
+    worst, cases = 0.0, []
+    stages = [(C, B, T, kernel_sizes, dilations)
+              for C in range(16, mrf.MAX_CHANNELS + 1, 16) for B in (1, 3)
+              for T in (100, 1000, 2 * mrf.pick_t_tile(C, 10**6, B=B) + 37, 8192)]
+    for C, B, T, ks, dils in stages + [(64, 3, 1000, (3,), ((1,),))]:
+        x = torch.randn(B, C, T, generator=gen).to(dev)
+        weights = random_stage_weights(gen, C, dev, ks, len(dils[0]))
+        got = mrf.fused_mrf_stage(x, weights, ks, dils)
+        want = mrf.fused_mrf_stage_reference(x, weights, ks, dils)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        cases.append({"C": C, "B": B, "T": T, "t_tile": mrf.pick_t_tile(C, T, B=B),
+                      "chains": len(ks), "dilations": len(dils[0]), "max_abs_err": err})
+        worst = max(worst, err)
+        if not (got.shape == x.shape and err < K1_TOL):
+            raise AssertionError(f"K1 disagrees: {cases[-1]}")
+    return worst, cases
+
+
+def k1_tiles(dev, gen, kernel_sizes, dilations) -> list:
+    """K1 at B = 1 over explicit tiles at two short T, beside the tile
+    ``pick_t_tile`` chooses: where a smaller tile stops paying is the
+    floor of its choice (``mrf.MIN_TILE``)."""
+    import torch
+
+    from matcha_tpu_torch.ops import mrf
+
+    rows = []
+    for C, T in ((64, 4096), (32, 8192)):
+        x = torch.randn(1, C, T, generator=gen).to(dev)
+        weights = random_stage_weights(gen, C, dev, kernel_sizes)
+        row = {"C": C, "T": T, "picked": mrf.pick_t_tile(C, T), "ms": {}}
+        for t in (16, 32, 48, 64, 96, 128, 192):
+            row["ms"][t] = cuda_ms(lambda t=t: mrf.fused_mrf_stage(x, weights, kernel_sizes,
+                                                                   dilations, t_tile=t), 10)
+        rows.append(row)
+    return rows
 
 
 def k3_check(dev, gen, kernel_sizes, dilations) -> dict:
@@ -605,9 +665,8 @@ def stage_times(dev, vocoder, shapes) -> tuple:
                 if C == mrf.MAX_CHANNELS or 128 // C >= 2:
                     weights = mrf.mrf_weights_from_resblocks(vocoder.stage_blocks(i))
                     xc = x.contiguous()
-                    b_ms, b_by = k1_bound_ms(B, C, T, ks, dils)
                     row = {"shape": label, "B": B, "T_mel": T_mel, "C": C, "T": T,
-                           "bound_ms": b_ms, "bound_by": b_by}
+                           **k1_bound_ms(B, C, T, ks, dils)}
                     if C == mrf.MAX_CHANNELS:
                         got = mrf.fused_mrf_stage(xc, weights, ks, dils)
                         want = mrf.fused_mrf_stage_reference(xc, weights, ks, dils)
@@ -693,21 +752,7 @@ def main() -> int:
     h = HiFiGANConfig()
     ks, dils = h.resblock_kernel_sizes, h.resblock_dilation_sizes
     gen_cpu = torch.Generator().manual_seed(SEED)
-    worst = 0.0
-    cases = []
-    for C in (32, 64, 128):
-        for B in (1, 4):
-            for T in (100, 1000, 2 * 128 * 64 // (C // 32)):
-                x = torch.randn(B, C, T, generator=gen_cpu).to(dev)
-                weights = random_stage_weights(gen_cpu, C, dev, ks)
-                got = mrf.fused_mrf_stage(x, weights, ks, dils)
-                want = mrf.fused_mrf_stage_reference(x, weights, ks, dils)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                cases.append({"C": C, "B": B, "T": T, "max_abs_err": err})
-                worst = max(worst, err)
-                if not err < K1_TOL:
-                    raise AssertionError(f"K1 disagrees at C={C} B={B} T={T}: {err}")
+    worst, cases = k1_check(dev, gen_cpu, ks, dils)
     emit({"phase": "k1_check", "tolerance": K1_TOL, "max_abs_err": worst, "cases": cases})
     k3 = k3_check(dev, gen_cpu, ks, dils)
     emit({"phase": "k3_check", **k3})
@@ -845,17 +890,19 @@ def main() -> int:
                     k_ms = cuda_ms(lambda: mrf.fused_mrf_stage(xc, weights, ks, dils), reps)
                     p_ms = cuda_ms(lambda: mrf.fused_mrf_stage_reference(xc, weights, ks, dils), reps)
                     l_ms = cuda_ms(lambda i=i: vocoder.mrf_stage(i, xc), reps)
-                    b_ms, b_by = k1_bound_ms(1, C, T, ks, dils)
                     err = (mrf.fused_mrf_stage(xc, weights, ks, dils)
                            - mrf.fused_mrf_stage_reference(xc, weights, ks, dils)).abs().max().item()
                     if not err < K1_TOL:
                         raise AssertionError(f"K1 disagrees at C={C} T={T} ({label}): {err}")
-                    stages.append({"shape": label, "T_mel": T_mel, "C": C, "T": T, "ms": k_ms,
-                                   "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                                   "bound_by": b_by, "max_abs_err": err})
+                    stages.append({"shape": label, "T_mel": T_mel, "C": C, "T": T,
+                                   "t_tile": mrf.pick_t_tile(C, T), "ms": k_ms, "plain_ms": p_ms,
+                                   "library_ms": l_ms, **k1_bound_ms(1, C, T, ks, dils),
+                                   "max_abs_err": err})
                     emit({"phase": "k1_time", **stages[-1]})
                 x = vocoder.mrf_stage(i, x)
     torch.cuda.synchronize()
+    emit({"phase": "k1_tiles", "rows": k1_tiles(dev, gen_cpu, ks, dils),
+          "note": "CUDA events, mean of 10 calls per explicit t_tile"})
     k3_rows, k1_wide = stage_times(dev, vocoder, shapes)
     for row in k3_rows:
         emit({"phase": "k3_time", **row})
@@ -890,6 +937,7 @@ def main() -> int:
     k3_path = [s for s in k3_rows if s["shape"] == "main_path"]
     emit({"kernels": [
         {"name": "mrf_stage", "route": "cuda", "status": "ported",
+         "engine": "tensor cores: 3xTF32 mma.sync.m16n8k8, f32 sums",
          "source": "matcha_tpu_torch/csrc/mrf_stage.cu",
          "replaces": "matcha_tpu/ops/mrf_pallas.py:121",
          "launches": launches,
@@ -899,6 +947,7 @@ def main() -> int:
          "bound_ms": sum(s["bound_ms"] for s in path),
          "bound_by": ("operations" if all(s["bound_by"] == "operations" for s in path)
                       else "bytes"),
+         "bound_tc_ms": sum(s["bound_tc_ms"] for s in path),
          "library_ms": sum(s["library_ms"] for s in path)},
         {"name": "maximum_path", "route": "cuda", "status": "ported", "path": "training",
          "source": "matcha_tpu_torch/csrc/mas.cu",

@@ -4,7 +4,8 @@
 ``matcha_tpu/ops/mrf_pallas.py::fused_mrf_stage`` with the same layouts:
 x (B, C, T) f32 channels-first; ``weights`` a flat tuple with, per
 ResBlock1 chain, W1 (n_dil, k, C_in, C_out), B1 (n_dil, C_out), W2, B2.
-A CUDA tensor launches the kernel in ``csrc/mrf_stage.cu`` (or raises); a
+A CUDA tensor launches the kernel in ``csrc/mrf_stage.cu`` (or raises): the
+18 convs of the stage as 3xTF32 tensor-core products with f32 accuracy. A
 CPU tensor takes ``fused_mrf_stage_reference``.
 
 The kernel reads all of a stage's weights from one buffer. ``pack_mrf_weights``
@@ -27,12 +28,18 @@ from matcha_tpu_torch.ops import cuda_build
 LAUNCHES = {"mrf_stage": 0}
 
 HALO = 64  # halo per side in the kernel; >= the stage's receptive field
-MARGIN = 32  # zero columns per buffer side; >= the widest tap reach c0 * d
+MARGIN = 32  # zero rows per buffer side; >= the widest tap reach c0 * d
 MAX_BLOCKS = MAX_DIL = 4
 KERNEL_SIZES = (3, 7, 11)  # the kernel's compiled tap counts (HiFi-GAN v1, v2)
 MAX_THREADS = 384
 MAX_CHANNELS = 128
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
+# K1's own geometry (csrc/mrf_stage.cu); K3 reads only the names above
+TILE_STEP = 16  # t_tile granularity: one m16 tile of time rows
+BAND = 32  # time rows of one warp's work item: two m16 tiles
+TAIL = BAND - TILE_STEP  # rows after a buffer's last margin: the last band's reach
+MIN_TILE = 64  # the smallest tile pick_t_tile chooses: below it K1 got no faster on an H100
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def receptive_field(kernel_sizes, dilations) -> int:
@@ -43,10 +50,13 @@ def receptive_field(kernel_sizes, dilations) -> int:
 
 
 def _most_tile(C: int, buffers: int) -> int:
-    """The largest multiple of 128 whose ``buffers`` shared buffers of
-    C x (t_tile + 2*HALO + 2*MARGIN) f32 fit the block's shared memory."""
-    e_max = SMEM_LIMIT // (buffers * C * 4) - 2 * MARGIN
-    return (e_max - 2 * HALO) // 128 * 128
+    """The largest multiple of TILE_STEP whose shared rows of C + 4 floats
+    fit the block's shared memory: with two buffers [MARGIN][xb][MARGIN]
+    [hb][MARGIN][TAIL], with one [MARGIN][xb][MARGIN][TAIL]; a buffer holds
+    t_tile + 2*HALO rows."""
+    rows = SMEM_LIMIT // ((C + 4) * 4) - TAIL
+    e_max = (rows - 3 * MARGIN) // 2 if buffers == 2 else rows - 2 * MARGIN
+    return (e_max - 2 * HALO) // TILE_STEP * TILE_STEP
 
 
 def hb_in_global(C: int) -> bool:
@@ -55,18 +65,28 @@ def hb_in_global(C: int) -> bool:
     return _most_tile(C, 2) < 128
 
 
-def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None) -> int:
-    """Central tile length: ``t_tile`` when given (a multiple of 128 that
-    fits), else the largest multiple of 128 whose shared buffers fit the
-    block's shared memory; no longer than T rounded up to 128."""
-    most = _most_tile(C, 1 if hb_in_global(C) else 2)
-    if C > MAX_CHANNELS or most < 128:
+def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None, B: int = 1) -> int:
+    """Central tile length: ``t_tile`` when given (a multiple of TILE_STEP
+    that fits), else the tile from MIN_TILE up to the largest that fits
+    whose B * ceil(T / t_tile) blocks take the fewest waves of SMS blocks,
+    each of t_tile + 2*HALO rows of work (the larger tile on a tie); no
+    longer than T rounded up to TILE_STEP."""
+    if C > MAX_CHANNELS:
         raise ValueError(f"C={C} is too wide for the fused MRF kernel "
                          f"(at most {MAX_CHANNELS} channels)")
-    if t_tile is not None and (t_tile % 128 or not 128 <= t_tile <= most):
-        raise ValueError(f"t_tile={t_tile}: at C={C} the kernel takes a multiple of 128 "
-                         f"up to {most}")
-    return min(t_tile or most, -(-T // 128) * 128)
+    most = _most_tile(C, 1 if hb_in_global(C) else 2)
+    if t_tile is not None and (t_tile % TILE_STEP or not TILE_STEP <= t_tile <= most):
+        raise ValueError(f"t_tile={t_tile}: at C={C} the kernel takes a multiple of "
+                         f"{TILE_STEP} up to {most}")
+    whole = -(-T // TILE_STEP) * TILE_STEP
+    if t_tile is not None:
+        return min(t_tile, whole)
+    top = min(most, whole)
+
+    def cost(t):
+        return -(-B * -(-T // t) // SMS) * (t + 2 * HALO), -t
+
+    return min(range(min(MIN_TILE, top), top + 1, TILE_STEP), key=cost)
 
 
 def fused_mrf_stage_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -149,14 +169,14 @@ def _library():
 def _launch(x, weights, kernel_sizes, dilations, t_tile) -> torch.Tensor:
     n_blocks, n_dil = _check(x, weights, kernel_sizes, dilations)
     B, C, T = x.shape
-    t_tile = pick_t_tile(C, T, t_tile)
-    n_items = (C // 16) * ((t_tile + 2 * HALO) // 128)
+    t_tile = pick_t_tile(C, T, t_tile, B)
+    n_items = -(-(t_tile + 2 * HALO) // BAND) * (2 if C > 64 else 1)  # (band, C_out half)
     threads = 32 * min(n_items, MAX_THREADS // 32)
     y = torch.empty_like(x)
     scratch = None
     if hb_in_global(C):
         n_tiles = -(-T // t_tile)
-        scratch = torch.empty(B * n_tiles * C * (t_tile + 2 * HALO + 2 * MARGIN),
+        scratch = torch.empty(B * n_tiles * (t_tile + 2 * HALO + 2 * MARGIN + TAIL) * (C + 4),
                               dtype=torch.float32, device=x.device)
     ks = (ctypes.c_int * n_blocks)(*kernel_sizes)
     ds = (ctypes.c_int * (n_blocks * n_dil))(*(int(d) for dils in dilations for d in dils))
@@ -178,7 +198,7 @@ def fused_mrf_stage(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """One whole MRF stage (mean of the ResBlock1 chains), (B, C, T) f32.
     CUDA tensors run the hand-written kernel; CPU tensors the plain
     version. ``t_tile``: the kernel's central tile in samples (checked on
-    both devices when given; None = ``pick_t_tile``'s largest)."""
+    both devices when given; None = ``pick_t_tile``'s choice for B)."""
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilations = tuple(tuple(int(d) for d in dils) for dils in dilations)
     if t_tile is not None:

@@ -29,10 +29,12 @@ def cuda_f32():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,B,T", [(32, 2, 700), (32, 1, 100), (64, 1, 100), (64, 3, 1000),
-                                   (64, 1, 8192)])
+                                   (64, 1, 8192), (16, 1, 100), (16, 3, 1000), (48, 3, 1000),
+                                   (48, 1, 8192), (80, 1, 100), (80, 3, 1000)])
 def test_fused_mrf_kernel_matches_plain(cuda_f32, C, B, T):
-    """atol 1e-4: f32 sums over up to 704 products per conv, in another
-    order than cuDNN's (measured ~5e-7 on an H100)."""
+    """atol 1e-4: 3xTF32 tensor-core products summed in f32 over up to
+    1,408 terms per conv, in another order than cuDNN's (measured up to
+    ~3e-6 on an H100 at C = 16-128)."""
     g = torch.Generator().manual_seed(C * 1000 + T)
     x = torch.randn(B, C, T, generator=g).to(cuda_f32)
     weights = mrf.pack_mrf_weights([
@@ -43,6 +45,34 @@ def test_fused_mrf_kernel_matches_plain(cuda_f32, C, B, T):
     want = mrf.fused_mrf_stage_reference(x, weights, KS, DILS)
     torch.cuda.synchronize()
     assert mrf.LAUNCHES["mrf_stage"] == before + 1
+    assert (got - want).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_fused_mrf_kernel_one_chain_one_dilation(cuda_f32):
+    """The smallest stage, one ResBlock1 chain of one (k = 3, d = 1) pair:
+    the conv pass alone, without the chain sum; atol 1e-4."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 64, 300, generator=g).to(cuda_f32)
+    weights = mrf.pack_mrf_weights([(torch.randn(shape, generator=g) * 0.1).to(cuda_f32)
+                                    for shape in ((1, 3, 64, 64), (1, 64), (1, 3, 64, 64), (1, 64))])
+    got = mrf.fused_mrf_stage(x, weights, (3,), ((1,),))
+    want = mrf.fused_mrf_stage_reference(x, weights, (3,), ((1,),))
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,t_tile", [(64, 16), (64, 64), (64, 240), (32, 608), (128, 224)])
+def test_fused_mrf_kernel_explicit_tiles(cuda_f32, C, t_tile):
+    """An explicit tile, down to one m16 tile and up to the largest that
+    fits, on a T that is not a multiple of it; atol 1e-4."""
+    g = torch.Generator().manual_seed(C + t_tile)
+    x = torch.randn(2, C, 3 * t_tile + 37, generator=g).to(cuda_f32)
+    weights = _stage_weights(g, C, cuda_f32)
+    got = mrf.fused_mrf_stage(x, weights, KS, DILS, t_tile=t_tile)
+    want = mrf.fused_mrf_stage_reference(x, weights, KS, DILS)
+    torch.cuda.synchronize()
     assert (got - want).abs().max().item() < 1e-4
 
 

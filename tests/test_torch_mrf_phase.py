@@ -137,7 +137,7 @@ def test_kernel_geometry_and_argument_checks():
     assert mrf_phase.pick_t_tile(32, 10**6, 256) == 256
     with pytest.raises(ValueError, match="multiple of 128"):
         mrf_phase.pick_t_tile(64, 10**6, 384)
-    assert [mrf.pick_t_tile(C, 10**6) for C in (80, 96, 112, 128)] == [128, 384, 256, 256]
+    assert [mrf.pick_t_tile(C, 10**6, B=8) for C in (80, 96, 112, 128)] == [160, 368, 288, 224]
     assert [mrf.hb_in_global(C) for C in (32, 64, 80, 96, 128)] == [False] * 3 + [True] * 2
     with pytest.raises(ValueError, match="too wide"):
         mrf.pick_t_tile(256, 1000)

@@ -67,9 +67,18 @@ def test_mrf_weights_from_resblocks_match_the_plain_stage():
 
 def test_kernel_geometry_and_argument_checks():
     assert mrf.receptive_field(KS, DILS) == 60 <= mrf.HALO
-    assert mrf.pick_t_tile(64, 10**6) == 256  # two 64 x 448 f32 buffers: 229,376 B
-    assert mrf.pick_t_tile(32, 10**6) == 640
-    assert mrf.pick_t_tile(64, 100) == 128
+    # two buffers of t_tile + 128 rows, three 32-row margins and a 16-row
+    # tail, rows of C + 4 f32: 848 x 272 = 230,656 B at C = 64 (t_tile 256
+    # would need 239,360 B); 1,584 x 144 = 228,096 B at C = 32
+    assert mrf._most_tile(64, 2) == 240
+    assert mrf._most_tile(32, 2) == 608
+    # one request's narrow stages (B = 1): tiles that fill the 132 SMs in
+    # whole waves; at B = 8 the largest that fits
+    assert mrf.pick_t_tile(64, 32768) == 128  # 256 blocks: 2 waves of 256 rows
+    assert mrf.pick_t_tile(32, 65536) == 512  # 128 blocks: 1 wave
+    assert mrf.pick_t_tile(64, 131072, B=8) == 240
+    assert mrf.pick_t_tile(64, 100) == 64
+    assert mrf.pick_t_tile(64, 40) == 48  # no longer than T rounded up to 16
     x, weights = _stage_inputs(32, 1, 40)
     xt, wt = torch.from_numpy(x), mrf.pack_mrf_weights(list(map(torch.from_numpy, weights)))
     assert mrf._check(xt, wt, KS, DILS) == (3, 3)
@@ -88,6 +97,22 @@ def test_kernel_geometry_and_argument_checks():
         mrf._check(xt, wt, (3, 5, 11), DILS)
     with pytest.raises(ValueError, match="runs on CUDA or CPU"):
         mrf.fused_mrf_stage(xt.to("meta"), wt)
+
+
+@pytest.mark.parametrize("C,T", [(32, 8192), (64, 8192), (64, 32768), (128, 16384)])
+def test_k1_tile_follows_the_batch(C, T):
+    """A short T at B = 1 takes a smaller tile (more blocks for the SMs)
+    than at B = 8, where the largest tile that fits fills the card; every
+    choice is a multiple of 16 within the shared-memory budget."""
+    most = mrf._most_tile(C, 1 if mrf.hb_in_global(C) else 2)
+    one, eight = mrf.pick_t_tile(C, T, B=1), mrf.pick_t_tile(C, T, B=8)
+    assert one < eight <= most
+    assert one % mrf.TILE_STEP == eight % mrf.TILE_STEP == 0
+    assert mrf.pick_t_tile(C, T, most, B=1) == most  # an explicit tile is kept
+    with pytest.raises(ValueError, match="t_tile"):
+        mrf.pick_t_tile(C, T, most + mrf.TILE_STEP, B=8)
+    with pytest.raises(ValueError, match="t_tile"):
+        mrf.pick_t_tile(C, T, 40)
 
 
 def _small_generators(seed=0):
