@@ -14,12 +14,13 @@ Phases, one output line each (any failure exits non-zero):
    in steps of 16, B in {1, 3}, T shorter than one tile, 1000, two tiles
    + 37 (not a multiple of the tile) and 8192, and one chain of one
    dilation; kernel
-   K3 (the MRF stage on channels-last activations) against its plain
-   version (the phase-packed products) and against K1 on the transposed
-   input, at C in {16, 32, 64}, B in {1, 3}, T in {100, 700, two tiles +
-   37, 8192}; kernel K2 (Monotonic Alignment Search) against its plain
-   version on the card, which must be EQUAL, over B, T_x, T_y, ragged
-   lengths, ties and mask dtypes;
+   K3 (the MRF stage on channels-last activations, K1's 3xTF32 conv pass)
+   against its plain version (the phase-packed products) and against K1
+   on the transposed input, at C in {16, 32, 48, 64}, B in {1, 3}, T in
+   {100, 700, two tiles + 37, 8192}, and at a clamped explicit tile, with
+   whether it equals K1 bit for bit; kernel K2 (Monotonic Alignment
+   Search) against its plain version on the card, which must be EQUAL,
+   over B, T_x, T_y, ragged lengths, ties and mask dtypes;
 4. the serving path at full width: LJSpeech MatchaTTS + HiFi-GAN v1 with
    weights drawn from a seed, phoneme ids -> wav through ``TTSPipeline``
    on a few sentences, with the kernels' launch counts read around it;
@@ -553,33 +554,40 @@ def k1_tiles(dev, gen, kernel_sizes, dilations) -> list:
 
 def k3_check(dev, gen, kernel_sizes, dilations) -> dict:
     """K3 against its plain version (the phase-packed products) and
-    against K1 on the transposed input, on the card: T shorter than one
-    tile, 700, two tiles + 37 (not a multiple of the tile), 8192."""
+    against K1 on the transposed input, on the card, at every width it
+    takes: T shorter than one tile, 700, two of the batch's tiles + 37 (not
+    a multiple of the tile), 8192; then JAX's default tile of 2048, which
+    K3 clamps to the largest that fits. Both within K1_TOL; whether K3
+    equals K1 bit for bit is reported."""
     import torch
 
     from matcha_tpu_torch.ops import mrf, mrf_phase
 
+    stages = [(C, B, T, None) for C in (16, 32, 48, 64) for B in (1, 3)
+              for T in (100, 700, 2 * mrf.pick_t_tile(C, 10**6, B=B) + 37, 8192)]
     worst, cases = 0.0, []
-    for C in (16, 32, 64):
-        tile = mrf_phase.pick_t_tile(C, 10**6)
-        for B in (1, 3):
-            for T in (100, 700, 2 * tile + 37, 8192):
-                x = torch.randn(B, T, C, generator=gen).to(dev)
-                weights = random_stage_weights(gen, C, dev, kernel_sizes)
-                got = mrf_phase.fused_mrf_stage_phase(x, weights, kernel_sizes, dilations)
-                want = mrf_phase.fused_mrf_stage_phase_reference(x, weights, kernel_sizes,
-                                                                 dilations)
-                k1 = mrf.fused_mrf_stage(x.transpose(1, 2).contiguous(), weights, kernel_sizes,
-                                         dilations)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                err_k1 = (got - k1.transpose(1, 2)).abs().max().item()
-                cases.append({"C": C, "B": B, "T": T, "t_tile": tile, "max_abs_err": err,
-                              "max_abs_err_vs_k1": err_k1})
-                worst = max(worst, err, err_k1)
-                if not (got.shape == x.shape and err < K1_TOL and err_k1 < K1_TOL):
-                    raise AssertionError(f"K3 disagrees: {cases[-1]}")
-    return {"tolerance": K1_TOL, "max_abs_err": worst, "cases": cases}
+    for C, B, T, t_tile in stages + [(64, 3, 1000, 2048)]:
+        x = torch.randn(B, T, C, generator=gen).to(dev)
+        weights = random_stage_weights(gen, C, dev, kernel_sizes)
+        got = mrf_phase.fused_mrf_stage_phase(x, weights, kernel_sizes, dilations, t_tile=t_tile)
+        want = mrf_phase.fused_mrf_stage_phase_reference(x, weights, kernel_sizes, dilations)
+        k1 = mrf.fused_mrf_stage(x.transpose(1, 2).contiguous(), weights, kernel_sizes,
+                                 dilations).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_k1 = (got - k1).abs().max().item()
+        cases.append({"C": C, "B": B, "T": T, "t_tile_given": t_tile,
+                      "t_tile": mrf_phase.launch_geometry(C, T, B, t_tile)[0],
+                      "max_abs_err": err, "max_abs_err_vs_k1": err_k1,
+                      "equal_k1": torch.equal(got, k1)})
+        worst = max(worst, err, err_k1)
+        if not (got.shape == x.shape and err < K1_TOL and err_k1 < K1_TOL):
+            raise AssertionError(f"K3 disagrees: {cases[-1]}")
+    return {"tolerance": K1_TOL, "max_abs_err": worst,
+            "max_abs_err_vs_plain": max(c["max_abs_err"] for c in cases),
+            "max_abs_err_vs_k1": max(c["max_abs_err_vs_k1"] for c in cases),
+            "equal_k1_cases": sum(c["equal_k1"] for c in cases), "n_cases": len(cases),
+            "cases": cases}
 
 
 def vocoder_variants(dev, vocoder, shapes) -> dict:
@@ -957,6 +965,7 @@ def main() -> int:
          "library_ms": None},
         {"name": "mrf_stage_phase", "route": "cuda", "status": "ported",
          "path": "vocoder variants, narrow_impl='phase'",
+         "engine": "tensor cores: 3xTF32 mma.sync.m16n8k8, f32 sums",
          "source": "matcha_tpu_torch/csrc/mrf_phase.cu",
          "replaces": "matcha_tpu/ops/mrf_pallas.py:347",
          "launches": variants["launches"]["k3"],
@@ -966,6 +975,7 @@ def main() -> int:
          "bound_ms": sum(s["bound_ms"] for s in k3_path),
          "bound_by": ("operations" if all(s["bound_by"] == "operations" for s in k3_path)
                       else "bytes"),
+         "bound_tc_ms": sum(s["bound_tc_ms"] for s in k3_path),
          "library_ms": sum(s["library_ms"] for s in k3_path)},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

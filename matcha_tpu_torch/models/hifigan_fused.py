@@ -49,10 +49,13 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor,
     ``stage_weights``: ``fused_stage_weights(gen, max_fused_channels)``,
     packed here when not given. ``max_fused_channels`` (the JAX
     ``max_pallas_channels``, at most 128): stages up to this width are
-    fused. ``t_tile``: the fused kernels' central tile in samples (None =
-    the largest that fits). ``upsample_impl``: "dilated" or "subpixel"
-    (None = the generator's own). ``narrow_impl``: "plain" (K1) or "phase"
-    (K3 for C <= 64, the JAX ``128 // C >= 2`` test).
+    fused. ``t_tile``: the fused kernels' central tile in samples, a
+    multiple of 16, clamped per stage to the largest that fits (None =
+    ``ops/mrf.py::pick_t_tile``'s choice for the stage's width, length and
+    batch; the output does not depend on it). ``upsample_impl``:
+    "dilated" or "subpixel" (None = the generator's own).
+    ``narrow_impl``: "plain" (K1) or "phase" (K3 for C <= 64, the JAX
+    ``128 // C >= 2`` test).
 
     ``n_stages`` / ``skip_last_mrf`` / ``with_post`` stop the forward early
     for the stage profiler, as in the JAX function: after upsample + MRF

@@ -34,7 +34,7 @@ KERNEL_SIZES = (3, 7, 11)  # the kernel's compiled tap counts (HiFi-GAN v1, v2)
 MAX_THREADS = 384
 MAX_CHANNELS = 128
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
-# K1's own geometry (csrc/mrf_stage.cu); K3 reads only the names above
+# the geometry of K1 (csrc/mrf_stage.cu), which K3 (csrc/mrf_phase.cu) shares
 TILE_STEP = 16  # t_tile granularity: one m16 tile of time rows
 BAND = 32  # time rows of one warp's work item: two m16 tiles
 TAIL = BAND - TILE_STEP  # rows after a buffer's last margin: the last band's reach
@@ -66,21 +66,22 @@ def hb_in_global(C: int) -> bool:
 
 
 def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None, B: int = 1) -> int:
-    """Central tile length: ``t_tile`` when given (a multiple of TILE_STEP
-    that fits), else the tile from MIN_TILE up to the largest that fits
-    whose B * ceil(T / t_tile) blocks take the fewest waves of SMS blocks,
-    each of t_tile + 2*HALO rows of work (the larger tile on a tie); no
-    longer than T rounded up to TILE_STEP."""
+    """Central tile length: ``t_tile`` when given (a multiple of TILE_STEP;
+    one above the largest that fits is clamped to it, as the JAX kernels
+    clamp theirs, since the output does not depend on the tile), else the
+    tile from MIN_TILE up to the largest that fits whose B * ceil(T /
+    t_tile) blocks take the fewest waves of SMS blocks, each of t_tile +
+    2*HALO rows of work (the larger tile on a tie); no longer than T
+    rounded up to TILE_STEP."""
     if C > MAX_CHANNELS:
         raise ValueError(f"C={C} is too wide for the fused MRF kernel "
                          f"(at most {MAX_CHANNELS} channels)")
     most = _most_tile(C, 1 if hb_in_global(C) else 2)
-    if t_tile is not None and (t_tile % TILE_STEP or not TILE_STEP <= t_tile <= most):
-        raise ValueError(f"t_tile={t_tile}: at C={C} the kernel takes a multiple of "
-                         f"{TILE_STEP} up to {most}")
+    if t_tile is not None and (t_tile % TILE_STEP or t_tile < TILE_STEP):
+        raise ValueError(f"t_tile={t_tile}: the kernel takes a multiple of {TILE_STEP}")
     whole = -(-T // TILE_STEP) * TILE_STEP
     if t_tile is not None:
-        return min(t_tile, whole)
+        return min(t_tile, most, whole)
     top = min(most, whole)
 
     def cost(t):
@@ -198,7 +199,8 @@ def fused_mrf_stage(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """One whole MRF stage (mean of the ResBlock1 chains), (B, C, T) f32.
     CUDA tensors run the hand-written kernel; CPU tensors the plain
     version. ``t_tile``: the kernel's central tile in samples (checked on
-    both devices when given; None = ``pick_t_tile``'s choice for B)."""
+    both devices when given, and clamped to the largest that fits; None =
+    ``pick_t_tile``'s choice for B)."""
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilations = tuple(tuple(int(d) for d in dils) for dils in dilations)
     if t_tile is not None:

@@ -15,9 +15,12 @@ function hands it to its plain kernel.
 The phase packing (time phases stacked on the channel axis, x_packed[(p,
 c), s] = x[P*s + p, c]) exists to fill a TPU's 128-row matrix unit at
 C = 32. The CUDA kernel does not pack: time is the rows of its products
-and a tap is a row offset (see the source). The packing survives here as
-the plain version, an independent formulation of the stage that the
-tests hold against K1's plain ``F.conv1d`` chain and against JAX.
+and a tap is a row offset. It runs K1's conv pass (3xTF32 tensor-core
+products with f32 accuracy, K1's tile and rows) on channels-last rows
+(see the source), and agrees with K1 on the transposed input. The packing
+survives here as the plain version, an independent formulation of the
+stage that the tests hold against K1's plain ``F.conv1d`` chain and
+against JAX.
 """
 
 import ctypes
@@ -149,18 +152,14 @@ def fused_mrf_stage_phase_reference(x: torch.Tensor, weights: Sequence[torch.Ten
 
 # --- the kernel ------------------------------------------------------------
 
-def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None) -> int:
-    """Central tile length in samples: ``t_tile`` when given (a multiple of
-    128 that fits), else the largest multiple of 128 whose two buffers of
-    (t_tile + 2*HALO) rows of C + 1 floats, plus three MARGIN-row zero
-    bands, fit the block's shared memory; no longer than T rounded up to
-    128."""
-    rows = mrf.SMEM_LIMIT // ((C + 1) * 4)
-    most = ((rows - 3 * mrf.MARGIN) // 2 - 2 * mrf.HALO) // 128 * 128
-    if t_tile is not None and (t_tile % 128 or not 128 <= t_tile <= most):
-        raise ValueError(f"t_tile={t_tile}: at C={C} the kernel takes a multiple of 128 "
-                         f"up to {most}")
-    return min(t_tile or most, -(-T // 128) * 128)
+def launch_geometry(C: int, T: int, B: int = 1, t_tile: Optional[int] = None) -> Tuple[int, int]:
+    """(t_tile, threads) of a launch. The kernel keeps K1's rows at C <= 64
+    (two shared buffers of t_tile + 2*HALO rows of C + 4 floats), so its
+    tile is K1's, ``mrf.pick_t_tile``; one warp per BAND rows of the
+    window, at most MAX_THREADS."""
+    t_tile = mrf.pick_t_tile(C, T, t_tile, B)
+    bands = -(-(t_tile + 2 * mrf.HALO) // mrf.BAND)
+    return t_tile, 32 * min(bands, mrf.MAX_THREADS // 32)
 
 
 def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
@@ -170,6 +169,8 @@ def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
     if C % 16 or C > MAX_CHANNELS:
         raise ValueError(f"C={C}: the kernel needs a multiple of 16 channels, at most "
                          f"{MAX_CHANNELS}")
+    if x.data_ptr() % 16:
+        raise ValueError("the kernel moves rows as float4: x must start on 16 bytes")
     return mrf.check_stage(C, x.device, weights, kernel_sizes, dilations)
 
 
@@ -189,9 +190,7 @@ def _library():
 def _launch(x, weights, kernel_sizes, dilations, t_tile) -> torch.Tensor:
     n_blocks, n_dil = _check(x, weights, kernel_sizes, dilations)
     B, T, C = x.shape
-    t_tile = pick_t_tile(C, T, t_tile)
-    n_items = (C // 16) * ((t_tile + 2 * mrf.HALO) // 128)
-    threads = 32 * min(n_items, mrf.MAX_THREADS // 32)
+    t_tile, threads = launch_geometry(C, T, B, t_tile)
     y = torch.empty_like(x)
     ks = (ctypes.c_int * n_blocks)(*kernel_sizes)
     ds = (ctypes.c_int * (n_blocks * n_dil))(*(int(d) for dils in dilations for d in dils))
@@ -212,9 +211,13 @@ def fused_mrf_stage_phase(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """One whole MRF stage on (B, T, C) f32, channels-last. C <= 64: the
     CUDA kernel on a CUDA tensor, the plain version on a CPU tensor. Wider
     C: transposed to (B, C, T) for ``mrf.fused_mrf_stage`` (K1) and back;
-    the result is then a transposed view. ``t_tile``: the kernel's central
-    tile in samples (the JAX package counts packed lanes); None = the
-    largest that fits."""
+    the result is then a transposed view.
+
+    ``t_tile``: the kernel's central tile in samples, checked on both
+    devices when given and clamped to the largest that fits, as K1's;
+    None = ``mrf.pick_t_tile``'s choice for B. The JAX function counts its
+    ``t_tile`` in packed lanes of P = 128 // C samples each. The output
+    does not depend on the tile, so that is the only difference."""
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilations = tuple(tuple(int(d) for d in dils) for dils in dilations)
     B, T, C = x.shape
@@ -223,7 +226,7 @@ def fused_mrf_stage_phase(x: torch.Tensor, weights: Sequence[torch.Tensor],
                                 dilations, t_tile=t_tile)
         return y.transpose(1, 2)
     if t_tile is not None:
-        pick_t_tile(C, T, t_tile)
+        mrf.pick_t_tile(C, T, t_tile, B)
     if x.device.type == "cpu":
         return fused_mrf_stage_phase_reference(x, weights, kernel_sizes, dilations)
     if x.device.type != "cuda":

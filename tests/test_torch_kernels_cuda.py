@@ -63,10 +63,12 @@ def test_fused_mrf_kernel_one_chain_one_dilation(cuda_f32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,t_tile", [(64, 16), (64, 64), (64, 240), (32, 608), (128, 224)])
+@pytest.mark.parametrize("C,t_tile", [(64, 16), (64, 64), (64, 240), (32, 608), (128, 224),
+                                      (64, 256), (128, 1024)])
 def test_fused_mrf_kernel_explicit_tiles(cuda_f32, C, t_tile):
     """An explicit tile, down to one m16 tile and up to the largest that
-    fits, on a T that is not a multiple of it; atol 1e-4."""
+    fits (a larger one is clamped to it), on a T that is not a multiple of
+    it; atol 1e-4."""
     g = torch.Generator().manual_seed(C + t_tile)
     x = torch.randn(2, C, 3 * t_tile + 37, generator=g).to(cuda_f32)
     weights = _stage_weights(g, C, cuda_f32)
@@ -115,19 +117,23 @@ def test_wide_fused_mrf_kernel_matches_plain(cuda_f32, C, B, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [16, 32, 64])
-@pytest.mark.parametrize("B,T", [(1, 100), (3, 700), (1, "ragged"), (3, 8192)])
-def test_phase_kernel_matches_plain(cuda_f32, C, B, T):
-    """K3 against its plain version (the phase-packed products) and
-    against K1 on the transposed input, atol 1e-4: T shorter than one
-    tile, not a multiple of it, and B > 1."""
+@pytest.mark.parametrize("C", [16, 32, 48, 64])
+@pytest.mark.parametrize("B,T,t_tile", [(1, 100, None), (3, 700, None), (1, "ragged", None),
+                                        (3, "ragged", None), (3, 8192, None),
+                                        (2, "ragged", 2048)])
+def test_phase_kernel_matches_plain(cuda_f32, C, B, T, t_tile):
+    """K3 against its plain version (the phase-packed products), atol
+    1e-4, and against K1 on the transposed input, EQUAL (the same conv
+    pass and sum order): T shorter than one tile, not a multiple of it
+    (two of the batch's tiles + 37), B > 1, and an explicit tile above the
+    largest that fits (clamped)."""
     if T == "ragged":
-        T = 2 * mrf_phase.pick_t_tile(C, 10**6) + 37
+        T = 2 * mrf.pick_t_tile(C, 10**6, B=B) + 37
     g = torch.Generator().manual_seed(C * 1000 + T)
     x = torch.randn(B, T, C, generator=g).to(cuda_f32)
     weights = _stage_weights(g, C, cuda_f32)
     before = mrf_phase.LAUNCHES["mrf_stage_phase"], mrf.LAUNCHES["mrf_stage"]
-    got = mrf_phase.fused_mrf_stage_phase(x, weights, KS, DILS)
+    got = mrf_phase.fused_mrf_stage_phase(x, weights, KS, DILS, t_tile=t_tile)
     torch.cuda.synchronize()
     assert (mrf_phase.LAUNCHES["mrf_stage_phase"], mrf.LAUNCHES["mrf_stage"]) == \
         (before[0] + 1, before[1])
@@ -135,14 +141,16 @@ def test_phase_kernel_matches_plain(cuda_f32, C, B, T):
     k1 = mrf.fused_mrf_stage(x.transpose(1, 2).contiguous(), weights, KS, DILS).transpose(1, 2)
     assert got.shape == x.shape
     assert (got - want).abs().max().item() < 1e-4
-    assert (got - k1).abs().max().item() < 1e-4
+    assert torch.equal(got, k1)
 
 
 @pytest.mark.cuda
 def test_phase_generator_matches_plain_on_cuda(cuda_f32):
     """Full-width HiFi-GAN v1, seed weights: narrow_impl="phase" (two K3
     launches), then with the cap at 128 (one K1 at C = 128, two K3),
-    against the plain generator, atol 1e-5 on the tanh output."""
+    against the plain generator, atol 1e-5 on the tanh output; with the
+    cap at 128 and JAX's default tile of 2048, clamped in each kernel,
+    EQUAL to the default tile (no output depends on the tile)."""
     torch.manual_seed(0)
     gen = Generator(HiFiGANConfig()).to(cuda_f32).eval()
     mel = torch.randn(2, 37, 80, device=cuda_f32)
@@ -155,6 +163,8 @@ def test_phase_generator_matches_plain_on_cuda(cuda_f32):
                 mrf_phase.LAUNCHES["mrf_stage_phase"] - before[1]) == (k1, k3)
         assert got.shape == (2, 37 * 256, 1)
         assert (got - want).abs().max().item() < 1e-5
+    assert torch.equal(generator_apply_fused(gen, mel, max_fused_channels=128,
+                                             narrow_impl="phase", t_tile=2048), got)
 
 
 @pytest.mark.cuda
@@ -171,6 +181,9 @@ def test_phase_kernel_refuses_what_it_cannot_take(cuda_f32):
     loose = tuple(w.clone() for w in weights)
     with pytest.raises(ValueError, match="pack_mrf_weights"):
         mrf_phase.fused_mrf_stage_phase(torch.zeros(1, 64, 32, device=cuda_f32), loose)
+    with pytest.raises(ValueError, match="16 bytes"):
+        mrf_phase.fused_mrf_stage_phase(torch.zeros(64 * 32 + 1, device=cuda_f32)[1:]
+                                        .view(1, 64, 32), weights)
     with pytest.raises(ValueError, match="too wide"):  # P = 1: K1 refuses C = 256
         mrf_phase.fused_mrf_stage_phase(torch.zeros(1, 64, 256, device=cuda_f32), weights)
 

@@ -16,6 +16,8 @@ import torch
 
 from matcha_tpu.models.hifigan import ResBlock1
 from matcha_tpu.ops import mrf_pallas
+from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
+from matcha_tpu_torch.models.hifigan_fused import fused_stage_weights, generator_apply_fused
 from matcha_tpu_torch.ops import mrf, mrf_phase
 
 KS, DILS = (3, 7, 11), ((1, 3, 5),) * 3
@@ -128,15 +130,18 @@ def test_p1_branch_goes_to_k1(C):
 
 
 def test_kernel_geometry_and_argument_checks():
-    """K3's tile from its shared-memory budget, and its refusals; K1's
+    """K3's launch (K1's tile and threads: two shared buffers of t_tile +
+    128 rows of C + 4 floats, a warp per 32 rows), and its refusals; K1's
     tiles up to C = 128 (conv-1 buffer in global scratch above C = 80)."""
-    assert mrf_phase.pick_t_tile(64, 10**6) == 256  # (2 * 384 + 96) rows x 65 f32: 224,640 B
-    assert mrf_phase.pick_t_tile(32, 10**6) == 640
-    assert mrf_phase.pick_t_tile(16, 10**6) == 1408
-    assert mrf_phase.pick_t_tile(32, 100) == 128
-    assert mrf_phase.pick_t_tile(32, 10**6, 256) == 256
-    with pytest.raises(ValueError, match="multiple of 128"):
-        mrf_phase.pick_t_tile(64, 10**6, 384)
+    assert mrf_phase.launch_geometry(64, 10**6, B=8) == (240, 384)  # 848 rows x 272 B
+    assert mrf_phase.launch_geometry(32, 10**6, B=8) == (608, 384)
+    assert mrf_phase.launch_geometry(16, 10**6, B=8) == (1264, 384)
+    assert mrf_phase.launch_geometry(32, 100) == (64, 192)  # MIN_TILE: 6 bands of 32 rows
+    assert mrf_phase.launch_geometry(64, 8192, B=8) == (176, 320)
+    assert mrf_phase.launch_geometry(32, 10**6, 1, 256) == (256, 384)
+    assert mrf_phase.launch_geometry(64, 10**6, 1, 256) == (240, 384)  # clamped
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mrf_phase.launch_geometry(64, 10**6, 1, 40)
     assert [mrf.pick_t_tile(C, 10**6, B=8) for C in (80, 96, 112, 128)] == [160, 368, 288, 224]
     assert [mrf.hb_in_global(C) for C in (32, 64, 80, 96, 128)] == [False] * 3 + [True] * 2
     with pytest.raises(ValueError, match="too wide"):
@@ -159,3 +164,47 @@ def test_kernel_geometry_and_argument_checks():
         mrf_phase.fused_mrf_stage_phase(xt.to("meta"), wt)
     with pytest.raises(ValueError, match="t_tile"):
         mrf_phase.fused_mrf_stage_phase(xt, wt, t_tile=100)
+
+
+@pytest.mark.parametrize("C", [16, 32, 48, 64])
+def test_k3_tile_is_k1s(C):
+    """K3 keeps K1's rows at C <= 64, so it takes K1's tile, batch-aware,
+    explicit tiles clamped alike."""
+    for B in (1, 8):
+        for T in (100, 8192, 10**6):
+            assert mrf_phase.launch_geometry(C, T, B)[0] == mrf.pick_t_tile(C, T, B=B)
+        assert mrf_phase.launch_geometry(C, 10**6, B, 2048)[0] == \
+            mrf.pick_t_tile(C, 10**6, 2048, B) == mrf._most_tile(C, 2)
+
+
+def _generator_128():
+    """A port generator with a C = 128 stage and two narrow ones (64, 32)."""
+    torch.manual_seed(0)
+    return Generator(HiFiGANConfig(upsample_initial_channel=256, upsample_rates=(2, 2, 2),
+                                   upsample_kernel_sizes=(4, 4, 4))).eval()
+
+
+@pytest.mark.parametrize("fn,C,t_tile", [
+    ("fused_mrf_stage", 32, 2048), ("fused_mrf_stage", 64, 256), ("fused_mrf_stage", 128, 1024),
+    ("fused_mrf_stage_phase", 32, 2048), ("fused_mrf_stage_phase", 64, 1024),
+    ("generator_apply_fused", 128, 256), ("generator_apply_fused", 128, 2048)])
+def test_explicit_tile_above_the_largest_is_clamped(fn, C, t_tile):
+    """A tile that JAX runs (its default 2048, its pick_t_tile(128) = 1024,
+    256 at C = 64) is clamped to the largest that fits, not refused: the
+    result equals the default tile's."""
+    if fn == "generator_apply_fused":
+        gen = _generator_128()
+        mel = torch.from_numpy(np.random.default_rng(C).normal(size=(2, 8, 80)).astype(np.float32))
+        weights = fused_stage_weights(gen, C)
+        got, want = (generator_apply_fused(gen, mel, weights, max_fused_channels=C,
+                                           narrow_impl="phase", t_tile=t) for t in (t_tile, None))
+    else:
+        x, weights = _stage(C, 2, 300, seed=C)
+        w = mrf.pack_mrf_weights(list(map(torch.from_numpy, weights)))
+        xt = torch.from_numpy(x)
+        if fn == "fused_mrf_stage":
+            xt = xt.transpose(1, 2).contiguous()
+        stage = getattr(mrf if fn == "fused_mrf_stage" else mrf_phase, fn)
+        got, want = stage(xt, w, t_tile=t_tile), stage(xt, w)
+        assert mrf.pick_t_tile(C, 10**6, t_tile) == mrf._most_tile(C, 1 if mrf.hb_in_global(C) else 2)
+    assert torch.equal(got, want)
