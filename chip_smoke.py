@@ -20,7 +20,10 @@ Phases, one output line each (any failure exits non-zero):
    {100, 700, two tiles + 37, 8192}, and at a clamped explicit tile, with
    whether it equals K1 bit for bit; kernel K2 (Monotonic Alignment
    Search) against its plain version on the card, which must be EQUAL,
-   over B, T_x, T_y, ragged lengths, ties and mask dtypes;
+   over B, T_x, T_y, ragged lengths, ties and mask dtypes, and at the
+   edges of its instances (T_x in {31, 32, 33, 1024, 1025, 4096}, T_y in
+   {1, 7, 33, 2051}), with each instance's shared memory as the kernel
+   computes it against ``mas_layout``'s;
 4. the serving path at full width: LJSpeech MatchaTTS + HiFi-GAN v1 with
    weights drawn from a seed, phoneme ids -> wav through ``TTSPipeline``
    on a few sentences, with the kernels' launch counts read around it;
@@ -47,7 +50,8 @@ Phases, one output line each (any failure exits non-zero):
    the card and on the CPU, which must agree; step time, mel frames per
    second, peak memory, one step split by phase, the card's busy time
    over a step, and K2 at the step's shape beside its bound and its plain
-   version;
+   version, its call split under ``torch.profiler`` into the kernel and
+   the wrapper's other device operations;
 7. the ``kernels`` line (every TPU kernel of the repo: K1, K2 and K3, all
    ported), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -225,6 +229,7 @@ def k2_check(dev) -> list:
 
     gen = torch.Generator().manual_seed(SEED)
     ragged32 = [int(v) for v in torch.randint(1, 385, (32,), generator=gen)]
+    lib = mas._library()
     cases = [  # B, T_x, T_y, t_xs, t_ys, values, bool mask
         (1, 1, 8, [1], [8], "normal", False),
         (4, 37, 901, [37, 30, 5, 1], [901, 500, 37, 8], "normal", False),
@@ -236,6 +241,19 @@ def k2_check(dev) -> list:
         (1, 700, 901, [700], [901], "ints", False),
         (32, 37, 8, [8] * 16 + [3] * 16, [8] * 32, "ints", False),
         (4, 384, 901, [384, 384, 37, 1], [200, 901, 8, 1], "normal", False),  # t_x > t_y
+        # the instances' edges: one lane's cells (T_x 31-33: 1 and 2 per
+        # lane), float4 and scalar tile reads (1024, 1025), the widest
+        # (4096); T_y 1, 7, 33 (shorter than a tile, T_y % 4 != 0) and 2051
+        (3, 31, 33, [31, 20, 0], [33, 33, 5], "ints", True),  # an empty row
+        (3, 32, 7, [32, 7, 1], [7, 7, 7], "normal", False),  # t_x > t_y
+        (3, 33, 1, [33, 1, 1], [1, 1, 1], "normal", False),
+        (2, 33, 2051, [33, 17], [2051, 40], "ints", False),
+        (2, 1024, 33, [1024, 33], [33, 33], "zeros", True),
+        (2, 1024, 2051, [1024, 700], [2051, 1500], "normal", False),
+        (2, 1025, 2051, [1025, 3], [2051, 2051], "ints", True),
+        (2, 1025, 7, [1025, 7], [7, 7], "normal", False),
+        (2, 4096, 2051, [4096, 2000], [2051, 2051], "normal", False),  # row 0: t_x > t_y
+        (2, 4096, 1, [4096, 1], [1, 1], "ints", True),
     ]
     out = []
     for B, T_x, T_y, t_xs, t_ys, values, bool_mask in cases:
@@ -243,12 +261,17 @@ def k2_check(dev) -> list:
         got = mas.maximum_path(value, mask)
         want = mas.maximum_path_reference(value, mask)
         torch.cuda.synchronize()
+        layout = mas.mas_layout(T_x, T_y)
+        cpl, _, rows, smem = layout
         equal = torch.equal(got, want) and got.dtype == mask.dtype
         out.append({"B": B, "T_x": T_x, "T_y": T_y, "values": values,
                     "mask": "bool" if bool_mask else "float32", "equal": equal,
-                    "cells_on_path": int(got.sum())})
+                    "cells_on_path": int(got.sum()), "layout": layout,
+                    "kernel_smem_bytes": lib.mas_smem_bytes(cpl, rows)})
         if not equal:
             raise AssertionError(f"K2 differs from its plain version: {out[-1]}")
+        if out[-1]["kernel_smem_bytes"] != smem:
+            raise AssertionError(f"K2's shared memory differs from mas_layout's: {out[-1]}")
     return out
 
 
@@ -474,22 +497,27 @@ def k2_time(dev, raw) -> dict:
     import torch
 
     from matcha_tpu_torch.ops import mas
+    from matcha_tpu_torch.scripts.profile_mas import mas_split
 
     B, T_x, T_y = len(raw["x_lengths"]), raw["x"].shape[1], raw["y"].shape[1]
     t_xs, t_ys = [int(v) for v in raw["x_lengths"]], [int(v) for v in raw["y_lengths"]]
     gen = torch.Generator().manual_seed(SEED)
     value, mask = mas_problem(gen, dev, B, T_x, T_y, t_xs, t_ys, "normal", False)
-    ms = cuda_ms(lambda: mas.maximum_path(value, mask), 20)
+    split = mas_split(lambda: mas.maximum_path(value, mask), 20)
     plain_ms = cuda_ms(lambda: mas.maximum_path_reference(value, mask), 2)
     equal = torch.equal(mas.maximum_path(value, mask), mas.maximum_path_reference(value, mask))
     if not equal:
         raise AssertionError("K2 differs from its plain version at the step's shape")
     bound_ms, bound_by = k2_bound_ms(B, T_x, T_y, t_xs, t_ys)
     return {"B": B, "T_x": T_x, "T_y": T_y, "max_t_x": max(t_xs), "max_t_y": max(t_ys),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "serial_steps": 2 * max(t_ys), "library_ms": None, "equal": equal,
-            "library": "none: no PyTorch call computes MAS",
-            "note": "CUDA events, mean of 20 (kernel wrapper) and 2 (plain) calls; "
+            "layout": mas.mas_layout(T_x, T_y), "ms": split["ms"],
+            "kernel_ms": split["kernel_ms"], "wrapper_ms": split["wrapper_ms"],
+            "device_ops_per_call": split["device_ops_per_call"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "serial_steps": 2 * max(t_ys),
+            "library_ms": None, "equal": equal, "library": "none: no PyTorch call computes MAS",
+            "note": "ms: CUDA events, mean of 20 calls of the wrapper; kernel_ms and wrapper_ms: "
+                    "torch.profiler device time per call over 20 more, the kernel and the "
+                    "wrapper's other device operations; plain_ms: CUDA events, mean of 2; "
                     "serial_steps = the forward's and the backtrack's dependent row steps"}
 
 
@@ -960,7 +988,9 @@ def main() -> int:
         {"name": "maximum_path", "route": "cuda", "status": "ported", "path": "training",
          "source": "matcha_tpu_torch/csrc/mas.cu",
          "replaces": "matcha_tpu/ops/mas_pallas.py:69",
+         "engine": "one chain warp per batch row, cp.async log-prior tiles, per-lane bit words",
          "launches": trained["run"]["k2_launches"], "max_abs_err": 0.0, "ms": k2["ms"],
+         "kernel_ms": k2["kernel_ms"], "wrapper_ms": k2["wrapper_ms"], "layout": k2["layout"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
         {"name": "mrf_stage_phase", "route": "cuda", "status": "ported",

@@ -1,4 +1,5 @@
-// Monotonic Alignment Search for Hopper (sm_90a), one block per batch row.
+// Monotonic Alignment Search for Hopper (sm_90a): one block per batch row,
+// one warp of it carries the row's whole DP chain.
 //
 // Replaces the Pallas TPU kernel matcha_tpu/ops/mas_pallas.py
 // (maximum_path_pallas, body _mas_kernel). It computes the same function,
@@ -11,147 +12,297 @@
 // index = t_x - 1 that moves up one token when
 //   index != 0 && (index == y || acc[y-1][index] < acc[y-1][index-1]) && y > 0.
 //
-// What bounds it. The work is a chain of t_y dependent row steps plus a
-// backtrack of t_y dependent steps, with about three operations per cell:
-// the kernel is bound by latency, far from both the bytes bound (lp read
-// once, the path written once) and the operations bound. Its design:
-//  * Forward: one thread per x (up to MAX_CHUNKS cells per thread when
-//    T_x > 1024). A cell's previous value stays in a register; its left
-//    neighbour comes from __shfl_up_sync within the warp and, at warp and
-//    chunk edges, from a few words of shared memory written the row
-//    before (double-buffered by row parity), so a row costs one
-//    __syncthreads(). lp[x][y] is read x-major as the caller holds it;
-//    each warp's 32 cache lines serve the next 31 rows from L1, and a
-//    register ring prefetches PREFETCH rows ahead.
-//  * The backtrack needs only the decision bit of each cell,
-//    acc[y-1][x-1] > acc[y-1][x], which the forward computes from the
-//    very floats the max compared (so a tie does not move). A warp packs
-//    its 32 bits with __ballot_sync into one word of a (B, T_y, ceil(T_x/32))
-//    scratch the wrapper allocates; no f32 row is kept.
-//  * Backtrack: warp 0 walks y down. Per 32 rows, each lane loads the two
-//    bit words (index >> 5 and the one before) of one row, so one round
-//    of loads serves 32 serial decisions made with __shfl_sync.
+// What bounds it. A latency chain: t_y dependent row steps forward and
+// t_y dependent steps back, about 2 * t_y in all (1,664 at t_y = 832), with
+// a few operations per cell. The bytes bound (lp read once, the path written
+// once: 61 MB at (32, 288, 832), 0.018 ms at 3.35 TB/s) is far below it, and
+// one row per SM (B = 32 of 132 SMs) leaves no parallelism across rows. So
+// the design shortens each step:
+//  * The chain warp. Warp 0 owns the row: lane l holds CPL consecutive cells
+//    x = l * CPL + i in registers (CPL a compile-time instance, the smallest
+//    of CPL_INSTANCES with 32 * CPL >= T_x; one warp up to T_x = 4096 at
+//    CPL = 128, so no second chain warp and no barrier between chain warps
+//    exists). Within a row the cells depend only on the row before, so a
+//    row costs one __shfl_up_sync (the lane's left edge) and CPL independent
+//    max-add-select steps; there is no block barrier per row.
+//  * Staged log-prior tiles. Warps 1..LOADER_WARPS copy the next tile of R
+//    mel frames, lp[x][y0 : y0 + R] for x < t_x, into shared memory with
+//    cp.async while the chain warp works on the current one (two buffers,
+//    one __syncthreads() per tile). Cell x sits in slot (x % CPL) * 32 +
+//    x / CPL, rows of S = R + PAD floats, so lane l's read of its i-th cell
+//    is slot i * 32 + l: for CPL <= 16 a float4 (4 rows at once, S = 4 mod 8,
+//    no bank conflict in a quarter warp), above that a float (S odd). The
+//    copies are 16 bytes where T_y % 4 == 0 and lp starts on 16 bytes (and
+//    the float4 layout is in use), else 4 bytes.
+//  * Decision bits. The backtrack needs only acc[y-1][x-1] > acc[y-1][x]
+//    for each cell, computed from the very floats the max compared (so a tie
+//    does not move). A lane packs its CPL bits into WPL = ceil(CPL / 32)
+//    words per row; the warp stores a row's words as one coalesced line into
+//    a (B, T_y, 32 * WPL) scratch the wrapper allocates. No f32 row is kept.
+//  * Backtrack, on the same warp. For each run of 32 rows the warp copies
+//    those rows' words into shared memory (cp.async, coalesced, the next run
+//    in flight while this one is walked) and syncs; lane 0 walks the 32
+//    serial steps, reading bit index % CPL of owner index / CPL.
 // The path is written as 1.0f into an f32 (B, T_x, T_y) output that the
 // wrapper zeroed; rows y >= t_y stay 0. The kernel only adds, maxes and
 // compares: there is no multiply for the compiler to contract.
+//
+// ops/mas.py::mas_layout mirrors the geometry below (CPL_INSTANCES,
+// MAX_TILE_ROWS, MAX_SMEM, BT_ROWS, the row padding and step, smem_bytes);
+// the two must agree, and chip_smoke.py checks smem_bytes against it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int MAX_CHUNKS = 4;
-constexpr int PREFETCH = 4;
-constexpr int MAX_WARPS = 32;
 constexpr float MAX_NEG_VAL = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int LOADER_WARPS = 3;
+constexpr int THREADS = 32 * (1 + LOADER_WARPS);
+constexpr int MAX_TILE_ROWS = 64;
+constexpr int MAX_SMEM = 232448;  // 227 KB, the most one block may take
+constexpr int BT_ROWS = 32;       // rows per backtrack run
+// cells per lane: the instances mas_launch is compiled for
+constexpr int CPL_INSTANCES[] = {1, 2, 3, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 96, 128};
 
-__global__ void __launch_bounds__(1024)
+template <int CPL>
+struct Geometry {
+    static constexpr bool VEC4 = CPL <= 16;     // float4 reads of 4 rows
+    static constexpr int VEC = VEC4 ? 4 : 1;    // rows per shared-memory read
+    static constexpr int PAD = VEC4 ? 4 : 1;    // S = R + PAD
+    static constexpr int ROW_STEP = VEC4 ? 8 : 2;  // R is a multiple of it
+    static constexpr int WPL = (CPL + 31) / 32;     // bit words per lane and row
+    static constexpr int SLOTS = 32 * CPL;
+};
+
+int smem_bytes(int cpl, int rows) {
+    const int pad = cpl <= 16 ? 4 : 1, wpl = (cpl + 31) / 32;
+    const long long tiles = 2LL * 32 * cpl * (rows + pad) * 4;
+    const long long backtrack = 2LL * BT_ROWS * 32 * wpl * 4;
+    const long long bytes = tiles > backtrack ? tiles : backtrack;
+    return bytes > MAX_SMEM ? -1 : (int)bytes;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Loader threads (ltid in [0, 32 * LOADER_WARPS)) copy rows y0 .. y0 + n - 1
+// of lp[x] for x < t_x into slot (x % CPL) * 32 + x / CPL of dst.
+template <int CPL>
+__device__ void load_tile(float* dst, const float* lpb, int T_y, int t_x, int y0, int n, int S,
+                          bool vec16, int ltid) {
+    const int step = vec16 ? 4 : 1;
+    const int pieces = (n + step - 1) / step;  // per x; a 16-byte piece past t_y stays in T_y
+    const int total = t_x * pieces;
+    for (int e = ltid; e < total; e += 32 * LOADER_WARPS) {
+        const int x = e / pieces, k = (e - x * pieces) * step;
+        float* d = dst + ((x % CPL) * 32 + x / CPL) * S + k;
+        const float* s = lpb + (size_t)x * T_y + y0 + k;
+        if (vec16) cp_async16(d, s);
+        else cp_async4(d, s);
+    }
+    cp_async_commit();
+}
+
+// One row y of the forward on the chain warp: lane-local cells i of
+// x = base + i, lp values lpv, decision bits into the row's words.
+template <int CPL>
+__device__ __forceinline__ void row_step(float (&prev)[CPL], const float (&lpv)[CPL], int y,
+                                         int lane, int base, int t_x, int t_y,
+                                         uint32_t* __restrict__ bitsb) {
+    constexpr int WPL = Geometry<CPL>::WPL;
+    const float edge = __shfl_up_sync(FULL, prev[CPL - 1], 1);
+    const float left0 = lane > 0 ? edge : (y == 0 ? 0.f : MAX_NEG_VAL);
+    const int lo = t_x + y - t_y - base, hi = min(y, t_x - 1) - base;  // the band in i
+    uint32_t word[WPL];
+#pragma unroll
+    for (int w = 0; w < WPL; ++w) word[w] = 0u;
+#pragma unroll
+    for (int i = CPL - 1; i >= 0; --i) {  // downwards: prev[i - 1] is still row y - 1
+        const float left = i > 0 ? prev[i - 1] : left0;
+        word[i / 32] |= (left > prev[i] ? 1u : 0u) << (i % 32);
+        const float nv = __fadd_rn(fmaxf(prev[i], left), lpv[i]);
+        prev[i] = (i >= lo && i <= hi) ? nv : MAX_NEG_VAL;
+    }
+#pragma unroll
+    for (int w = 0; w < WPL; ++w) bitsb[((size_t)y * WPL + w) * 32 + lane] = word[w];
+}
+
+__device__ __forceinline__ float component(const float4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(THREADS, 1)
 mas_kernel(const float* __restrict__ lp, const int* __restrict__ t_xs,
            const int* __restrict__ t_ys, uint32_t* __restrict__ bits,
-           float* __restrict__ path, int T_x, int T_y, int chunks) {
-  __shared__ float edge[2][MAX_CHUNKS][MAX_WARPS];
+           float* __restrict__ path, int T_x, int T_y, int R, int vec16) {
+    using G = Geometry<CPL>;
+    extern __shared__ __align__(16) float smem[];
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int W = (T_x + 31) >> 5;
-  const int t_x = min(t_xs[b], T_x), t_y = min(t_ys[b], T_y);
-  if (t_x <= 0 || t_y <= 0) return;  // the same for the whole block
+    const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int t_x = min(t_xs[b], T_x), t_y = min(t_ys[b], T_y);
+    if (t_x <= 0 || t_y <= 0) return;  // the same for the whole block
 
-  const float* lpb = lp + (size_t)b * T_x * T_y;
-  uint32_t* bitsb = bits + (size_t)b * T_y * W;
+    const int S = R + G::PAD;
+    const float* lpb = lp + (size_t)b * T_x * T_y;
+    uint32_t* bitsb = bits + (size_t)b * T_y * 32 * G::WPL;
+    const int tile_floats = G::SLOTS * S;  // two tiles: smem and smem + tile_floats
+    const int n_tiles = (t_y + R - 1) / R;
 
-  // row -1 is all MAX_NEG_VAL; its edges are read at y = 0 from parity 1
-  for (int i = tid; i < MAX_CHUNKS * MAX_WARPS; i += blockDim.x)
-    edge[1][i / MAX_WARPS][i % MAX_WARPS] = MAX_NEG_VAL;
+    if (warp > 0) {
+        load_tile<CPL>(smem, lpb, T_y, t_x, 0, min(R, t_y), S, vec16, threadIdx.x - 32);
+        cp_async_wait<0>();
+    }
+    __syncthreads();
 
-  float prev[MAX_CHUNKS];
-  float ring[PREFETCH][MAX_CHUNKS];
+    float prev[CPL];
 #pragma unroll
-  for (int k = 0; k < MAX_CHUNKS; ++k) {
-    prev[k] = MAX_NEG_VAL;
-    const int x = k * blockDim.x + tid;
-#pragma unroll
-    for (int j = 0; j < PREFETCH; ++j)
-      ring[j][k] = (k < chunks && x < t_x && j < t_y) ? __ldg(lpb + (size_t)x * T_y + j) : 0.f;
-  }
-  __syncthreads();
+    for (int i = 0; i < CPL; ++i) prev[i] = MAX_NEG_VAL;
+    const int base = lane * CPL;
 
-  for (int y0 = 0; y0 < t_y; y0 += PREFETCH) {
+    for (int t = 0; t < n_tiles; ++t) {
+        const int y0 = t * R;
+        if (warp > 0) {
+            if (t + 1 < n_tiles)
+                load_tile<CPL>(smem + ((t + 1) & 1) * tile_floats, lpb, T_y, t_x, y0 + R,
+                               min(R, t_y - y0 - R), S, vec16, threadIdx.x - 32);
+        } else {
+            const float* cur = smem + (t & 1) * tile_floats + lane * S;
+            const int n = min(R, t_y - y0);
+            for (int r0 = 0; r0 < n; r0 += G::VEC) {
+                if constexpr (G::VEC4) {
+                    float4 v[CPL];
 #pragma unroll
-    for (int j = 0; j < PREFETCH; ++j) {
-      const int y = y0 + j;
-      if (y >= t_y) break;  // uniform: every thread leaves at the same row
-      const int rd = (y + 1) & 1, wr = y & 1;
+                    for (int i = 0; i < CPL; ++i)
+                        v[i] = *reinterpret_cast<const float4*>(cur + i * 32 * S + r0);
 #pragma unroll
-      for (int k = 0; k < MAX_CHUNKS; ++k) {
-        if (k >= chunks) break;
-        const int x = k * blockDim.x + tid;
-        float left = __shfl_up_sync(FULL, prev[k], 1);
-        if (lane == 0) {
-          if (warp > 0) left = edge[rd][k][warp - 1];
-          else if (k > 0) left = edge[rd][k - 1][n_warps - 1];
-          else left = (y == 0) ? 0.f : MAX_NEG_VAL;
+                    for (int k = 0; k < 4; ++k) {
+                        if (r0 + k >= n) break;  // uniform: the tile's last rows
+                        float lpv[CPL];
+#pragma unroll
+                        for (int i = 0; i < CPL; ++i) lpv[i] = component(v[i], k);
+                        row_step<CPL>(prev, lpv, y0 + r0 + k, lane, base, t_x, t_y, bitsb);
+                    }
+                } else {
+                    float lpv[CPL];
+#pragma unroll
+                    for (int i = 0; i < CPL; ++i) lpv[i] = cur[i * 32 * S + r0];
+                    row_step<CPL>(prev, lpv, y0 + r0, lane, base, t_x, t_y, bitsb);
+                }
+            }
         }
-        const float cand = fmaxf(prev[k], left);
-        const float nv = __fadd_rn(cand, ring[j][k]);
-        const bool in_band = x <= y && x >= t_x + y - t_y && x < t_x;
-        const float out = in_band ? nv : MAX_NEG_VAL;
-        // decision bit of cell (y, x): acc[y-1][x-1] > acc[y-1][x]
-        const unsigned word = __ballot_sync(FULL, x < t_x && left > prev[k]);
-        if (lane == 0 && x < t_x) bitsb[(size_t)y * W + (x >> 5)] = word;
-        if (lane == 31) edge[wr][k][warp] = out;
-        prev[k] = out;
-        const int yn = y + PREFETCH;
-        ring[j][k] = (yn < t_y && x < t_x) ? __ldg(lpb + (size_t)x * T_y + yn) : 0.f;
-      }
-      __syncthreads();
+        if (warp > 0) cp_async_wait<0>();
+        __syncthreads();  // the next tile is in; the current one may be overwritten
     }
-  }
 
-  if (warp != 0) return;
-  float* pathb = path + (size_t)b * T_x * T_y;
-  int index = t_x - 1;
-  for (int y0 = t_y - 1; y0 >= 0; y0 -= 32) {
-    const int w = index >> 5;
-    const int yl = y0 - lane;
-    uint32_t hi = 0, lo = 0;
-    if (yl > 0) {  // row 0 never moves
-      hi = bitsb[(size_t)yl * W + w];
-      lo = w > 0 ? bitsb[(size_t)yl * W + w - 1] : 0u;
+    if (warp != 0) return;
+    // The tiles are spent: their shared memory holds two runs of bit rows.
+    // The lanes' bit stores must be seen by the copies below.
+    __threadfence();
+    __syncwarp();
+    constexpr int RW = 32 * G::WPL;  // words per bit row
+    uint32_t* runs = reinterpret_cast<uint32_t*>(smem);
+    const int n_runs = (t_y + BT_ROWS - 1) / BT_ROWS;
+    auto fetch = [&](int c) {  // run c: rows t_y - 1 - 32 c - r, r < 32, each >= 0
+        uint32_t* dst = runs + (c & 1) * BT_ROWS * RW;
+        const int top = t_y - 1 - c * BT_ROWS;
+        for (int e = lane; e < BT_ROWS * RW / 4; e += 32) {
+            const int r = e / (RW / 4), k = 4 * (e % (RW / 4));
+            if (top - r >= 0) cp_async16(dst + r * RW + k, bitsb + (size_t)(top - r) * RW + k);
+        }
+        cp_async_commit();
+    };
+
+    float* pathb = path + (size_t)b * T_x * T_y;
+    int index = t_x - 1;
+    fetch(0);
+    for (int c = 0; c < n_runs; ++c) {
+        if (c + 1 < n_runs) {
+            fetch(c + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncwarp();
+        if (lane == 0) {
+            const uint32_t* run = runs + (c & 1) * BT_ROWS * RW;
+            const int top = t_y - 1 - c * BT_ROWS;
+            const int rows = min(BT_ROWS, top + 1);
+            for (int r = 0; r < rows; ++r) {
+                const int y = top - r;
+                pathb[(size_t)index * T_y + y] = 1.f;
+                const int owner = index / CPL, i = index - owner * CPL;
+                const bool bit = (run[r * RW + (i >> 5) * 32 + owner] >> (i & 31)) & 1u;
+                index -= (index != 0 && (index == y || bit) && y > 0) ? 1 : 0;
+            }
+        }
+        index = __shfl_sync(FULL, index, 0);
+        __syncwarp();  // lane 0 is done with this run before it is refilled
     }
-    const int rows = min(32, y0 + 1);
-    for (int j = 0; j < rows; ++j) {
-      const int y = y0 - j;
-      const uint32_t h = __shfl_sync(FULL, hi, j), l = __shfl_sync(FULL, lo, j);
-      if (lane == 0) pathb[(size_t)index * T_y + y] = 1.f;
-      // index has fallen at most j <= 31 below the chunk's start: its word
-      // is w or w - 1
-      const uint32_t wd = (index >> 5) == w ? h : l;
-      const bool bit = (wd >> (index & 31)) & 1u;
-      const bool move = index != 0 && (index == y || bit) && y > 0;
-      index -= move ? 1 : 0;
-    }
-  }
+}
+
+template <int CPL>
+int launch(const float* lp, const int* t_xs, const int* t_ys, uint32_t* bits, float* path, int B,
+           int T_x, int T_y, int R, cudaStream_t stream) {
+    using G = Geometry<CPL>;
+    if (32 * CPL < T_x || R < 1 || R > MAX_TILE_ROWS || R % G::ROW_STEP != 0)
+        return (int)cudaErrorInvalidValue;
+    const int smem = smem_bytes(CPL, R);
+    if (smem < 0) return (int)cudaErrorInvalidValue;
+    const int vec16 = G::VEC4 && T_y % 4 == 0 && reinterpret_cast<uintptr_t>(lp) % 16 == 0;
+    cudaError_t err = cudaFuncSetAttribute(mas_kernel<CPL>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    mas_kernel<CPL><<<B, THREADS, smem, stream>>>(lp, t_xs, t_ys, bits, path, T_x, T_y, R, vec16);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Shared memory of the (cpl, tile_rows) instance in bytes, or -1 where cpl
+// is not an instance or the tiles do not fit.
+int mas_smem_bytes(int cpl, int tile_rows) {
+    for (const int c : CPL_INSTANCES)
+        if (c == cpl) return smem_bytes(cpl, tile_rows);
+    return -1;
+}
+
 // lp, path: (B, T_x, T_y) f32 contiguous, path zeroed; t_xs, t_ys: (B,)
-// int32; bits: (B, T_y, ceil(T_x / 32)) 32-bit words of scratch. threads:
-// a multiple of 32, at most 1024, with threads * MAX_CHUNKS >= T_x.
-// Returns cudaGetLastError() after the launch.
-int mas_launch(const float* lp, const int* t_xs, const int* t_ys, uint32_t* bits,
-               float* path, int B, int T_x, int T_y, int threads, void* stream) {
-  if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
-  const int chunks = (T_x + threads - 1) / threads;
-  if (chunks > MAX_CHUNKS) return (int)cudaErrorInvalidValue;
-  mas_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(lp, t_xs, t_ys, bits, path, T_x, T_y,
-                                                       chunks);
-  return (int)cudaGetLastError();
+// int32; bits: (B, T_y, 32 * ceil(cpl / 32)) 32-bit words of scratch,
+// 16-byte aligned. cpl: an instance with 32 * cpl >= T_x; tile_rows: R, a
+// multiple of 8 (cpl <= 16) or 2, at most MAX_TILE_ROWS, whose two tiles fit
+// (ops/mas.py::mas_layout picks both). Returns cudaGetLastError() after the
+// launch.
+int mas_launch(const float* lp, const int* t_xs, const int* t_ys, uint32_t* bits, float* path,
+               int B, int T_x, int T_y, int cpl, int tile_rows, void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+#define MAS_CASE(C) \
+    case C: return launch<C>(lp, t_xs, t_ys, bits, path, B, T_x, T_y, tile_rows, s);
+    switch (cpl) {
+        MAS_CASE(1) MAS_CASE(2) MAS_CASE(3) MAS_CASE(4) MAS_CASE(6) MAS_CASE(8) MAS_CASE(10)
+        MAS_CASE(12) MAS_CASE(16) MAS_CASE(24) MAS_CASE(32) MAS_CASE(48) MAS_CASE(64)
+        MAS_CASE(96) MAS_CASE(128)
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef MAS_CASE
 }
 
 const char* mas_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -23,9 +23,33 @@ from matcha_tpu_torch.ops import cuda_build
 LAUNCHES = {"maximum_path": 0}
 
 MAX_NEG_VAL = -1e9
-MAX_CHUNKS = 4  # x cells per thread, compiled into the kernel
-MAX_THREADS = 1024
-MAX_T_X = MAX_CHUNKS * MAX_THREADS
+# The kernel's geometry (csrc/mas.cu); mas_layout must agree with it.
+CPL_INSTANCES = (1, 2, 3, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 96, 128)  # cells per lane
+MAX_T_X = 32 * CPL_INSTANCES[-1]
+MAX_TILE_ROWS = 64
+MAX_SMEM = 232448  # bytes, the most one block may take
+BT_ROWS = 32  # bit rows per backtrack run
+
+
+def mas_layout(T_x: int, T_y: int) -> tuple:
+    """The kernel's instance for (T_x, T_y): ``(cpl, chain_warps,
+    tile_rows, smem_bytes)``. One chain warp whose lanes hold ``cpl``
+    cells each (the smallest instance with 32 * cpl >= T_x); tiles of
+    ``tile_rows`` mel frames, two of which (rows padded by 4 floats for
+    the float4 reads up to cpl = 16, else by 1) fit the block's shared
+    memory, as do the backtrack's two runs of bit rows."""
+    if T_x > MAX_T_X:
+        raise ValueError(f"T_x={T_x}: the MAS kernel takes at most {MAX_T_X} text positions")
+    cpl = next(c for c in CPL_INSTANCES if 32 * c >= T_x)
+    pad, step = (4, 8) if cpl <= 16 else (1, 2)
+    fit = (MAX_SMEM // (2 * 32 * cpl * 4) - pad) // step * step
+    rows = min(fit, MAX_TILE_ROWS, -(-T_y // 8) * 8)
+    smem = max(2 * 32 * cpl * (rows + pad) * 4, 2 * BT_ROWS * 32 * _words_per_lane(cpl) * 4)
+    return cpl, 1, rows, smem
+
+
+def _words_per_lane(cpl: int) -> int:
+    return -(-cpl // 32)
 
 
 def _lengths(mask_f: torch.Tensor):
@@ -79,8 +103,10 @@ def maximum_path_reference(value: torch.Tensor, mask: torch.Tensor) -> torch.Ten
 def _library():
     lib = cuda_build.load("mas")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mas_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.mas_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.mas_launch.restype = ctypes.c_int
+    lib.mas_smem_bytes.argtypes = [i, i]
+    lib.mas_smem_bytes.restype = ctypes.c_int
     lib.mas_error_string.argtypes = [ctypes.c_int]
     lib.mas_error_string.restype = ctypes.c_char_p
     return lib
@@ -93,26 +119,24 @@ def _launch(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if value.device != mask.device:
         raise ValueError(f"value on {value.device}, mask on {mask.device}")
     B, T_x, T_y = value.shape
-    if T_x > MAX_T_X:
-        raise ValueError(f"T_x={T_x}: the MAS kernel takes at most {MAX_T_X} text positions")
+    cpl, _, tile_rows, _ = mas_layout(T_x, T_y)
     if B == 0 or T_x == 0 or T_y == 0:
         return torch.zeros_like(mask)
     mask_f = mask.detach().to(torch.float32)
     lp = (value.detach().to(torch.float32) * mask_f).contiguous()
     t_xs, t_ys = _lengths(mask_f)
-    threads = min(MAX_THREADS, -(-T_x // 32) * 32)
-    chunks = -(-T_x // threads)
-    words = -(-T_x // 32)
-    bits = torch.empty((B, T_y, words), dtype=torch.int32, device=value.device)
+    bits = torch.empty((B, T_y, 32 * _words_per_lane(cpl)), dtype=torch.int32,
+                       device=value.device)
     path = torch.zeros((B, T_x, T_y), dtype=torch.float32, device=value.device)
     lib = _library()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = lib.mas_launch(lp.data_ptr(), t_xs.data_ptr(), t_ys.data_ptr(), bits.data_ptr(),
-                             path.data_ptr(), B, T_x, T_y, threads, stream)
+                             path.data_ptr(), B, T_x, T_y, cpl, tile_rows, stream)
     if err != 0:
         raise RuntimeError(f"maximum_path launch failed: {lib.mas_error_string(err).decode()} "
-                           f"(B={B}, T_x={T_x}, T_y={T_y}, {threads} threads x {chunks} chunks)")
+                           f"(B={B}, T_x={T_x}, T_y={T_y}, {cpl} cells per lane, "
+                           f"tiles of {tile_rows} rows)")
     LAUNCHES["maximum_path"] += 1
     return (path * mask_f).to(mask.dtype)
 

@@ -230,6 +230,20 @@ def _mas_problem(seed, B, T_x, T_y, t_xs, t_ys, values):
     (2, 700, 2048, [700, 513], [2048, 1500], "normal", True),
     (2, 1500, 300, [1500, 40], [300, 300], "normal", False),  # t_x > t_y, 2 chunks per thread
     (2, 12, 16, [9, 0], [4, 6], "normal", False),  # infeasible and empty rows
+    # the edges of the kernel's instances (ops/mas.py::mas_layout): 1 and 2
+    # cells per lane (T_x 31-33), float4 and scalar tile reads (1024, 1025),
+    # the widest (4096); T_y 1, 7 and 33 (shorter than a tile, T_y % 4 != 0)
+    # and 2051 (many tiles)
+    (3, 31, 33, [31, 20, 0], [33, 33, 5], "ints", True),  # an empty row
+    (3, 32, 7, [32, 7, 1], [7, 7, 7], "normal", False),  # t_x > t_y
+    (3, 33, 1, [33, 1, 1], [1, 1, 1], "normal", True),
+    (2, 33, 2051, [33, 17], [2051, 40], "ints", False),
+    (2, 1024, 33, [1024, 33], [33, 33], "zeros", True),
+    (2, 1024, 2051, [1024, 700], [2051, 1500], "normal", False),
+    (2, 1025, 2051, [1025, 3], [2051, 2051], "ints", True),
+    (2, 1025, 7, [1025, 7], [7, 7], "normal", False),
+    (2, 4096, 2051, [4096, 2000], [2051, 2051], "normal", False),  # row 0: t_x > t_y
+    (2, 4096, 1, [4096, 1], [1, 1], "ints", True),
 ])
 def test_mas_kernel_equals_plain(cuda_f32, B, T_x, T_y, t_xs, t_ys, values, bool_mask):
     """The kernel's path is EQUAL to the plain version's, ties included."""
@@ -245,6 +259,21 @@ def test_mas_kernel_equals_plain(cuda_f32, B, T_x, T_y, t_xs, t_ys, values, bool
     assert torch.equal(got.cpu(), want)
     assert torch.equal(mas.maximum_path_reference(value.to(cuda_f32), mask.to(cuda_f32)).cpu(),
                        want)
+
+
+@pytest.mark.cuda
+def test_mas_layout_agrees_with_the_kernel(cuda_f32):
+    """Each instance's shared memory as csrc/mas.cu computes it equals
+    mas_layout's, at every T_x where the instance changes and at short,
+    ragged and long T_y; the kernel refuses a cell count it was not built
+    for."""
+    lib = mas._library()
+    edges = sorted({1} | {32 * c + d for c in mas.CPL_INSTANCES for d in (0, 1)} - {mas.MAX_T_X + 1})
+    for T_x in edges:
+        for T_y in (1, 7, 33, 832, 2051):
+            cpl, _, rows, smem = mas.mas_layout(T_x, T_y)
+            assert lib.mas_smem_bytes(cpl, rows) == smem, (T_x, T_y)
+    assert lib.mas_smem_bytes(5, 8) == -1
 
 
 @pytest.mark.cuda

@@ -8,6 +8,9 @@ included: all of them add, max and compare the same f32 values in the
 same order.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,3 +78,35 @@ def test_mas_mask_dtype_and_no_grad():
 def test_mas_refuses_other_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         mas.maximum_path(torch.zeros(1, 2, 2, device="meta"), torch.zeros(1, 2, 2, device="meta"))
+
+
+@pytest.mark.parametrize("T_y", [1, 7, 33, 832, 2051])
+def test_mas_layout_covers_every_t_x(T_y):
+    """Every T_x the kernel takes gets the smallest instance whose one
+    chain warp holds it, tiles of at least one row in the instance's row
+    step, and shared memory within the block's 227 KB."""
+    instances = (0,) + mas.CPL_INSTANCES
+    for T_x in range(1, mas.MAX_T_X + 1):
+        cpl, chain_warps, rows, smem = mas.mas_layout(T_x, T_y)
+        assert 32 * cpl * chain_warps >= T_x > 32 * instances[instances.index(cpl) - 1]
+        assert 1 <= rows <= mas.MAX_TILE_ROWS and rows % (8 if cpl <= 16 else 2) == 0
+        assert smem <= mas.MAX_SMEM == 227 * 1024
+
+
+def test_mas_layout_refuses_wider_text():
+    assert mas.mas_layout(mas.MAX_T_X, 7)[0] == mas.CPL_INSTANCES[-1] == 128
+    with pytest.raises(ValueError, match="at most 4096"):
+        mas.mas_layout(mas.MAX_T_X + 1, 7)
+
+
+def test_mas_layout_constants_match_the_kernel_source():
+    """The geometry mas_layout mirrors is the one csrc/mas.cu compiles."""
+    src = (Path(mas.__file__).parents[1] / "csrc" / "mas.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["MAX_TILE_ROWS"] == mas.MAX_TILE_ROWS
+    assert const["MAX_SMEM"] == mas.MAX_SMEM
+    assert const["BT_ROWS"] == mas.BT_ROWS
+    instances = re.search(r"CPL_INSTANCES\[\] = \{([\d, ]+)\};", src).group(1)
+    assert tuple(int(c) for c in instances.split(",")) == mas.CPL_INSTANCES
+    launched = re.findall(r"MAS_CASE\((\d+)\)", src.split("switch (cpl)")[-1])
+    assert tuple(int(c) for c in launched) == mas.CPL_INSTANCES
