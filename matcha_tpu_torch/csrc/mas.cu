@@ -16,8 +16,11 @@
 // t_y dependent steps back, about 2 * t_y in all (1,664 at t_y = 832), with
 // a few operations per cell. The bytes bound (lp read once, the path written
 // once: 61 MB at (32, 288, 832), 0.018 ms at 3.35 TB/s) is far below it, and
-// one row per SM (B = 32 of 132 SMs) leaves no parallelism across rows. So
-// the design shortens each step:
+// one row per SM (B = 32 of 132 SMs) leaves no parallelism across rows.
+// Measured on an H100 (scripts/profile_mas.py, T_y = 832, CPL 1 to 16), a
+// row costs about 157 clocks plus about 15 per cell of a lane, forward and
+// backtrack together: one warp's issue of the chain sets the time, not
+// memory. So the design shortens each step:
 //  * The chain warp. Warp 0 owns the row: lane l holds CPL consecutive cells
 //    x = l * CPL + i in registers (CPL a compile-time instance, the smallest
 //    of CPL_INSTANCES with 32 * CPL >= T_x; one warp up to T_x = 4096 at
@@ -44,8 +47,9 @@
 //    in flight while this one is walked) and syncs; lane 0 walks the 32
 //    serial steps, reading bit index % CPL of owner index / CPL.
 // The path is written as 1.0f into an f32 (B, T_x, T_y) output that the
-// wrapper zeroed; rows y >= t_y stay 0. The kernel only adds, maxes and
-// compares: there is no multiply for the compiler to contract.
+// wrapper zeroed; rows y >= t_y stay 0. A cell's value is
+// __fadd_rn(fmaxf(prev, left), lp), as in the plain version; the band
+// select's products and fmas are exact on 0 and 1 (row_step).
 //
 // ops/mas.py::mas_layout mirrors the geometry below (CPL_INSTANCES,
 // MAX_TILE_ROWS, MAX_SMEM, BT_ROWS, the row padding and step, smem_bytes);
@@ -68,8 +72,7 @@ constexpr int CPL_INSTANCES[] = {1, 2, 3, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 9
 
 template <int CPL>
 struct Geometry {
-    static constexpr bool VEC4 = CPL <= 16;     // float4 reads of 4 rows
-    static constexpr int VEC = VEC4 ? 4 : 1;    // rows per shared-memory read
+    static constexpr bool VEC4 = CPL <= 16;     // float4 reads of 4 rows, else floats
     static constexpr int PAD = VEC4 ? 4 : 1;    // S = R + PAD
     static constexpr int ROW_STEP = VEC4 ? 8 : 2;  // R is a multiple of it
     static constexpr int WPL = (CPL + 31) / 32;     // bit words per lane and row
@@ -102,25 +105,47 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Loader threads (ltid in [0, 32 * LOADER_WARPS)) copy rows y0 .. y0 + n - 1
-// of lp[x] for x < t_x into slot (x % CPL) * 32 + x / CPL of dst.
+// of lp[x] for x < t_x into slot (x % CPL) * 32 + x / CPL of dst: a thread
+// takes one piece (16 or 4 bytes) of every rows_per_pass-th x.
 template <int CPL>
 __device__ void load_tile(float* dst, const float* lpb, int T_y, int t_x, int y0, int n, int S,
                           bool vec16, int ltid) {
     const int step = vec16 ? 4 : 1;
-    const int pieces = (n + step - 1) / step;  // per x; a 16-byte piece past t_y stays in T_y
-    const int total = t_x * pieces;
-    for (int e = ltid; e < total; e += 32 * LOADER_WARPS) {
-        const int x = e / pieces, k = (e - x * pieces) * step;
-        float* d = dst + ((x % CPL) * 32 + x / CPL) * S + k;
-        const float* s = lpb + (size_t)x * T_y + y0 + k;
-        if (vec16) cp_async16(d, s);
-        else cp_async4(d, s);
+    const int pieces = (n + step - 1) / step;  // per x, <= MAX_TILE_ROWS; a 16-byte piece past
+                                               // t_y stays in T_y
+    const int rows_per_pass = 32 * LOADER_WARPS / pieces;
+    if (ltid < rows_per_pass * pieces) {
+        const int k = (ltid % pieces) * step;
+        for (int x = ltid / pieces; x < t_x; x += rows_per_pass) {
+            float* d = dst + ((x % CPL) * 32 + x / CPL) * S + k;
+            const float* s = lpb + (size_t)x * T_y + y0 + k;
+            if (vec16) cp_async16(d, s);
+            else cp_async4(d, s);
+        }
     }
     cp_async_commit();
 }
 
+// 0xffffffff where a > b, else 0 (one compare, no select)
+__device__ __forceinline__ uint32_t gt_mask(float a, float b) {
+    uint32_t m;
+    asm("set.gt.u32.f32 %0, %1, %2;" : "=r"(m) : "f"(a), "f"(b));
+    return m;
+}
+
 // One row y of the forward on the chain warp: lane-local cells i of
 // x = base + i, lp values lpv, decision bits into the row's words.
+//
+// Compares, maxes, selects and logic run at half the rate of float adds and
+// multiplies on sm_90 (64 against 128 a clock per SM); a cell takes three of
+// them (the max, the bit's compare and its OR) and does the band select on
+// the float pipe: with lo = t_x + y - t_y - base and
+// hi = min(y, t_x - 1) - base, in_band = sat(1 - lo + i) * sat(hi + 1 - i)
+// is exactly 1 or 0 (small integers), and fma(nv, in_band, fma(in_band, 1e9,
+// -1e9)) is exactly nv or -1e9 for a finite nv (a -0 may turn +0, which no
+// compare tells apart). nv is finite for x < t_x; cells x >= t_x read
+// unloaded shared memory, feed only cells further right and are never read
+// back.
 template <int CPL>
 __device__ __forceinline__ void row_step(float (&prev)[CPL], const float (&lpv)[CPL], int y,
                                          int lane, int base, int t_x, int t_y,
@@ -128,16 +153,18 @@ __device__ __forceinline__ void row_step(float (&prev)[CPL], const float (&lpv)[
     constexpr int WPL = Geometry<CPL>::WPL;
     const float edge = __shfl_up_sync(FULL, prev[CPL - 1], 1);
     const float left0 = lane > 0 ? edge : (y == 0 ? 0.f : MAX_NEG_VAL);
-    const int lo = t_x + y - t_y - base, hi = min(y, t_x - 1) - base;  // the band in i
+    const float from_lo = __int2float_rn(1 - (t_x + y - t_y - base));
+    const float to_hi = __int2float_rn(min(y, t_x - 1) - base + 1);
     uint32_t word[WPL];
 #pragma unroll
     for (int w = 0; w < WPL; ++w) word[w] = 0u;
 #pragma unroll
     for (int i = CPL - 1; i >= 0; --i) {  // downwards: prev[i - 1] is still row y - 1
         const float left = i > 0 ? prev[i - 1] : left0;
-        word[i / 32] |= (left > prev[i] ? 1u : 0u) << (i % 32);
+        word[i / 32] |= gt_mask(left, prev[i]) & (1u << (i % 32));
         const float nv = __fadd_rn(fmaxf(prev[i], left), lpv[i]);
-        prev[i] = (i >= lo && i <= hi) ? nv : MAX_NEG_VAL;
+        const float in_band = __saturatef(from_lo + i) * __saturatef(to_hi - i);
+        prev[i] = fmaf(nv, in_band, fmaf(in_band, -MAX_NEG_VAL, MAX_NEG_VAL));
     }
 #pragma unroll
     for (int w = 0; w < WPL; ++w) bitsb[((size_t)y * WPL + w) * 32 + lane] = word[w];
@@ -185,12 +212,18 @@ mas_kernel(const float* __restrict__ lp, const int* __restrict__ t_xs,
         } else {
             const float* cur = smem + (t & 1) * tile_floats + lane * S;
             const int n = min(R, t_y - y0);
-            for (int r0 = 0; r0 < n; r0 += G::VEC) {
-                if constexpr (G::VEC4) {
-                    float4 v[CPL];
+            if constexpr (G::VEC4) {
+                float4 v[CPL];
+#pragma unroll
+                for (int i = 0; i < CPL; ++i)
+                    v[i] = *reinterpret_cast<const float4*>(cur + i * 32 * S);
+                for (int r0 = 0; r0 < n; r0 += 4) {
+                    // the next 4 rows, in flight while these run (r0 + 4 <= R: at most
+                    // the row's padding)
+                    float4 next[CPL];
 #pragma unroll
                     for (int i = 0; i < CPL; ++i)
-                        v[i] = *reinterpret_cast<const float4*>(cur + i * 32 * S + r0);
+                        next[i] = *reinterpret_cast<const float4*>(cur + i * 32 * S + r0 + 4);
 #pragma unroll
                     for (int k = 0; k < 4; ++k) {
                         if (r0 + k >= n) break;  // uniform: the tile's last rows
@@ -199,7 +232,11 @@ mas_kernel(const float* __restrict__ lp, const int* __restrict__ t_xs,
                         for (int i = 0; i < CPL; ++i) lpv[i] = component(v[i], k);
                         row_step<CPL>(prev, lpv, y0 + r0 + k, lane, base, t_x, t_y, bitsb);
                     }
-                } else {
+#pragma unroll
+                    for (int i = 0; i < CPL; ++i) v[i] = next[i];
+                }
+            } else {
+                for (int r0 = 0; r0 < n; ++r0) {
                     float lpv[CPL];
 #pragma unroll
                     for (int i = 0; i < CPL; ++i) lpv[i] = cur[i * 32 * S + r0];
@@ -241,15 +278,31 @@ mas_kernel(const float* __restrict__ lp, const int* __restrict__ t_xs,
         }
         __syncwarp();
         if (lane == 0) {
+            // index = owner * CPL + i; the word of row r + 1 is read for both the
+            // index and the one below it while row r decides, so a step waits on
+            // its bit alone, not on a shared-memory load
             const uint32_t* run = runs + (c & 1) * BT_ROWS * RW;
             const int top = t_y - 1 - c * BT_ROWS;
             const int rows = min(BT_ROWS, top + 1);
+            int owner = index / CPL, i = index - owner * CPL;
+            uint32_t word = run[(i >> 5) * 32 + owner];
             for (int r = 0; r < rows; ++r) {
                 const int y = top - r;
+                const int rn = min(r + 1, BT_ROWS - 1) * RW;  // past the run: read, not used
+                const int owner_dn = i > 0 || index == 0 ? owner : owner - 1;
+                const int i_dn = i > 0 ? i - 1 : index == 0 ? 0 : CPL - 1;
+                const uint32_t stay = run[rn + (i >> 5) * 32 + owner];
+                const uint32_t down = run[rn + (i_dn >> 5) * 32 + owner_dn];
                 pathb[(size_t)index * T_y + y] = 1.f;
-                const int owner = index / CPL, i = index - owner * CPL;
-                const bool bit = (run[r * RW + (i >> 5) * 32 + owner] >> (i & 31)) & 1u;
-                index -= (index != 0 && (index == y || bit) && y > 0) ? 1 : 0;
+                const bool bit = (word >> (i & 31)) & 1u;
+                if (index != 0 && (index == y || bit) && y > 0) {
+                    --index;
+                    owner = owner_dn;
+                    i = i_dn;
+                    word = down;
+                } else {
+                    word = stay;
+                }
             }
         }
         index = __shfl_sync(FULL, index, 0);

@@ -6,7 +6,10 @@ sums, the zeroed path, the final mask and cast). Log-prior values and
 ragged lengths come from a seed; the path is checked EQUAL to the plain
 version.
 
-Usage: python -m matcha_tpu_torch.scripts.profile_mas [--shape 32,288,832] [--reps 20]
+Usage: python -m matcha_tpu_torch.scripts.profile_mas [--shape 32,288,832 ...] [--reps 20]
+
+One JSON line per shape; several shapes at one T_y and growing T_x show
+how the kernel's time grows with the cells each lane carries.
 
 The script imports only ``matcha_tpu_torch.ops.mas``, so it also times
 another checkout's kernel (for an A/B in one run) when run as a file with
@@ -80,25 +83,29 @@ def mas_split(fn, reps: int) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--shape", default="32,288,832", help="B,T_x,T_y")
+    ap.add_argument("--shape", action="append", help="B,T_x,T_y (repeatable; 32,288,832)")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_mas: no CUDA device")
     from matcha_tpu_torch.ops import mas
 
-    B, T_x, T_y = (int(v) for v in args.shape.split(","))
-    value, mask, t_xs, t_ys = mas_inputs(B, T_x, T_y, "cuda")
-    split = mas_split(lambda: mas.maximum_path(value, mask), args.reps)
-    equal = torch.equal(mas.maximum_path(value, mask), mas.maximum_path_reference(value, mask))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    layout = mas.mas_layout(T_x, T_y) if hasattr(mas, "mas_layout") else None
-    print(json.dumps({"script": "profile_mas", "nvidia_smi": smi, "mas_module": mas.__file__,
-                      "B": B, "T_x": T_x, "T_y": T_y, "max_t_x": max(t_xs), "max_t_y": max(t_ys),
-                      "layout": layout, "equal": equal, **split}), flush=True)
-    if not equal:
-        raise SystemExit("profile_mas: the kernel's path differs from the plain version")
+    for shape in args.shape or ["32,288,832"]:
+        B, T_x, T_y = (int(v) for v in shape.split(","))
+        value, mask, t_xs, t_ys = mas_inputs(B, T_x, T_y, "cuda")
+        split = mas_split(lambda: mas.maximum_path(value, mask), args.reps)
+        equal = torch.equal(mas.maximum_path(value, mask),
+                            mas.maximum_path_reference(value, mask))
+        layout = mas.mas_layout(T_x, T_y) if hasattr(mas, "mas_layout") else None
+        print(json.dumps({"script": "profile_mas", "nvidia_smi": smi, "mas_module": mas.__file__,
+                          "B": B, "T_x": T_x, "T_y": T_y, "max_t_x": max(t_xs),
+                          "max_t_y": max(t_ys), "layout": layout, "equal": equal, **split}),
+              flush=True)
+        if not equal:
+            raise SystemExit(f"profile_mas: the kernel's path differs from the plain version at "
+                             f"{shape}")
 
 
 if __name__ == "__main__":

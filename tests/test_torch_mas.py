@@ -19,6 +19,7 @@ import torch
 from matcha_tpu.ops.mas_pallas import maximum_path_pallas
 from matcha_tpu.ops.mas_ref import maximum_path_jax
 from matcha_tpu_torch.ops import mas
+from matcha_tpu_torch.scripts import profile_mas
 from tests.test_mas import assert_valid_path, make_problem, oracle
 
 
@@ -110,3 +111,15 @@ def test_mas_layout_constants_match_the_kernel_source():
     assert tuple(int(c) for c in instances.split(",")) == mas.CPL_INSTANCES
     launched = re.findall(r"MAS_CASE\((\d+)\)", src.split("switch (cpl)")[-1])
     assert tuple(int(c) for c in launched) == mas.CPL_INSTANCES
+
+
+def test_profile_mas_inputs_and_no_card():
+    """The profiler's inputs: the first row full, the lengths in the top
+    quarter, the mask their rectangle; without a card it exits."""
+    value, mask, t_xs, t_ys = profile_mas.mas_inputs(4, 40, 96, "cpu")
+    assert value.shape == mask.shape == (4, 40, 96)
+    assert (t_xs[0], t_ys[0]) == (40, 96) and min(t_xs) >= 30 and min(t_ys) >= 72
+    assert mask.sum().item() == sum(a * b for a, b in zip(t_xs, t_ys))
+    assert torch.equal(mas.maximum_path(value, mask), mas.maximum_path_reference(value, mask))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        profile_mas.main([])
