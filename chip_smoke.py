@@ -35,7 +35,13 @@ Phases, one output line each (any failure exits non-zero):
    path), which must agree;
 5. times after warm-up: per-request latency and real-time factor, one
    request split by stage (encode, decode, vocoder, denoise), the card's
-   busy time and idle share over that request (``torch.profiler``), and K1 per
+   busy time and idle share over that request (``torch.profiler``); the
+   fixed-bucket path (``fused_path``): each sentence at an integer bucket
+   and under ``"auto"``, one CUDA graph per bucket replayed against the
+   same body run eagerly on the card (equal mel lengths, waveform within
+   1e-5), K1's launches inside one replay from the profiler trace, replay
+   and eager latency in turns, their device busy time, and capture
+   seconds and memory per bucket; K1 per
    stage at the path's shapes and at a 512-frame mel, beside its f32 and
    tensor-core bounds, its plain version and a chain of cuDNN ``F.conv1d``
    calls; K1 over explicit tiles at two short T (the tile floor); K3 per
@@ -102,6 +108,13 @@ VARIANTS = {
     "cap128_phase": ({"max_fused_channels": 128, "narrow_impl": "phase"}, 1, 2),
 }
 PROFILER_SHAPE = (8, 1024)  # B, T_mel of scripts/profile_vocoder*.py
+# the port's kernels as the profiler names them (K1, K3, K2)
+KERNEL_NAMES = ("mrf_stage_kernel", "mrf_phase_kernel", "mas_kernel")
+# the fixed-bucket path: a replay of its CUDA graph against the same body
+# run eagerly on the card, on the waveform (the same kernels in the same
+# order; cuDNN may pick other algorithms under capture)
+GRAPH_TOL = 1e-5
+FUSED_REPS = 10  # timed requests per sentence and mode, after one warm-up
 # GPU against CPU for one training step's losses and gradient norm: f32
 # sums in another order through the full-width model (TF32 off)
 TRAIN_RTOL = 1e-4
@@ -176,7 +189,9 @@ def device_busy(request, latency_ms: float) -> dict:
         profiled_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        return {"busy_ms": "not measured", "idle_share": "not measured"}
+        return {"busy_ms": "not measured", "idle_share": "not measured",
+                "kernel_launches": "not measured"}
+    launches = {k: sum(k in e.name for e in events) for k in KERNEL_NAMES}
     busy_us, end = 0.0, float("-inf")
     by_name = {}
     for e in sorted(events, key=lambda e: e.time_range.start):
@@ -188,9 +203,10 @@ def device_busy(request, latency_ms: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"busy_ms": busy_us / 1e3, "device_ops": len(events),
             "latency_ms": latency_ms, "idle_share": 1.0 - busy_us / 1e3 / latency_ms,
-            "profiled_ms": profiled_ms, "top_ms": dict(top),
+            "profiled_ms": profiled_ms, "top_ms": dict(top), "kernel_launches": launches,
             "note": "busy = union of device event intervals under torch.profiler; idle "
-                    "share against the unprofiled p50 latency of the same request"}
+                    "share against the unprofiled p50 latency of the same request; "
+                    "kernel_launches = the device events of each port kernel, by name"}
 
 
 def k2_bound_ms(B: int, T_x: int, T_y: int, t_xs, t_ys):
@@ -735,6 +751,110 @@ def stage_times(dev, vocoder, shapes) -> tuple:
     return k3_rows, k1_rows
 
 
+def fused_path(dev, model, vocoder, bias, texts, requests, dynamic_lat) -> dict:
+    """The fixed-bucket path at full width through ``TTSPipeline``: each
+    sentence at one integer bucket (the first of ``FUSED_Y_BUCKETS`` above
+    the longest mel) and under ``"auto"`` (the first call at the top
+    bucket, then calibrated), a CUDA graph's replay against the same body
+    run eagerly on the card (``cuda_graph=False``, its own pipeline, so
+    that both calibrate alike) on the same noise; K1's launches inside one
+    replay from a ``torch.profiler`` trace; replay and eager latency
+    alternating in one process, and their device time; capture seconds
+    and memory per bucket. K1's wrapper count is set to 0 before and read
+    after (it counts at capture and in eager runs, never in a replay)."""
+    import torch
+
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.ops import mrf
+
+    bucket = next(b for b in TTSPipeline.FUSED_Y_BUCKETS
+                  if b > max(r["mel_frames"] for r in requests))
+    pipes = {m: TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
+             for m in ("graph", "eager")}
+    modes = {"graph": None, "eager": False}
+    seen = {}
+    for mode, p in pipes.items():
+        def spy(B, T_x, T_y, *a, _fn=p.fused_graph, _seen=seen.setdefault(mode, []), **k):
+            _seen.append(T_y)
+            return _fn(B, T_x, T_y, *a, **k)
+        p.fused_graph = spy
+
+    def noise(T_y):  # the same unit noise at a bucket in every mode
+        g = torch.Generator().manual_seed(SEED + T_y)
+        return torch.randn(1, T_y, model.n_feats, generator=g).to(dev)
+
+    def run(mode, tp, fixed, **kw):
+        return pipes[mode].synthesise_batch(tp["x"], tp["x_lengths"], fixed_y_bucket=fixed,
+                                            cuda_graph=modes[mode], **kw)
+
+    mrf.LAUNCHES["mrf_stage"] = 0
+    checks = []
+    for fixed in (bucket, "auto"):
+        for i, tp in enumerate(texts):
+            n = {m: len(seen[m]) for m in modes}
+            z = noise(bucket) if fixed == bucket else noise
+            out = {m: run(m, tp, fixed, z=z) for m in modes}
+            torch.cuda.synchronize()
+            g, e = out["graph"], out["eager"]
+            T_y = g["mel"].shape[-1]
+            err = (g["waveform"] - e["waveform"]).abs().max().item()
+            row = {"bucket": fixed, "sentence": i, "buckets_run": seen["graph"][n["graph"]:],
+                   "T_y": T_y, "mel_frames": int(g["mel_lengths"][0]),
+                   "mel_lengths_equal": torch.equal(g["mel_lengths"], e["mel_lengths"]),
+                   "max_abs_err": err, "bit_equal": torch.equal(g["waveform"], e["waveform"]),
+                   "pcm24_bit_equal": torch.equal(g["wav_pcm24"], e["wav_pcm24"])}
+            checks.append(row)
+            if not (row["mel_lengths_equal"] and err <= GRAPH_TOL
+                    and seen["graph"][n["graph"]:] == seen["eager"][n["eager"]:]
+                    and g["waveform"].shape == (1, T_y * HOP) and row["mel_frames"] < T_y
+                    and bool(torch.isfinite(g["waveform"]).all())):
+                raise AssertionError(f"fixed-bucket graph against eager: {row}")
+    if checks[len(texts)]["buckets_run"][0] != TTSPipeline.FUSED_Y_BUCKETS[-1]:
+        raise AssertionError(f"the first 'auto' call ran at {checks[len(texts)]['buckets_run']}")
+    wrapper_launches = mrf.LAUNCHES["mrf_stage"]
+
+    # latency: a request draws its noise from a generator, graph and eager in turns
+    lat = {}
+    for i, tp in enumerate(texts):
+        gens = {m: torch.Generator(dev).manual_seed(SEED + i) for m in modes}
+        runs = {m: [] for m in modes}
+        for _ in range(FUSED_REPS + 1):
+            for m in modes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(m, tp, bucket, generator=gens[m])
+                torch.cuda.synchronize()
+                runs[m].append(time.perf_counter() - t0)
+        audio_s = int(out["mel_lengths"][0]) * HOP / SR
+        dynamic = dynamic_lat[f"sentence_{i}"]
+        row = lat[f"sentence_{i}"] = {"audio_s": audio_s, "dynamic_p50_ms": dynamic["p50_ms"],
+                                      "dynamic_rtf": dynamic["rtf"]}
+        for m in modes:
+            ms = statistics.median(runs[m][1:]) * 1e3
+            row.update({f"{m}_p50_ms": ms, f"{m}_rtf": ms / 1e3 / audio_s})
+    tp = texts[1]
+    gens = {m: torch.Generator(dev).manual_seed(SEED + 1) for m in modes}
+    busy = {m: device_busy(lambda m=m: run(m, tp, bucket, generator=gens[m]),
+                           lat["sentence_1"][f"{m}_p50_ms"]) for m in modes}
+    replay_k1 = busy["graph"]["kernel_launches"]
+    if replay_k1 != "not measured" and replay_k1["mrf_stage_kernel"] != 2:
+        raise AssertionError(f"K1 ran {replay_k1} times in one replay, expected 2")
+    captures = [{"T_x": fg.x.shape[1], "T_y": fg.T_y, "seconds": fg.capture_seconds,
+                 "memory_allocated_before_after_MiB": [v / 2**20 for v in fg.memory_allocated]}
+                for fg in pipes["graph"]._graphs.values() if fg.graph is not None]
+    return {"integer_bucket": bucket, "tolerance": GRAPH_TOL, "checks": checks,
+            "auto_buckets": [c["buckets_run"] for c in checks if c["bucket"] == "auto"],
+            "k1_launches_per_replay": (replay_k1 if replay_k1 == "not measured"
+                                       else replay_k1["mrf_stage_kernel"]),
+            "k1_wrapper_launches": wrapper_launches, "latency": lat,
+            "device_busy_graph": busy["graph"], "device_busy_eager": busy["eager"],
+            "captures": captures,
+            "note": f"latency: host clock around synthesise_batch at the integer bucket, "
+                    f"synchronised, median of {FUSED_REPS} after 1 warm-up, graph and eager in "
+                    f"turns; dynamic_p50_ms from the latency phase; device busy of one request "
+                    f"of sentence 1; k1_wrapper_launches counts captures and eager runs"}
+
+
 def main() -> int:
     import torch
 
@@ -909,6 +1029,9 @@ def main() -> int:
     emit({"phase": "device_busy", "sentence": 1, **device_busy(
         lambda: pipe.synthesise_batch(tp["x"], tp["x_lengths"], generator=g),
         lat["sentence_1"]["p50_ms"])})
+    fused = fused_path(dev, model, vocoder, bias, texts, requests, lat)
+    emit({"phase": "fused_path", **fused})
+    torch.cuda.empty_cache()
 
     stages = []
     path_T_voc = requests[0]["T_voc"]
@@ -977,6 +1100,7 @@ def main() -> int:
          "source": "matcha_tpu_torch/csrc/mrf_stage.cu",
          "replaces": "matcha_tpu/ops/mrf_pallas.py:121",
          "launches": launches,
+         "fused_path_launches_per_replay": fused["k1_launches_per_replay"],
          "max_abs_err": max([worst] + [s["max_abs_err"] for s in stages]),
          "ms": sum(s["ms"] for s in path),
          "plain_ms": sum(s["plain_ms"] for s in path),

@@ -3,7 +3,13 @@
 Port of ``matcha_tpu/audio/stft.py``: center=True with reflect padding, a
 periodic Hann window, onesided, no normalisation; the inverse divides the
 overlap-add by the summed squared window, as ``torch.istft`` does.
+
+The window and the normaliser are built once per device and shape from
+the numpy values, and cached: a call copies nothing from the host, so a
+CUDA graph can capture it once a call at the same shapes has run.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -16,6 +22,25 @@ def hann_window_periodic(win_length: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _window(win_length: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(hann_window_periodic(win_length)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_square_sum(n_fft: int, hop_length: int, win_length: int, n_frames: int,
+                       device: torch.device) -> torch.Tensor:
+    """The ISTFT normaliser: the squared window overlap-added over
+    ``n_frames`` frames, f32 (it depends only on the shapes)."""
+    wsq = np.zeros((n_fft + hop_length * (n_frames - 1),), np.float64)
+    w2 = hann_window_periodic(win_length).astype(np.float64) ** 2
+    for f in range(n_frames):
+        wsq[f * hop_length:f * hop_length + n_fft] += w2
+    with torch.inference_mode(False):
+        return torch.from_numpy(wsq.astype(np.float32)).to(device)
+
+
 def stft_magnitude_phase(audio: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
                          win_length: int = 1024):
     """(..., T) -> (magnitude, phase), each (..., n_freq, n_frames)."""
@@ -23,7 +48,7 @@ def stft_magnitude_phase(audio: torch.Tensor, n_fft: int = 1024, hop_length: int
     pad = n_fft // 2
     audio = F.pad(audio.reshape(-1, 1, audio.shape[-1]), (pad, pad), mode="reflect")
     frames = audio[:, 0].unfold(-1, n_fft, hop_length)  # (N, n_frames, n_fft)
-    window = torch.from_numpy(hann_window_periodic(win_length)).to(audio.device)
+    window = _window(win_length, audio.device)
     spec = torch.fft.rfft(frames * window, dim=-1)
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2)
     phase = torch.atan2(spec.imag, spec.real)
@@ -40,19 +65,12 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int = 1024,
         magnitude, phase = magnitude[None], phase[None]
     spec = torch.complex(magnitude * torch.cos(phase), magnitude * torch.sin(phase))
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)  # (B, n_frames, n_fft)
-    window = torch.from_numpy(hann_window_periodic(win_length)).to(frames.device)
-    frames = frames * window
+    frames = frames * _window(win_length, frames.device)
     n_frames = frames.shape[-2]
     out_len = n_fft + hop_length * (n_frames - 1)
     signal = F.fold(frames.transpose(1, 2), output_size=(1, out_len),
                     kernel_size=(1, n_fft), stride=(1, hop_length))[:, 0, 0]
-
-    # the window-square normaliser depends only on the shapes: host-side
-    wsq = np.zeros((out_len,), np.float64)
-    w2 = hann_window_periodic(win_length).astype(np.float64) ** 2
-    for f in range(n_frames):
-        wsq[f * hop_length:f * hop_length + n_fft] += w2
-    wsq = torch.from_numpy(wsq.astype(np.float32)).to(signal.device)
+    wsq = _window_square_sum(n_fft, hop_length, win_length, n_frames, signal.device)
     signal = signal / torch.clamp(wsq, min=1e-11)
 
     pad = n_fft // 2

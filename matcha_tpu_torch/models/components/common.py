@@ -147,8 +147,9 @@ class SinusoidalPosEmb(nn.Module):
             t = t[None]
         half_dim = self.dim // 2
         # f32 throughout, in the JAX package's order of operations: the
-        # arguments reach ~1000 rad, so one ulp here moves sin() by ~1e-4
-        emb = torch.log(torch.tensor(10000.0, device=t.device)) / (half_dim - 1)
+        # arguments reach ~1000 rad, so one ulp here moves sin() by ~1e-4;
+        # the constant is filled on the device (no host copy: capturable)
+        emb = torch.log(torch.full((), 10000.0, device=t.device)) / (half_dim - 1)
         emb = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=t.device) * -emb)
         emb = scale * t[:, None] * emb[None, :]
         return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)

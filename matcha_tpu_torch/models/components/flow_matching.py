@@ -18,8 +18,9 @@ from matcha_tpu_torch.models.components.decoder import Decoder
 def euler_schedule(n_timesteps: int, device=None) -> torch.Tensor:
     """Uniform t_span in [0, 1] with n_timesteps+1 points, as ``iota *
     (1/n)`` in f32 (bit-equal to ``jnp.linspace`` for the usual step
-    counts)."""
-    step = torch.tensor(1.0, device=device) / n_timesteps
+    counts). Built on the device, with no host-to-device copy, so that a
+    CUDA graph can capture it."""
+    step = torch.full((), 1.0, device=device) / n_timesteps
     return torch.arange(n_timesteps + 1, dtype=torch.float32, device=device) * step
 
 

@@ -284,3 +284,103 @@ def test_mas_kernel_refuses_what_it_cannot_take(cuda_f32):
     big = torch.zeros(1, mas.MAX_T_X + 1, 2, device=cuda_f32)
     with pytest.raises(ValueError, match="at most"):
         mas.maximum_path(big, big)
+
+
+def _tiny_pipeline(device):
+    """A small Matcha (seed weights) with the full-width HiFi-GAN v1 and its
+    denoiser, so that the fixed-bucket body runs K1 twice."""
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.models.denoiser import compute_bias_spec
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    torch.manual_seed(3)
+    model = MatchaTTS(enc_n_channels=32, enc_filter_channels=64, enc_filter_channels_dp=32,
+                      enc_n_heads=2, enc_n_layers=2, dec_channels=(32, 32),
+                      dec_attention_head_dim=16, dec_num_heads=2)
+    vocoder = Generator(HiFiGANConfig()).to(device).eval()
+    bias = compute_bias_spec(lambda m: generator_apply_fused(vocoder, m), device=device)
+    return TTSPipeline(model, vocoder, bias, device=device)
+
+
+def _ids(seed, n):
+    x = torch.randint(1, 178, (1, n), generator=torch.Generator().manual_seed(seed)).numpy()
+    return x, x.shape[1] * torch.ones(1, dtype=torch.int32).numpy()
+
+
+def _unit_noise(seed, T_y, device):
+    return torch.randn(1, T_y, 80, generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+@pytest.mark.cuda
+def test_fused_graph_replay_equals_eager(cuda_f32):
+    """One bucket's CUDA graph, replayed twice, against the same body run
+    eagerly on the card on the same noise: equal mel lengths, the
+    waveform and the packed bytes within 1e-5 / equal; K1 ran inside the
+    capture, and a replay reuses the graph."""
+    pipe = _tiny_pipeline(cuda_f32)
+    x, xl = _ids(1, 40)
+    z = _unit_noise(2, 256, cuda_f32)
+    before = mrf.LAUNCHES["mrf_stage"]
+    got = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256)
+    captured = mrf.LAUNCHES["mrf_stage"] - before
+    again = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256)
+    want = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256, cuda_graph=False)
+    torch.cuda.synchronize()
+    graphs = [g for g in pipe._graphs.values() if g.graph is not None]
+    assert len(graphs) == 1 and len(pipe._graphs) == 2
+    assert captured == 4  # two stages, in the warm-up and in the capture
+    assert mrf.LAUNCHES["mrf_stage"] - before == 6  # the replay launched nothing
+    assert torch.equal(got["mel_lengths"], want["mel_lengths"])
+    assert got["waveform"].shape == (1, 256 * 256)
+    for out in (got, again):
+        assert (out["waveform"] - want["waveform"]).abs().max().item() <= 1e-5
+        assert (out["mel"] - want["mel"]).abs().max().item() <= 1e-5
+    assert torch.equal(got["waveform"], again["waveform"])
+
+
+@pytest.mark.cuda
+def test_fused_graphs_sharing_a_pool_keep_their_results(cuda_f32):
+    """Two buckets' graphs in one memory pool, replayed in turns: the
+    results each call returned stay as they were after the other graph
+    (and the same one) replayed, and equal their eager bodies."""
+    pipe = _tiny_pipeline(cuda_f32)
+    inputs = {128: (_ids(4, 30), _unit_noise(5, 128, cuda_f32)),
+              256: (_ids(6, 70), _unit_noise(7, 256, cuda_f32))}
+    kept = {}
+    for _ in range(2):
+        for T_y, ((x, xl), z) in inputs.items():
+            out = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=T_y)
+            kept.setdefault(T_y, []).append((out, {k: v.clone() for k, v in out.items()}))
+    torch.cuda.synchronize()
+    assert pipe._graph_pool is not None
+    assert {g.graph.pool() for g in pipe._graphs.values()} == {pipe._graph_pool}
+    for T_y, ((x, xl), z) in inputs.items():
+        want = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=T_y,
+                                     cuda_graph=False)
+        for out, snapshot in kept[T_y]:
+            for k, v in snapshot.items():
+                assert torch.equal(out[k], v), (T_y, k)
+            assert (out["waveform"] - want["waveform"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fused_graph_capture_failure_raises(cuda_f32, monkeypatch):
+    """A body that cannot be captured (a host sync inside it) raises; it
+    is never run eagerly in the graph's place."""
+    from matcha_tpu_torch import fused
+
+    pipe = _tiny_pipeline(cuda_f32)
+    body = fused.FusedGraph.body
+
+    def syncing_body(self):
+        out = body(self)
+        out["peak"] = torch.full((1,), float(out["waveform"].abs().max().item()), device=cuda_f32)
+        return out
+
+    monkeypatch.setattr(fused.FusedGraph, "body", syncing_body)
+    x, xl = _ids(8, 20)
+    with pytest.raises(RuntimeError, match="capturing the fused graph"):
+        pipe.synthesise_batch(x, xl, n_timesteps=2, z=_unit_noise(9, 128, cuda_f32),
+                              fixed_y_bucket=128)
+    assert all(g.graph is None for g in pipe._graphs.values())
+    torch.cuda.synchronize()
