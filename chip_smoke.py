@@ -42,7 +42,8 @@ Phases, one output line each (any failure exits non-zero):
    1e-5), K1's launches inside one replay from the profiler trace, replay
    and eager latency in turns, their device busy time, and capture
    seconds and memory per bucket; K1 per
-   stage at the path's shapes and at a 512-frame mel, beside its f32 and
+   stage at the path's shapes, at a 512-frame mel and at every mel bucket
+   the fixed-bucket path ran (up to 2,048 frames), beside its f32 and
    tensor-core bounds, its plain version and a chain of cuDNN ``F.conv1d``
    calls; K1 over explicit tiles at two short T (the tile floor); K3 per
    narrow stage and K1 at C = 128 at the main path's shape and at
@@ -76,12 +77,7 @@ import tempfile
 import time
 
 SEED = 1234
-SENTENCES = [
-    "The birch canoe slid on the smooth planks.",
-    "Printing, in the only sense with which we are at present concerned, differs from most "
-    "if not from all the arts and crafts represented in the Exhibition.",
-    "In 1834, Dr. Smith paid $3.50 for the 2nd edition; it was worth every cent.",
-]
+# the three serving sentences are SENTENCES of matcha_tpu_torch/scripts/profile_latency.py
 SHORT_SENTENCE = "Hello world."
 CLEANER = "english_cleaners_no_espeak"
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor cores,
@@ -861,21 +857,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import numpy as np
-
-    from matcha_tpu_torch.cli import (
-        VOC_BUCKETS,
-        X_BUCKETS,
-        Y_BUCKETS,
-        TTSPipeline,
-        pick_bucket,
-        process_text,
-    )
-    from matcha_tpu_torch.models.denoiser import compute_bias_spec, denoise
+    from matcha_tpu_torch.cli import VOC_BUCKETS, Y_BUCKETS, TTSPipeline, pick_bucket, process_text
+    from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
     from matcha_tpu_torch.models.hifigan_fused import MAX_FUSED_CHANNELS, generator_apply_fused
     from matcha_tpu_torch.models.matcha import MatchaTTS
     from matcha_tpu_torch.ops import cuda_build, mrf, mrf_phase
+    from matcha_tpu_torch.scripts.profile_latency import SENTENCES, request_latency, stage_split
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -975,55 +963,13 @@ def main() -> int:
             raise AssertionError(f"GPU and CPU pipelines disagree on {key}: {err}")
     emit({"phase": "gpu_vs_cpu", "sentence": SHORT_SENTENCE, **checks})
 
-    # 5. times
-    lat = {}
-    for i, tp in enumerate(texts):
-        g = torch.Generator(dev).manual_seed(SEED + i)
-        runs = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = pipe.synthesise_batch(tp["x"], tp["x_lengths"], generator=g)
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t0)
-        ms = statistics.median(runs[1:]) * 1e3
-        audio_s = int(out["mel_lengths"][0]) * h.hop_size / h.sampling_rate
-        lat[f"sentence_{i}"] = {"p50_ms": ms, "audio_s": audio_s, "rtf": ms / 1e3 / audio_s}
+    # 5. times: latency per sentence, and where one request's time goes
+    # (each stage of the path, synchronised)
+    lat = request_latency(pipe, texts, 5)
     emit({"phase": "latency", "requests": lat, "note": "host clock around synthesise_batch, "
           "synchronised; median of 5 after 1 warm-up"})
-
-    # where one request's time goes: each stage of the path, synchronised
     tp = texts[1]
-    x_pad = np.zeros((1, pick_bucket(tp["x"].shape[-1], X_BUCKETS)), np.int64)
-    x_pad[:, :tp["x"].shape[-1]] = tp["x"]
-    x_t, xl = torch.from_numpy(x_pad).to(dev), torch.from_numpy(tp["x_lengths"]).to(dev)
-    split = {}
-    for rep in range(4):
-        marks = [time.perf_counter()]
-
-        def mark():
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-
-        mu_x, w_ceil, y_len = model.encode(x_t, xl)
-        mark()
-        max_y = int(y_len.max())
-        T_y = pick_bucket(max_y, Y_BUCKETS)
-        out = model.decode(mu_x, w_ceil, xl, y_len, 10, 0.667, y_max_length=T_y,
-                           generator=torch.Generator(dev).manual_seed(SEED))
-        mark()
-        T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
-        wav = generator_apply_fused(vocoder, out["mel"].transpose(1, 2)[:, :T_voc],
-                                    pipe.vocoder_weights)[..., 0]
-        mark()
-        denoise(torch.clamp(wav, -1.0, 1.0), bias, strength=pipe.denoiser_strength)
-        mark()
-        if rep:  # the first pass is the warm-up
-            for name, a, b in zip(("encode", "decode_10_steps", "vocoder", "denoise"),
-                                  marks, marks[1:]):
-                split.setdefault(name, []).append((b - a) * 1e3)
-    emit({"phase": "breakdown", "sentence": 1, "T_y": T_y, "T_voc": T_voc,
-          "ms": {k: statistics.median(v) for k, v in split.items()},
+    emit({"phase": "breakdown", "sentence": 1, **stage_split(pipe, tp, 3),
           "note": "host clock per stage, synchronised; median of 3 after 1 warm-up"})
     g = torch.Generator(dev).manual_seed(SEED + 1)
     emit({"phase": "device_busy", "sentence": 1, **device_busy(
@@ -1033,9 +979,14 @@ def main() -> int:
     emit({"phase": "fused_path", **fused})
     torch.cuda.empty_cache()
 
+    # K1 at the dynamic path's shape, at 512 frames, and at every mel bucket
+    # the fixed-bucket graphs ran (their replays are held only against the
+    # eager body, which runs K1 too)
     stages = []
     path_T_voc = requests[0]["T_voc"]
-    for T_mel, label in ((path_T_voc, "main_path"), (512, "T_mel_512")):
+    fused_T = {fused["integer_bucket"], *itertools.chain.from_iterable(fused["auto_buckets"])}
+    for T_mel, label in ((path_T_voc, "main_path"), (512, "T_mel_512"),
+                         *((T, f"fused_path_{T}") for T in sorted(fused_T - {path_T_voc, 512}))):
         mel = torch.randn(1, T_mel, h.num_mels, generator=gen_cpu).to(dev)
         with torch.inference_mode():
             x = vocoder.conv_pre(mel.transpose(1, 2))

@@ -6,7 +6,11 @@ overlap-add by the summed squared window, as ``torch.istft`` does.
 
 The window and the normaliser are built once per device and shape from
 the numpy values, and cached: a call copies nothing from the host, so a
-CUDA graph can capture it once a call at the same shapes has run.
+CUDA graph can capture it once a call at the same shapes has run. The
+caches never evict: a captured graph reads these tensors by address and
+holds no reference to them, so a freed entry would be read as whatever
+the allocator put there next. They hold one small tensor per distinct
+length.
 """
 
 import functools
@@ -28,7 +32,7 @@ def _window(win_length: int, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(hann_window_periodic(win_length)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _window_square_sum(n_fft: int, hop_length: int, win_length: int, n_frames: int,
                        device: torch.device) -> torch.Tensor:
     """The ISTFT normaliser: the squared window overlap-added over

@@ -94,6 +94,25 @@ def fetch_fused_host(out: dict):
     return out["waveform"].cpu().numpy(), out["mel_lengths"].cpu().numpy()
 
 
+def _fetch_auto_host(out: dict, raw_pcm24: bool) -> np.ndarray:
+    """The ``"auto"`` path's one host copy of a result, kept in the keys
+    that ``fetch_fused_host`` reads back: the packed rows as
+    ``pcm24_bytes_host`` (``raw_pcm24`` delivery, lengths read from the
+    last sample), else the waveform of either wire format as
+    ``waveform_host``; a result with neither (no vocoder, or the dynamic
+    fallback's f32 waveform) fetches its lengths only. Sets and returns
+    ``mel_lengths_host``."""
+    if raw_pcm24 and "wav_pcm24" in out:
+        out["pcm24_bytes_host"] = out["wav_pcm24"].cpu().numpy()
+        ml = _pcm24_lengths(out["pcm24_bytes_host"])
+    elif "wav_pcm24" in out or "wav_packed" in out:
+        out["waveform_host"], ml = fetch_fused_host(out)
+    else:
+        ml = out["mel_lengths"].cpu().numpy()
+    out["mel_lengths_host"] = ml
+    return ml
+
+
 def synth_fetch_guarded(pipeline, x, x_lengths, *, fixed_y_bucket=0, **kw):
     """``synthesise_batch`` + host fetch, with the integer fixed-bucket
     saturation guard. An int ``fixed_y_bucket`` replays with no host sync,
@@ -261,20 +280,7 @@ class TTSPipeline:
                 out = graph(x_pad, x_lengths_host, z(T_y) if callable(z) else z, generator)
                 if not auto:
                     return out
-                if "wav_pcm24" in out:
-                    packed = out["wav_pcm24"].cpu().numpy()
-                    if raw_pcm24:
-                        out["pcm24_bytes_host"] = packed
-                        ml = _pcm24_lengths(packed)
-                    else:
-                        out["waveform_host"], ml = _unpack_pcm24(packed)
-                elif "wav_packed" in out:
-                    packed = out["wav_packed"].cpu().numpy()
-                    ml = packed[:, -1].astype(np.int32)  # exact below 2**24
-                    out["waveform_host"] = packed[:, :-1]
-                else:  # a pipeline without a vocoder
-                    ml = out["mel_lengths"].cpu().numpy()
-                out["mel_lengths_host"] = ml
+                ml = _fetch_auto_host(out, raw_pcm24)
                 saturated = bool((ml >= T_y).any())
                 valid = x_lengths_host > 0
                 if not saturated and valid.any():
@@ -294,12 +300,7 @@ class TTSPipeline:
                         x, x_lengths_host, n_timesteps=n_timesteps, temperature=temperature,
                         length_scale=length_scale, z=z, generator=generator,
                         pack_wav=raw_pcm24)
-                    if raw_pcm24:  # keep the byte-delivery contract
-                        packed = out["wav_pcm24"].cpu().numpy()
-                        out["pcm24_bytes_host"] = packed
-                        out["mel_lengths_host"] = _pcm24_lengths(packed)
-                    else:
-                        out["mel_lengths_host"] = out["mel_lengths"].cpu().numpy()
+                    _fetch_auto_host(out, raw_pcm24)  # the same byte-delivery contract
                     return out
                 T_y = next((b for b in self.FUSED_Y_BUCKETS if b >= 2 * T_y),
                            self.FUSED_Y_BUCKETS[-1])

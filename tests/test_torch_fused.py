@@ -303,6 +303,19 @@ def test_capture_safe_constants_are_bit_equal(n):
                        torch.from_numpy(wsq.astype(np.float32)))
 
 
+def test_stft_constants_are_never_evicted():
+    """A captured graph reads the window and the ISTFT normaliser by
+    address: after ``istft`` has run at 100 other lengths (more than the
+    32 buckets of the fixed-bucket path), the first length's tensors are
+    still the ones cached at the start."""
+    cpu = torch.device("cpu")
+    first = stft._window_square_sum(1024, 256, 1024, 9, cpu), stft._window(1024, cpu)
+    for n in range(10, 110):
+        stft.istft(torch.ones(513, n), torch.zeros(513, n))
+    assert stft._window_square_sum(1024, 256, 1024, 9, cpu) is first[0]
+    assert stft._window(1024, cpu) is first[1]
+
+
 def _wav_samples(path):
     import wave
 

@@ -364,6 +364,29 @@ def test_fused_graphs_sharing_a_pool_keep_their_results(cuda_f32):
 
 
 @pytest.mark.cuda
+def test_fused_graph_replay_survives_other_lengths(cuda_f32):
+    """A replay after the denoiser's STFT has run at 100 other lengths and
+    the allocator has handed out that memory again still equals the eager
+    body: the constants the graph captured (the window and the ISTFT
+    normaliser) stay allocated."""
+    from matcha_tpu_torch.audio import stft
+
+    pipe = _tiny_pipeline(cuda_f32)
+    x, xl = _ids(10, 30)
+    z = _unit_noise(11, 128, cuda_f32)
+    pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=128)
+    for n in range(200, 300):
+        stft.istft(torch.ones(513, n, device=cuda_f32), torch.zeros(513, n, device=cuda_f32))
+    litter = [torch.full((1024 + 256 * n,), 7.0, device=cuda_f32) for n in range(200, 300)]
+    got = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=128)
+    want = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=128, cuda_graph=False)
+    torch.cuda.synchronize()
+    del litter
+    assert torch.equal(got["mel_lengths"], want["mel_lengths"])
+    assert (got["waveform"] - want["waveform"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
 def test_fused_graph_capture_failure_raises(cuda_f32, monkeypatch):
     """A body that cannot be captured (a host sync inside it) raises; it
     is never run eagerly in the graph's place."""
