@@ -49,6 +49,24 @@ Phases, one output line each (any failure exits non-zero):
    narrow stage and K1 at C = 128 at the main path's shape and at
    B = 8 x 1,024 frames, likewise (K3's yardstick: a transpose, the cuDNN
    chain, and a transpose back);
+   staged corpus synthesis (``staged_corpus``): bench.py's 128-utterance
+   filelist through ``synthesise_corpus`` split, with the fused stage as
+   one CUDA graph per bucket triple, and as ``synthesise_batch`` per batch,
+   on the same noise (equal batches and lengths, fused and loop against
+   split), audio seconds per wall second, one copy to the host per window
+   and K1's launches from a ``torch.profiler`` trace, the graphs' capture
+   seconds and memory; the chunked vocoder (256 frames) against the whole
+   one at B = 8 x 1,024 (1e-5, peak memory, ms); K1 against its plain
+   version at every (B, C, T) the corpus ran it at (``K1Shapes``); the
+   serving daemon (``serve``) in process on 127.0.0.1, warmed at 384:768:
+   lone requests replay a warmed graph and equal the eager body on their
+   call's generator, 8 concurrent requests merge into at most 2 batches
+   with the predicted frames, the long-form and streaming endpoints and
+   /healthz answer, the card's busy time and idle share over one merged
+   batch of 8, then 8 clients in a closed loop for 10 s
+   (``scripts/bench_serve.py``: req/s, x realtime, latency percentiles,
+   requests per batch, batch ms), and K1 against its plain version at
+   every (B, C, T) the daemon ran it at after warmup and in its graphs;
 6. the training path at full width (the LJSpeech config, batch 32, no
    segment cut) on a synthetic corpus written from the seed: 5 steps of
    ``python -m matcha_tpu_torch.train`` (through ``train.main``) with
@@ -60,7 +78,8 @@ Phases, one output line each (any failure exits non-zero):
    version, its call split under ``torch.profiler`` into the kernel and
    the wrapper's other device operations;
 7. the ``kernels`` line (every TPU kernel of the repo: K1, K2 and K3, all
-   ported), then the last line ``{"ok": true, "device": {...}}``.
+   ported; K1 with its launches on each path), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 All f32 with TF32 off, so that every comparison is against full f32.
 """
@@ -115,6 +134,14 @@ FUSED_REPS = 10  # timed requests per sentence and mode, after one warm-up
 # sums in another order through the full-width model (TF32 off)
 TRAIN_RTOL = 1e-4
 SR, HOP = 22050, 256
+# staged corpus synthesis, bench.py's protocol: utterances, batch, length scale
+CORPUS_UTTS, CORPUS_BATCH, CORPUS_RATE = 128, 8, 3.5
+# the chunked vocoder against the whole: JAX's bound (tests/test_cli_e2e.py),
+# as numpy's allclose reads rtol and atol
+CHUNK_FRAMES, CHUNK_TOL = 256, 1e-5
+# the daemon: the warmed pair (the three serving sentences route to x bucket
+# 384), lone requests per sentence, and the closed loop's clients and seconds
+SERVE_WARMUP, SERVE_REPS, SERVE_CLIENTS, SERVE_SECONDS = "384:768", 5, 8, 10.0
 N_TRAIN, N_VAL = 64, 8
 TRAIN_STEPS = 5
 # public-domain sentences (the Harvard sentences); the corpus cuts runs of
@@ -176,6 +203,8 @@ def device_busy(request, latency_ms: float) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from matcha_tpu_torch.scripts.trace_settle import TRACE_SETTLE_S
+
     request()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -183,6 +212,7 @@ def device_busy(request, latency_ms: float) -> dict:
         request()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_SETTLE_S)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return {"busy_ms": "not measured", "idle_share": "not measured",
@@ -592,6 +622,63 @@ def k1_tiles(dev, gen, kernel_sizes, dilations) -> list:
     return rows
 
 
+class K1Shapes:
+    """While active, records every (B, C, T, t_tile) at which the vocoder
+    calls K1's wrapper, eagerly or under a graph capture, with the stage's
+    weights and the tags it ran under (``tag``, and "graph" when captured),
+    so that ``check`` holds K1 against its plain version at exactly the
+    shapes a path ran (``pick_t_tile`` picks its tile from B, C and T)."""
+
+    def __init__(self):
+        self.seen, self.tag = {}, None
+
+    def __enter__(self):
+        import torch
+
+        from matcha_tpu_torch.models import hifigan_fused
+
+        self._orig = launch = hifigan_fused.fused_mrf_stage
+
+        def recording(x, weights, kernel_sizes, dilations, t_tile=None):
+            key = (*x.shape, t_tile)
+            entry = self.seen.setdefault(key, {"args": (weights, kernel_sizes, dilations),
+                                               "tags": set()})
+            capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+            entry["tags"].add("graph" if capturing else self.tag)
+            return launch(x, weights, kernel_sizes, dilations, t_tile=t_tile)
+
+        hifigan_fused.fused_mrf_stage = recording
+        return self
+
+    def __exit__(self, *exc):
+        from matcha_tpu_torch.models import hifigan_fused
+
+        hifigan_fused.fused_mrf_stage = self._orig
+
+    def check(self, dev, gen, tags) -> list:
+        """K1 against its plain version on random input at each recorded
+        shape that ran under one of ``tags``; raises past K1_TOL."""
+        import torch
+
+        from matcha_tpu_torch.ops import mrf
+
+        rows = []
+        for (B, C, T, t_tile), entry in sorted(self.seen.items(), key=lambda kv: kv[0][:3]):
+            if not entry["tags"] & set(tags):
+                continue
+            x = torch.randn(B, C, T, generator=gen).to(dev)
+            with torch.inference_mode():
+                got = mrf.fused_mrf_stage(x, *entry["args"], t_tile=t_tile)
+                want = mrf.fused_mrf_stage_reference(x, *entry["args"])
+            err = (got - want).abs().max().item()
+            rows.append({"B": B, "C": C, "T": T, "t_tile": mrf.pick_t_tile(C, T, t_tile, B=B),
+                         "ran_in": sorted(entry["tags"]), "max_abs_err": err})
+            del x, got, want
+            if not (err < K1_TOL):
+                raise AssertionError(f"K1 disagrees with its plain version at {rows[-1]}")
+        return rows
+
+
 def k3_check(dev, gen, kernel_sizes, dilations) -> dict:
     """K3 against its plain version (the phase-packed products) and
     against K1 on the transposed input, on the card, at every width it
@@ -851,6 +938,432 @@ def fused_path(dev, model, vocoder, bias, texts, requests, dynamic_lat) -> dict:
                     f"of sentence 1; k1_wrapper_launches counts captures and eager runs"}
 
 
+def device_counts(prof) -> dict:
+    """K1's launches (device events by kernel name), device-to-host copies
+    and host waits (``cudaStreamSynchronize`` / ``cudaDeviceSynchronize``)
+    in a ``torch.profiler`` trace."""
+    names = [e.name for e in prof.events()]
+    return {"k1": sum("mrf_stage_kernel" in n for n in names),
+            "dtoh": sum(n.startswith("Memcpy DtoH") for n in names),
+            "syncs": sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for n in names)}
+
+
+def corpus_run(pipe, dev, utts, mode: str, profile: bool = False):
+    """One pass over the corpus: ``split`` or ``fused`` through
+    ``synthesise_corpus``, ``loop`` as ``synthesise_batch`` per batch on
+    the same sorted batches; one generator seeded from SEED, so every mode
+    draws the same noise. Returns (batches, wall seconds, counts): K1's
+    wrapper launches, the stage graphs' replays and, with ``profile``, the
+    trace's ``device_counts`` and ``graph_launch_counts``. Nothing is
+    fetched inside the pass but the path's own copies."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from matcha_tpu_torch.ops import mrf
+    from matcha_tpu_torch.scripts.trace_settle import TRACE_SETTLE_S, graph_launch_counts
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    kw = dict(n_timesteps=10, temperature=0.667, length_scale=CORPUS_RATE)
+
+    def run():
+        if mode != "loop":
+            return list(pipe.synthesise_corpus(utts, batch_size=CORPUS_BATCH,
+                                               fuse_stages=mode == "fused", generator=gen, **kw))
+        order = sorted(range(len(utts)), key=lambda i: len(utts[i]))
+        outs = []
+        for s in range(0, len(order), CORPUS_BATCH):
+            chunk = order[s:s + CORPUS_BATCH]
+            x = np.zeros((len(chunk), max(len(utts[i]) for i in chunk)), np.int32)
+            for row, idx in enumerate(chunk):
+                x[row, :len(utts[idx])] = utts[idx]
+            xl = np.asarray([len(utts[i]) for i in chunk], np.int32)
+            outs.append((chunk, pipe.synthesise_batch(x, xl, generator=gen, **kw)))
+        return outs
+
+    def replays():
+        return sum(g.replays for k, g in pipe._graphs.items() if k[0] == "stage")
+
+    torch.cuda.synchronize()
+    mrf.LAUNCHES["mrf_stage"] = 0
+    replays0 = replays()
+    t0 = time.perf_counter()
+    if profile:
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            outs = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(TRACE_SETTLE_S)
+        counts = {**device_counts(prof), **graph_launch_counts(prof)}
+    else:
+        outs = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {}
+    counts.update(k1_wrapper=mrf.LAUNCHES["mrf_stage"], replays=replays() - replays0)
+    for _, out in outs:
+        out.setdefault("mel_lengths_host", out["mel_lengths"].cpu().numpy())
+    return outs, wall, counts
+
+
+def staged_corpus(dev, model, vocoder, bias) -> dict:
+    """``bench.py``'s protocol through the port's ``synthesise_corpus``: 128
+    utterances of 64-192 ids, length scale 3.5, B = 8, 10 steps,
+    temperature 0.667. Three modes in turns on the same noise: the split
+    stages, the fused stage (one CUDA graph per bucket triple, captured in
+    a first untimed pass), and ``synthesise_batch`` per batch; then the two
+    staged modes again under ``torch.profiler``. Checks: the same batches
+    and host lengths in every mode; fused against split (mel 1e-6,
+    waveform GRAPH_TOL) and the loop against split alike; one copy to the
+    host per window in the staged modes; K1 twice per batch (split: in
+    the trace; loop: its wrapper's count; fused: one replay per batch and
+    K1 twice in each replay's trace events). Then the chunked vocoder
+    (``vocoder_chunk`` CHUNK_FRAMES against 0, no denoiser) at B = 8 x
+    1,024 frames. Last, K1 against its plain version at every (B, C, T)
+    that any of these runs gave it."""
+    import numpy as np
+    import torch
+
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.ops import mrf
+    from matcha_tpu_torch.scripts.trace_settle import corpus_utterances
+
+    pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
+    utts = corpus_utterances(CORPUS_UTTS, SEED)
+    modes = ("split", "fused", "loop")
+    mel = torch.randn(*PROFILER_SHAPE, model.n_feats, generator=torch.Generator().manual_seed(SEED))
+    mel = mel.to(dev)
+    chunk = {}
+    with K1Shapes() as shapes:
+        shapes.tag = "corpus"
+        first_s = corpus_run(pipe, dev, utts, "fused")[1]  # captures every triple's graph
+        checked = {m: corpus_run(pipe, dev, utts, m) for m in modes}
+        traced = {m: corpus_run(pipe, dev, utts, m, profile=True) for m in ("split", "fused")}
+        shapes.tag = "chunk"
+        for frames in (0, CHUNK_FRAMES):
+            p = TTSPipeline(model, vocoder, None, cleaner=CLEANER, device=dev, vocoder_chunk=frames)
+            with torch.inference_mode():
+                p.vocode(mel)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                mrf.LAUNCHES["mrf_stage"] = 0
+                wav = p.vocode(mel)
+                torch.cuda.synchronize()
+                chunk[frames] = {"peak_MiB": (torch.cuda.max_memory_allocated(dev) - base) / 2**20,
+                                 "k1_wrapper_launches": mrf.LAUNCHES["mrf_stage"],
+                                 "ms": cuda_ms(lambda p=p: p.vocode(mel), 3), "wav": wav}
+    captured = [{"B": g.mu_x.shape[0], "T_x": g.mu_x.shape[1], "T_y": g.T_y, "T_voc": g.T_voc,
+                 "seconds": g.capture_seconds,
+                 "memory_allocated_before_after_MiB": [v / 2**20 for v in g.memory_allocated]}
+                for k, g in pipe._graphs.items() if k[0] == "stage" and g.graph is not None]
+
+    split = checked["split"][0]
+    n_batches = len(split)
+    audio_s = sum(int(o["mel_lengths_host"].sum()) for _, o in split) * HOP / SR
+    errs = {}
+    for m in ("fused", "loop"):
+        outs = checked[m][0]
+        if [c for c, _ in outs] != [c for c, _ in split]:
+            raise AssertionError(f"staged corpus: {m} ran other batches than split")
+        e = {"mel": 0.0, "waveform": 0.0}
+        for (_, a), (_, b) in zip(split, outs):
+            if not np.array_equal(a["mel_lengths_host"], b["mel_lengths_host"]):
+                raise AssertionError(f"staged corpus: {m} lengths differ from split")
+            for key in e:
+                if a[key].shape != b[key].shape:
+                    raise AssertionError(f"staged corpus: {m} {key} {tuple(b[key].shape)}")
+                e[key] = max(e[key], (a[key] - b[key]).abs().max().item())
+        errs[m] = e
+        if not (e["mel"] <= 1e-6 and e["waveform"] <= GRAPH_TOL):
+            raise AssertionError(f"staged corpus: {m} against split {e}")
+    counts = {m: {**checked[m][2], **(traced[m][2] if m in traced else {})} for m in modes}
+    c = counts["split"], counts["fused"], counts["loop"]
+    if not (c[0]["dtoh"] == c[1]["dtoh"] == 1 and c[0]["k1"] == 2 * n_batches
+            and c[1]["replays"] == c[1]["graph_launches"] == n_batches
+            and c[1]["k1"] == 2 * n_batches and c[1]["k1_per_launch"] == [2] * n_batches
+            and c[2]["k1_wrapper"] == 2 * n_batches):
+        raise AssertionError(f"staged corpus: {counts} for {n_batches} batches in one window")
+    if not all(bool(torch.isfinite(o["waveform"]).all()) for _, o in split):
+        raise AssertionError("staged corpus: non-finite waveform")
+    a, b = chunk[0].pop("wav"), chunk[CHUNK_FRAMES].pop("wav")
+    chunk_err = (a - b).abs().max().item()
+    if not (a.shape == b.shape and bool(((a - b).abs() <= CHUNK_TOL + CHUNK_TOL * b.abs()).all())):
+        raise AssertionError(f"chunked vocoder against whole: {chunk_err}")
+    walls = {m: checked[m][1] for m in modes}
+    traced_walls = {m: traced[m][1] for m in traced}
+    t_ys = sorted({o["mel"].shape[-1] for _, o in split})
+    del checked, traced, split, a, b
+    torch.cuda.empty_cache()
+    k1_rows = shapes.check(dev, torch.Generator().manual_seed(SEED), ("corpus", "chunk"))
+
+    runs = {}
+    for m in modes:
+        runs[m] = {"wall_s": walls[m], "audio_s_per_wall_s": audio_s / walls[m], **counts[m],
+                   "k1_launches": counts[m].get("k1", counts[m]["k1_wrapper"])}
+        if m in traced_walls:
+            runs[m].update(profiled_wall_s=traced_walls[m],
+                           host_copies_per_window=counts[m]["dtoh"])
+    runs["fused"]["first_pass_wall_s"] = first_s
+    return {"utterances": CORPUS_UTTS, "batch": CORPUS_BATCH, "batches": n_batches,
+            "windows": 1, "length_scale": CORPUS_RATE, "steps": 10, "temperature": 0.667,
+            "audio_s": audio_s, "T_y": t_ys, "modes": runs, "max_abs_err_vs_split": errs,
+            "graphs": captured,
+            "chunk": {"frames": CHUNK_FRAMES, "shape": list(PROFILER_SHAPE), "tolerance":
+                      CHUNK_TOL, "max_abs_err": chunk_err, "by_chunk": chunk},
+            "k1_shapes": k1_rows,
+            "note": "wall: host clock from the call to the last batch, synchronised, after "
+                    "the fused mode's capturing pass (first_pass_wall_s); audio: true frames x "
+                    "hop / sr; k1 (trace: device events by name), dtoh (Memcpy DtoH events) "
+                    "and syncs (cudaStreamSynchronize calls) from a second, profiled pass of "
+                    "the staged modes (device activity only); graph_launches, "
+                    "device_events_per_launch and k1_per_launch: the trace's events per "
+                    "cudaGraphLaunch by correlation id; k1_wrapper: eager launches in the "
+                    "timed pass; chunk: pipeline.vocode without the denoiser, CUDA events, "
+                    "peak over the allocation before the call; k1_shapes: K1 against its "
+                    "plain version on random input at every (B, C, T) the runs gave it"}
+
+
+def _wav_samples(body: bytes):
+    """A 24-bit mono WAV's samples as floats, and its header fields."""
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as f:
+        fields = (f.getnchannels(), f.getsampwidth(), f.getframerate())
+        raw = np.frombuffer(f.readframes(f.getnframes()), np.uint8).reshape(-1, 3).astype(np.int32)
+    v = raw[:, 0] | (raw[:, 1] << 8) | (raw[:, 2] << 16)
+    return ((v ^ 0x800000) - 0x800000) / float(2**23 - 1), fields
+
+
+def serve_phase(dev, model, vocoder, bias) -> dict:
+    """The daemon in process on 127.0.0.1: ``max_batch`` 8, warmed at
+    SERVE_WARMUP (the dynamic shapes and the fast path's graphs). Lone
+    /synthesise requests of the three serving sentences must replay a
+    warmed graph and equal ``synthesise_batch`` at that bucket run
+    eagerly on the call's generator (GRAPH_TOL plus one 24-bit step); 8
+    concurrent requests merge into at most 2 batches with the frames
+    ``encode`` predicts, and K1 runs twice per replay and per batch in the
+    trace; /synthesise_long, /synthesise_stream and /healthz answer
+    well-formed; one merged batch of 8 on an idle server, timed inside the
+    batcher and then traced (the card's busy time and idle share); a
+    closed loop of SERVE_CLIENTS client threads for SERVE_SECONDS
+    (``scripts/bench_serve.py``) with each batch's time inside the
+    batcher. Any failed request fails the phase. Last, K1 against its
+    plain version at every (B, C, T) the daemon gave it after warmup or in
+    a graph warmup captured."""
+    import http.client
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.ops import mrf
+    from matcha_tpu_torch.scripts import bench_serve
+    from matcha_tpu_torch.scripts.profile_latency import SENTENCES
+    from matcha_tpu_torch.scripts.trace_settle import TRACE_SETTLE_S, graph_launch_counts
+    from matcha_tpu_torch.serve import BatchingServer, _parse_warmup, make_http_server
+    from matcha_tpu_torch.text import intersperse, text_to_sequence
+
+    pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
+    server = BatchingServer(pipe, max_batch=8, n_timesteps=10, temperature=0.667, seed=SEED)
+    httpd, shapes = None, K1Shapes().__enter__()
+    run, run_ms = server._run, []
+
+    def timed_run(reqs, rate, spk):  # a batch's time inside the batcher thread
+        t = time.perf_counter()
+        run(reqs, rate, spk)
+        run_ms.append(((time.perf_counter() - t) * 1e3, len(reqs)))
+
+    server._run = timed_run
+    try:
+        shapes.tag = "warmup"
+        t0 = time.perf_counter()
+        server.warmup(_parse_warmup(SERVE_WARMUP))
+        warm_s = time.perf_counter() - t0
+        shapes.tag = "requests"
+        captures = [{"T_y": g.T_y, "seconds": g.capture_seconds,
+                     "memory_allocated_before_after_MiB": [v / 2**20 for v in g.memory_allocated]}
+                    for g in pipe._graphs.values() if g.graph is not None]
+        httpd = make_http_server(server, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def post(path, payload):
+            req = urllib.request.Request(url + path, data=_json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, resp.headers, resp.read()
+
+        T_x = server._warm_x[-1]
+        seqs = [np.asarray(intersperse(text_to_sequence(s, [CLEANER]), 0), np.int32)
+                for s in SENTENCES]
+        batch_texts = bench_serve.SENTENCES
+
+        def burst():
+            """bench_serve's sentences submitted at once to an idle server,
+            inside one batch window of 0.1 s"""
+            results = [None] * len(batch_texts)
+
+            def client(j):
+                results[j] = server.submit(batch_texts[j], timeout_s=300.0)
+
+            threads = [threading.Thread(target=client, args=(j,)) for j in range(len(results))]
+            server.batch_window_s = 0.1
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            server.batch_window_s = 0.01
+            return results
+
+        mrf.LAUNCHES["mrf_stage"] = 0
+        replays0 = sum(g.replays for g in pipe._graphs.values())
+        lone, merged = [], {}
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            for rep in range(SERVE_REPS):
+                for i, s in enumerate(SENTENCES):
+                    T_y = server._pick_fused_bucket(T_x, server.default_rate, len(seqs[i]))
+                    n_call = server._n_calls + 1
+                    t1 = time.perf_counter()
+                    status, headers, body = post("/synthesise", {"text": s})
+                    ms = (time.perf_counter() - t1) * 1e3
+                    lone.append({"sentence": i, "rep": rep, "T_y": T_y, "n_call": n_call,
+                                 "client_ms": ms, "server_ms": float(headers["X-Latency-Ms"]),
+                                 "body": body})
+            n0 = server.n_batches
+            results = burst()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_SETTLE_S)
+        merged["batches"] = server.n_batches - n0
+        counts = {**device_counts(prof), **graph_launch_counts(prof)}
+        wrapper = mrf.LAUNCHES["mrf_stage"]
+        replays = sum(g.replays for g in pipe._graphs.values()) - replays0
+
+        if replays != len(lone) or server.n_fast != len(lone):
+            raise AssertionError(f"serve: {replays} replays and {server.n_fast} fast-path "
+                                 f"requests for {len(lone)} lone requests")
+        if counts["k1"] != 2 * (len(lone) + merged["batches"]):
+            raise AssertionError(f"serve: K1 ran {counts['k1']} times for {len(lone)} replays "
+                                 f"and {merged['batches']} batches ({counts})")
+        for r in lone:
+            got, fields = _wav_samples(r.pop("body"))
+            x1 = np.zeros((1, T_x), np.int32)
+            seq = seqs[r["sentence"]]
+            x1[0, :len(seq)] = seq
+            want = pipe.synthesise_batch(x1, np.asarray([len(seq)], np.int32), fixed_y_bucket=r["T_y"],
+                                         cuda_graph=False, generator=server.call_generator(r["n_call"]))
+            n = int(want["mel_lengths"][0])
+            ref = want["waveform"][0, :n * HOP].clamp(-1, 1).cpu().numpy()
+            r.update(frames=n, max_abs_err=float(np.abs(got - ref).max()) if got.size == ref.size
+                     else None)
+            if not (fields == (1, 3, SR) and got.size == n * HOP and n < r["T_y"]
+                    and r["max_abs_err"] <= GRAPH_TOL + 2.0 / (2**23 - 1)):
+                raise AssertionError(f"serve: lone request against the eager body: {r}")
+        errors = [r.error for r in results if r.error]
+        frames = []
+        for text, r in zip(batch_texts, results):
+            seq = np.zeros((1, T_x), np.int64)
+            ids = intersperse(text_to_sequence(text, [CLEANER]), 0)
+            seq[0, :len(ids)] = ids
+            _, _, y_len = pipe.model.encode(torch.from_numpy(seq).to(dev),
+                                            torch.tensor([len(ids)], dtype=torch.int32, device=dev),
+                                            server.default_rate)
+            frames.append((r.n_frames, int(y_len[0])))
+        if errors or merged["batches"] > 2 or any(a != b for a, b in frames):
+            raise AssertionError(f"serve: 8 concurrent requests: errors {errors}, "
+                                 f"{merged['batches']} batches, frames {frames}")
+        merged.update(requests=len(results), frames=[a for a, _ in frames],
+                      requests_per_batch=len(results) / max(merged["batches"], 1))
+
+        # a burst of 8 alone: its batches' time inside the batcher (the
+        # second of two bursts), then the card's busy time over another
+        # under torch.profiler, whose idle share is read against that time
+        bursts = []
+
+        def timed_burst():
+            k, n0 = len(run_ms), server.n_batches
+            results = burst()
+            # a batch wakes its clients before its _run returns
+            t = time.perf_counter()
+            while len(run_ms) - k < server.n_batches - n0 and time.perf_counter() - t < 10:
+                time.sleep(0.001)
+            bursts.append((results, run_ms[k:]))
+
+        timed_burst()
+        timed_burst()
+        batch_ms = sum(ms for ms, _ in bursts[-1][1])
+        busy = device_busy(timed_burst, batch_ms)
+        if any(r.error for rs, _ in bursts for r in rs):
+            raise AssertionError(f"serve: a burst of 8 failed: {bursts}")
+        merged.update(burst_batch_ms=batch_ms, burst_batches=[[n for _, n in runs]
+                                                              for _, runs in bursts],
+                      profiled_burst_batch_ms=sum(ms for ms, _ in bursts[-1][1]),
+                      device_busy=busy)
+
+        long_text = " ".join(SENTENCES)
+        status, _, body = post("/synthesise_long", {"text": long_text, "max_chars": 120})
+        long_wav, fields = _wav_samples(body)
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=300)
+        conn.request("POST", "/synthesise_stream", body=_json.dumps({"text": long_text,
+                                                                      "max_chars": 120}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        header, pcm = resp.read(44), resp.read()
+        conn.close()
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as h:
+            health = _json.loads(h.read())
+        if not (status == 200 and fields == (1, 3, SR) and long_wav.size > 0
+                and header[:4] == b"RIFF" and header[8:12] == b"WAVE"
+                and len(pcm) == 3 * long_wav.size
+                and health == {"status": "ok", "batches": server.n_batches,
+                               "requests": server.n_requests}):
+            raise AssertionError(f"serve: long {status} {fields} {long_wav.size}, stream "
+                                 f"{header[:12]} {len(pcm)}, healthz {health}")
+
+        del run_ms[:]
+        raw = bench_serve.run_window(server, SERVE_CLIENTS, SERVE_SECONDS, stream=True)
+        load = bench_serve.summarise(raw, SERVE_CLIENTS, 1e3 * server.batch_window_s, 8, False)
+        load["batch_ms"] = {"p50": statistics.median(ms for ms, _ in run_ms),
+                            "max": max(ms for ms, _ in run_ms), "batches": len(run_ms)}
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        server.shutdown()
+        shapes.__exit__()
+    torch.cuda.empty_cache()
+    k1_rows = shapes.check(dev, torch.Generator().manual_seed(SEED), ("requests", "graph"))
+    by_sentence = {}
+    for r in lone:
+        by_sentence.setdefault(r["sentence"], []).append(r)
+    return {"warmup": SERVE_WARMUP, "max_batch": 8, "warmup_s": warm_s, "graphs": captures,
+            "lone": {f"sentence_{i}": {"T_y": rs[-1]["T_y"], "frames": rs[0]["frames"],
+                                       "client_p50_ms": statistics.median(r["client_ms"] for r in rs),
+                                       "server_p50_ms": statistics.median(r["server_ms"] for r in rs),
+                                       "max_abs_err": max(r["max_abs_err"] for r in rs)}
+                     for i, rs in by_sentence.items()},
+            "replays": replays, "merged": merged,
+            "long_form": {"samples": int(long_wav.size)}, "healthz": health,
+            "k1_launches": counts["k1"], "k1_wrapper_launches": wrapper,
+            "graph_launches": counts["graph_launches"], "k1_per_graph_launch": counts["k1_per_launch"],
+            "dtoh_copies": counts["dtoh"], "load": load, "k1_shapes": k1_rows,
+            "note": f"lone: {SERVE_REPS} requests per sentence over HTTP, client clock and the "
+                    f"server's X-Latency-Ms, each held against the eager body on its call's "
+                    f"generator; k1_launches: device events by name over the lone and merged "
+                    f"requests; merged.burst_batch_ms: host clock around the batcher's _run, "
+                    f"synchronised by its fetch; merged.device_busy: the union of device "
+                    f"intervals over one more burst, idle share against burst_batch_ms; "
+                    f"load: bench_serve.run_window, client 0 streaming, batch_ms per _run; "
+                    f"k1_shapes: K1 against its plain version on random input"}
+
+
 def main() -> int:
     import torch
 
@@ -978,6 +1491,14 @@ def main() -> int:
     fused = fused_path(dev, model, vocoder, bias, texts, requests, lat)
     emit({"phase": "fused_path", **fused})
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    corpus = staged_corpus(dev, model, vocoder, bias)
+    emit({"phase": "staged_corpus", **corpus, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = serve_phase(dev, model, vocoder, bias)
+    emit({"phase": "serve", **served, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
     # K1 at the dynamic path's shape, at 512 frames, and at every mel bucket
     # the fixed-bucket graphs ran (their replays are held only against the
@@ -1052,7 +1573,11 @@ def main() -> int:
          "replaces": "matcha_tpu/ops/mrf_pallas.py:121",
          "launches": launches,
          "fused_path_launches_per_replay": fused["k1_launches_per_replay"],
-         "max_abs_err": max([worst] + [s["max_abs_err"] for s in stages]),
+         "staged_corpus_launches": {m: r["k1_launches"] for m, r in corpus["modes"].items()},
+         "serve_launches": served["k1_launches"],
+         "max_abs_err": max([worst] + [s["max_abs_err"] for s in stages]
+                            + [r["max_abs_err"]
+                               for r in corpus["k1_shapes"] + served["k1_shapes"]]),
          "ms": sum(s["ms"] for s in path),
          "plain_ms": sum(s["plain_ms"] for s in path),
          "bound_ms": sum(s["bound_ms"] for s in path),

@@ -1,6 +1,6 @@
 """Text -> wav with the PyTorch port: the synthesis pipeline and its CLI.
 
-Port of ``matcha_tpu/cli.py``'s two synthesis paths:
+Port of ``matcha_tpu/cli.py``'s three synthesis paths:
 - the dynamic path: encode -> host pick of the mel bucket -> decode ->
   slice to the finer vocoder bucket -> vocode (the fused-MRF generator)
   -> clip -> denoise -> optional 24-bit PCM packing;
@@ -8,9 +8,16 @@ Port of ``matcha_tpu/cli.py``'s two synthesis paths:
   the whole text -> wav body at one mel bucket, one CUDA graph per
   bucket on a GPU (``fused.py``), with the self-calibrating ``"auto"``
   bucket, its saturation escalation and the top-bucket fallback to the
-  dynamic path.
-The CLI synthesises one utterance at a time, in length-sorted batches
-(``--batched``) or sentence by sentence (``--long-form``). Checkpoints
+  dynamic path;
+- staged corpus synthesis (``synthesise_corpus``, CLI ``--batched
+  --staged``): every batch's encoder pass of a window first, one host
+  copy of their predicted lengths, then decode + vocode per batch with no
+  other host sync, split or (``--fused-stage``) as one CUDA graph per
+  bucket triple.
+With ``vocoder_chunk`` (``--vocoder-chunk N``) every path vocodes in
+N-frame mel windows with a halo. The CLI synthesises one utterance at a
+time, in length-sorted batches (``--batched``, ``--staged``) or sentence
+by sentence (``--long-form``). Checkpoints
 are the reference formats (a Lightning ``.ckpt`` for Matcha,
 ``{"generator": state_dict}`` for HiFi-GAN), read from
 ``$MATCHA_HOME/matcha_tpu/`` or a given path; nothing is downloaded.
@@ -32,7 +39,7 @@ import torch
 
 from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.convert import fold_hifigan_state_dict
-from matcha_tpu_torch.fused import FusedGraph, _pack_pcm24
+from matcha_tpu_torch.fused import FusedGraph, StageGraph, _pack_pcm24
 from matcha_tpu_torch.models.denoiser import compute_bias_spec, denoise
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import fused_stage_weights, generator_apply_fused
@@ -150,6 +157,8 @@ def process_text(i: int, text: str, cleaner: str = "english_cleaners2"):
 #: uses, or a callable T_y -> such a tensor (the bucket of an "auto" call is
 #: not known in advance)
 Noise = Union[torch.Tensor, Callable[[int], torch.Tensor], None]
+#: unit noise for a corpus: batch index, B, T_y -> a (B, T_y, n_feats) tensor
+CorpusNoise = Optional[Callable[[int, int, int], torch.Tensor]]
 
 
 class TTSPipeline:
@@ -162,11 +171,16 @@ class TTSPipeline:
     FUSED_Y_BUCKETS = tuple(range(64, 2049, 64))
     #: headroom over the calibrated frames-per-token estimate
     FUSED_MARGIN = 1.15
+    #: mel frames of halo on each side of a chunked vocoder window: the
+    #: generator's receptive field is ~17 frames (conv_pre, the MRF stages
+    #: at each upsample rate, conv_post), so 32 leaves twice that
+    VOC_CHUNK_HALO = 32
 
     def __init__(self, model: MatchaTTS, vocoder: Optional[Generator] = None,
                  denoiser_bias: Optional[torch.Tensor] = None,
                  cleaner: str = "english_cleaners2", device=None,
-                 denoiser_strength: float = 0.00025, pcm24_transfer: bool = True):
+                 denoiser_strength: float = 0.00025, pcm24_transfer: bool = True,
+                 vocoder_chunk: int = 0):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
@@ -179,17 +193,40 @@ class TTSPipeline:
         # a last sample (the written-WAV encoding, 3 bytes a sample), else
         # the f32 rows with the lengths as a last column
         self.pcm24_transfer = pcm24_transfer
+        # the vocoder over N-frame mel windows with a halo, one window after
+        # another, so that its activations are one window's (0 = off)
+        self.vocoder_chunk = int(vocoder_chunk)
         self._graphs = {}
         self._graph_pool = None
+        # False refuses any new CUDA graph capture (the serving daemon after
+        # its warmup: a capture while its other threads launch work breaks)
+        self.capture_allowed = True
         # "auto" calibration: the p90 of the recent mel frames per (id x
         # length_scale); None until a call returns real mel lengths
         self._dur_ratio = None
         self._dur_obs = collections.deque(maxlen=64)
 
+    def _generate(self, mel_btc: torch.Tensor) -> torch.Tensor:
+        """Mel (B, T, n_feats) -> the generator's output (B, T * hop, 1);
+        with ``vocoder_chunk``, window by window: each window of N frames
+        runs with ``VOC_CHUNK_HALO`` frames of the mel on either side (fewer
+        at the edges, where the generator's own zero padding applies), and
+        only its centre is kept."""
+        chunk, halo = self.vocoder_chunk, self.VOC_CHUNK_HALO
+        T = mel_btc.shape[1]
+        if not chunk or T <= chunk + halo:
+            return generator_apply_fused(self.vocoder, mel_btc, self.vocoder_weights)
+        outs = []
+        for s in range(0, T, chunk):
+            e = min(s + chunk, T)
+            s0, e0 = max(0, s - halo), min(T, e + halo)
+            w = generator_apply_fused(self.vocoder, mel_btc[:, s0:e0], self.vocoder_weights)
+            outs.append(w[:, (s - s0) * HOP:(e - s0) * HOP])
+        return torch.cat(outs, dim=1)
+
     def vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
         """Mel (B, T, n_feats) -> clipped, denoised waveform (B, T * hop)."""
-        wav = generator_apply_fused(self.vocoder, mel_btc, self.vocoder_weights)
-        wav = torch.clamp(wav[..., 0], -1.0, 1.0)
+        wav = torch.clamp(self._generate(mel_btc)[..., 0], -1.0, 1.0)
         if self.denoiser_bias is not None:
             wav = denoise(wav, self.denoiser_bias, strength=self.denoiser_strength)
         return wav
@@ -202,12 +239,27 @@ class TTSPipeline:
         key = (B, T_x, T_y, n_timesteps, temperature, length_scale,
                float(self.denoiser_strength), self.pcm24_transfer, cuda_graph)
         if key not in self._graphs:
-            if self._graph_pool is None and self.device.type == "cuda" and cuda_graph is not False:
-                self._graph_pool = torch.cuda.graph_pool_handle()
             self._graphs[key] = FusedGraph(self, B, T_x, T_y, n_timesteps, temperature,
                                            length_scale, self.pcm24_transfer, cuda_graph,
-                                           self._graph_pool)
+                                           self._pool(cuda_graph))
         return self._graphs[key]
+
+    def stage_graph(self, B: int, T_x: int, T_y: int, T_voc: int, n_timesteps: int,
+                    temperature: float, cuda_graph: Optional[bool] = None) -> StageGraph:
+        """The cached decode + vocode stage for this key (``_decode_vocode_fn``'s
+        key fields plus B, the denoiser strength and the graph mode)."""
+        key = ("stage", B, T_x, T_y, T_voc, n_timesteps, temperature,
+               float(self.denoiser_strength), cuda_graph)
+        if key not in self._graphs:
+            self._graphs[key] = StageGraph(self, B, T_x, T_y, T_voc, n_timesteps, temperature,
+                                           cuda_graph, self._pool(cuda_graph))
+        return self._graphs[key]
+
+    def _pool(self, cuda_graph: Optional[bool]):
+        """The memory pool all of the pipeline's graphs share."""
+        if self._graph_pool is None and self.device.type == "cuda" and cuda_graph is not False:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
 
     def observe_dur_ratio(self, obs: float) -> None:
         """Fold one non-saturated fixed-bucket result into the
@@ -321,6 +373,88 @@ class TTSPipeline:
             else:
                 out["waveform"] = wav
         return out
+
+    @torch.inference_mode()
+    def synthesise_corpus(self, utterances, n_timesteps: int = 10, temperature: float = 0.667,
+                          length_scale: float = 1.0, batch_size: int = 8,
+                          stage_window: int = 64, fuse_stages: bool = False,
+                          z: CorpusNoise = None, generator: Optional[torch.Generator] = None,
+                          cuda_graph: Optional[bool] = None):
+        """Staged batched synthesis of a whole corpus, as JAX's
+        ``synthesise_corpus``: the utterances (1-D id arrays) sorted by
+        length and cut into batches of ``batch_size``; per window of
+        ``stage_window`` batches,
+        1. every batch's encoder pass, launched with nothing blocking (the
+           ids reach the card through pinned memory);
+        2. ONE host copy of the window's predicted mel lengths;
+        3. per batch, the mel bucket and the finer vocoder bucket picked on
+           the host, then decode and vocode, or with ``fuse_stages`` one
+           call of the stage's body (``fused.py::StageGraph``: a CUDA graph
+           per (B, T_x, T_y, T_voc) on a GPU, captured at its first use);
+           no other host sync.
+        Stage 1 keeps a window's encoder outputs on the card until stage 3
+        reaches them, so the window bounds that memory.
+
+        Noise per batch: ``z(batch_index, B, T_y)`` with ``batch_index`` the
+        batch's place in the sorted corpus (JAX folds it into its key),
+        else drawn from ``generator`` (on the pipeline's device) batch by
+        batch. ``cuda_graph=False`` runs the fused stage eagerly on a GPU.
+
+        Yields ``(utterance indices, out)`` per batch in sorted order:
+        ``out`` is the ``decode`` dict plus ``waveform`` (B, T_voc * hop)
+        (and ``first_sample`` when fused), and ``mel_lengths_host``, the
+        lengths already on the host.
+        """
+        order = sorted(range(len(utterances)), key=lambda i: len(utterances[i]))
+        batches = [order[s:s + batch_size] for s in range(0, len(order), batch_size)]
+        step = max(1, stage_window)
+        for w0 in range(0, len(batches), step):
+            window = batches[w0:w0 + step]
+
+            # 1. the window's encoder passes; nothing blocks
+            encoded = []
+            for chunk in window:
+                T_x = pick_bucket(max(len(utterances[i]) for i in chunk), X_BUCKETS)
+                x = torch.zeros((len(chunk), T_x), dtype=torch.int64)
+                x_lengths = torch.zeros((len(chunk),), dtype=torch.int32)
+                for row, idx in enumerate(chunk):
+                    x[row, :len(utterances[idx])] = torch.as_tensor(np.asarray(utterances[idx]))
+                    x_lengths[row] = len(utterances[idx])
+                x, x_lengths = (_to_device(t, self.device) for t in (x, x_lengths))
+                encoded.append((chunk, T_x, x_lengths,
+                                *self.model.encode(x, x_lengths, length_scale)))
+
+            # 2. one host copy of the window's predicted lengths
+            y_host = np.split(torch.cat([e[5] for e in encoded]).cpu().numpy(),
+                              np.cumsum([len(e[0]) for e in encoded])[:-1])
+
+            # 3. decode + vocode per batch, the buckets known on the host
+            for bi, (chunk, T_x, x_lengths, mu_x, w_ceil, y_lengths) in enumerate(encoded):
+                B, max_y = len(chunk), int(y_host[bi].max())
+                T_y = pick_bucket(max_y, Y_BUCKETS)
+                T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
+                zb = None if z is None else z(w0 + bi, B, T_y)
+                if self.vocoder is not None and fuse_stages:
+                    stage = self.stage_graph(B, T_x, T_y, T_voc, n_timesteps, temperature,
+                                             cuda_graph)
+                    out = stage(mu_x, w_ceil, x_lengths, y_lengths, zb, generator)
+                else:
+                    out = self.model.decode(mu_x, w_ceil, x_lengths, y_lengths, n_timesteps,
+                                            temperature, y_max_length=T_y, z=zb,
+                                            generator=generator)
+                    if self.vocoder is not None:
+                        out["waveform"] = self.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
+                # decode clips the lengths to the bucket
+                out["mel_lengths_host"] = np.minimum(y_host[bi], T_y).astype(np.int32)
+                yield chunk, out
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor onto ``device`` without the host waiting for the card
+    (through pinned memory on a GPU)."""
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +603,33 @@ def unbatched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -> Non
     _print_rtf_summary(rtfs)
 
 
+def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -> None:
+    """``--batched --staged``: the corpus protocol (``synthesise_corpus``,
+    one host copy of lengths per window of batches), writing what
+    ``batched_synthesis`` writes; the RTF is the whole corpus's, since
+    every encoder pass of a window is launched up front. The noise of every
+    batch comes from one generator seeded with ``--seed``."""
+    processed = [process_text(i, t.strip(), pipeline.cleaner) for i, t in enumerate(texts)]
+    utts = [p["x"][0] for p in processed]
+    generator = torch.Generator(pipeline.device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    total_samples = 0
+    for chunk, out in pipeline.synthesise_corpus(
+            utts, n_timesteps=args.steps, temperature=args.temperature,
+            length_scale=args.speaking_rate, batch_size=args.batch_size,
+            fuse_stages=args.fused_stage, generator=generator):
+        wavs, mel = out["waveform"].cpu().numpy(), out["mel"].cpu().numpy()
+        for row, idx in enumerate(chunk):
+            ml = int(out["mel_lengths_host"][row])
+            location = _save(folder, f"utterance_{idx:03d}", mel[row, :, :ml],
+                             wavs[row, :ml * HOP])
+            print(f"[🍵-{idx}] Waveform saved: {location}")
+        total_samples += int(out["mel_lengths_host"].sum()) * HOP
+    rtf = _rtf(time.perf_counter() - t0, total_samples)
+    print(f"[🍵] Corpus Matcha-TTS + VOCODER RTF: {rtf:.4f} ({len(texts)} utterances)")
+    _print_rtf_summary([rtf])
+
+
 def batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -> None:
     """Length-sorted batches of ``--batch_size``, one call each:
     ``utterance_<idx>.wav`` / ``.npy`` with idx the 0-based line, as the
@@ -559,7 +720,29 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-pcm24-transfer", action="store_true",
                         help="Fixed-bucket path: fetch the waveform as f32 instead of 24-bit "
                              "PCM packed on the device (the written-WAV encoding)")
+    parser.add_argument("--staged", action="store_true",
+                        help="With --batched: staged corpus synthesis (every batch's encoder "
+                             "pass first, one host copy of all predicted lengths, then decode + "
+                             "vocode per batch with no other host sync)")
+    parser.add_argument("--fused-stage", action="store_true",
+                        help="With --staged: run decode + vocode + denoise as one CUDA graph "
+                             "per (mel bucket, vocoder bucket) triple instead of separate calls")
+    parser.add_argument("--vocoder-chunk", type=int, default=0,
+                        help="Run the vocoder on N-frame mel windows (with a receptive-field "
+                             "halo, one after another) to bound its activation memory. 0 = the "
+                             "whole utterance (default)")
     return parser
+
+
+def default_checkpoints(checkpoint_path=None) -> tuple:
+    """(Matcha checkpoint, vocoder file, default speaking rate): the
+    LJSpeech pair under ``$MATCHA_HOME/matcha_tpu/`` (rate 0.95), or a
+    given Matcha checkpoint with the universal vocoder beside the default
+    ones (rate 1.0), as the JAX CLI pairs them."""
+    home = get_user_data_dir()
+    if checkpoint_path is None:
+        return home / "matcha_ljspeech.ckpt", home / "hifigan_T2_v1", 0.95
+    return Path(checkpoint_path), home / "hifigan_univ_v1", 1.0
 
 
 def cli(argv=None):
@@ -570,22 +753,21 @@ def cli(argv=None):
         raise SystemExit("--temperature must be >= 0 and --steps > 0")
     if args.batched and args.batch_size <= 0:
         raise SystemExit("--batch_size must be > 0")
+    if args.vocoder_chunk < 0:
+        raise SystemExit("--vocoder-chunk must be >= 0")
     device = resolve_device("cpu" if args.cpu else None)
-    home = get_user_data_dir()
-    if args.checkpoint_path is None:
-        matcha_path, vocoder_name, rate = home / "matcha_ljspeech.ckpt", "hifigan_T2_v1", 0.95
-    else:
-        matcha_path, vocoder_name, rate = Path(args.checkpoint_path), "hifigan_univ_v1", 1.0
+    matcha_path, vocoder_path, rate = default_checkpoints(args.checkpoint_path)
     args.speaking_rate = rate if args.speaking_rate is None else args.speaking_rate
     if args.speaking_rate <= 0:
         raise SystemExit("--speaking_rate must be > 0")
     print(f"[+] Device: {device}")
 
     model = load_matcha(matcha_path, device)
-    vocoder, bias = load_vocoder(home / vocoder_name, device)
+    vocoder, bias = load_vocoder(vocoder_path, device)
     pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
                            denoiser_strength=args.denoiser_strength,
-                           pcm24_transfer=not args.no_pcm24_transfer)
+                           pcm24_transfer=not args.no_pcm24_transfer,
+                           vocoder_chunk=args.vocoder_chunk)
 
     texts = _texts(args)
     folder = Path(args.output_folder)
@@ -594,6 +776,8 @@ def cli(argv=None):
         long_form_synthesis(args, pipeline, args.text, folder)
     elif len(texts) == 1 or not args.batched:
         unbatched_synthesis(args, pipeline, texts, folder)
+    elif args.staged:
+        staged_batched_synthesis(args, pipeline, texts, folder)
     else:
         batched_synthesis(args, pipeline, texts, folder)
 

@@ -1,20 +1,29 @@
-"""The fixed-bucket serving path: ids -> waveform in one call, one CUDA graph per bucket.
+"""Fixed-shape bodies captured as one CUDA graph each: the fixed-bucket
+serving path and the decode + vocode stage of staged corpus synthesis.
 
-The counterpart of ``matcha_tpu/cli.py::TTSPipeline._fused_fn``. At one
-(B, x bucket, mel bucket, steps, temperature, length scale, denoiser
-strength, wire format) the whole path is one body of fixed shapes:
-encoder -> duration expansion -> the CFM Euler loop -> HiFi-GAN over the
-whole mel bucket -> clip -> denoiser -> the wire packing (24-bit PCM with
-the mel lengths as a last sample, or the f32 rows with the lengths as a
-last column). On a GPU that body is captured once as a
-``torch.cuda.CUDAGraph`` and replayed: one launch from the host per
-request, the fused MRF kernel (K1, ``ops/mrf.py``) inside it. On the CPU
-the same body runs eagerly; that is the plain version the tests hold
-against the JAX package.
+``FusedGraph`` is the counterpart of ``matcha_tpu/cli.py::TTSPipeline._fused_fn``.
+At one (B, x bucket, mel bucket, steps, temperature, length scale,
+denoiser strength, wire format) the whole path is one body of fixed
+shapes: encoder -> duration expansion -> the CFM Euler loop -> HiFi-GAN
+over the whole mel bucket -> clip -> denoiser -> the wire packing (24-bit
+PCM with the mel lengths as a last sample, or the f32 rows with the
+lengths as a last column).
 
-Capture fails loudly: ``FusedGraph`` raises and never runs the body
-eagerly in its place. Only an explicit ``cuda_graph=False`` runs it
-eagerly on a GPU.
+``StageGraph`` is the counterpart of ``TTSPipeline._decode_vocode_fn``:
+stage 3 of ``synthesise_corpus`` at one (B, x bucket, mel bucket, vocoder
+bucket, steps, temperature, denoiser strength), decode -> slice the mel
+to the vocoder bucket -> HiFi-GAN -> clip -> denoiser, fed with stage 1's
+encoder outputs.
+
+On a GPU each body is captured once as a ``torch.cuda.CUDAGraph`` and
+replayed: one launch from the host per call, the fused MRF kernel (K1,
+``ops/mrf.py``) inside it. On the CPU the same body runs eagerly; that is
+the plain version the tests hold against the JAX package.
+
+Capture fails loudly: a body raises and never runs eagerly in its place.
+Only an explicit ``cuda_graph=False`` runs it eagerly on a GPU. A
+pipeline whose ``capture_allowed`` is False (the serving daemon after its
+warmup) refuses any new capture.
 """
 
 import time
@@ -50,65 +59,66 @@ def _stage(dst: torch.Tensor, src) -> None:
     dst.copy_(src, non_blocking=True)
 
 
-class FusedGraph:
-    """One bucket's text -> wav body with static input buffers.
+def _stage_noise(dst: torch.Tensor, z, generator: Optional[torch.Generator]) -> None:
+    """The unit noise into its static buffer: ``z`` (a tensor or array of
+    the buffer's shape) when given, else drawn from ``generator`` on the
+    buffer's device, outside any graph."""
+    if z is not None:
+        _stage(dst, z.to(torch.float32) if torch.is_tensor(z) else np.asarray(z, np.float32))
+    else:
+        dst.normal_(generator=generator)
 
-    ``pipeline``: a ``cli.TTSPipeline`` (its model, vocoder, denoiser bias
-    and strength). Static inputs: ``x`` (B, T_x) int64 ids, ``x_lengths``
-    (B,) int32 and ``z`` (B, T_y, n_feats) f32 unit noise; the
-    temperature, like every other key field, is a constant of the body.
-    ``cuda_graph``: None = capture on a GPU, run eagerly on the CPU; False
-    runs eagerly on either. ``pool``: the graph memory pool shared by a
-    pipeline's graphs (``torch.cuda.graph_pool_handle()``).
 
-    Calling it returns the ``synthesise`` dict plus ``waveform`` (B, T_y *
-    hop) and ``wav_pcm24`` or ``wav_packed`` when the pipeline has a
-    vocoder. After a replay the returned tensors are copies: the next
-    replay of any graph in the pool overwrites the static outputs.
+class CapturedBody:
+    """A body of fixed shapes over static input buffers: captured as a
+    CUDA graph at its first call on a GPU and replayed after, run eagerly
+    on the CPU or with ``cuda_graph=False``.
+
+    ``pipeline``: a ``cli.TTSPipeline``. ``cuda_graph``: None = capture on
+    a GPU, run eagerly on the CPU; False runs eagerly on either. ``pool``:
+    the graph memory pool shared by a pipeline's graphs
+    (``torch.cuda.graph_pool_handle()``). After a replay the returned
+    tensors are copies: the next replay of any graph in the pool
+    overwrites the static outputs. Subclasses allocate their static
+    inputs on ``self.device`` and define ``body``.
     """
 
-    def __init__(self, pipeline, B: int, T_x: int, T_y: int, n_timesteps: int,
-                 temperature: float, length_scale: float, pcm24: bool,
-                 cuda_graph: Optional[bool] = None, pool=None):
+    def __init__(self, pipeline, cuda_graph: Optional[bool] = None, pool=None):
         device = pipeline.device
         if cuda_graph is None:
             cuda_graph = device.type == "cuda"
         if cuda_graph and device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
-        self.pipeline = pipeline
-        self.T_y, self.n_timesteps = T_y, n_timesteps
-        self.temperature, self.length_scale, self.pcm24 = temperature, length_scale, pcm24
+        self.pipeline, self.device = pipeline, device
         self.cuda_graph, self.pool = cuda_graph, pool
-        self.x = torch.zeros((B, T_x), dtype=torch.int64, device=device)
-        self.x_lengths = torch.ones((B,), dtype=torch.int32, device=device)
-        self.z = torch.zeros((B, T_y, pipeline.model.n_feats), dtype=torch.float32, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[Dict[str, torch.Tensor]] = None
         #: seconds of warm-up + capture, and memory_allocated around them
         self.capture_seconds: Optional[float] = None
         self.memory_allocated: Optional[tuple] = None
+        #: replays run so far
+        self.replays = 0
+
+    #: the body's name in error messages
+    name = "captured"
 
     def body(self) -> Dict[str, torch.Tensor]:
-        """The whole path on the static inputs (what the graph captures)."""
-        p = self.pipeline
-        out = p.model.synthesise(self.x, self.x_lengths, self.n_timesteps, self.temperature,
-                                 self.length_scale, y_max_length=self.T_y, z=self.z)
-        if p.vocoder is not None:
-            wav = p.vocode(out["mel"].transpose(1, 2))
-            out["waveform"] = wav
-            if self.pcm24:
-                out["wav_pcm24"] = _pack_pcm24(wav, out["mel_lengths"])
-            else:
-                out["wav_packed"] = torch.cat(
-                    [wav, out["mel_lengths"][:, None].to(torch.float32)], dim=1)
-        return out
+        raise NotImplementedError
+
+    def describe(self) -> str:
+        """The body's shapes, for error messages."""
+        raise NotImplementedError
 
     def _capture(self) -> None:
         """Warm the body up eagerly on the capture stream (cuFFT plans,
         cuDNN and cuBLAS workspaces, K1's library and its shared-memory
         attribute), then capture it. Raises if the body cannot be
-        captured."""
-        dev = self.x.device
+        captured, or if the pipeline no longer allows captures."""
+        if not self.pipeline.capture_allowed:
+            raise RuntimeError(
+                f"a capture of the {self.name} graph ({self.describe()}) was asked for after the pipeline "
+                f"closed captures: only graphs captured before (the daemon's warmup) replay")
+        dev = self.device
         torch.cuda.synchronize(dev)
         before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
@@ -126,13 +136,68 @@ class FusedGraph:
                     graph.capture_end()
             except RuntimeError as e:
                 raise RuntimeError(
-                    f"capturing the fused graph (B, T_x = {tuple(self.x.shape)}, T_y = "
-                    f"{self.T_y}) failed; nothing ran in its place: {e}") from e
+                    f"capturing the {self.name} graph ({self.describe()}) failed; nothing ran in its "
+                    f"place: {e}") from e
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         self.graph, self.outputs = graph, outputs
         self.capture_seconds = time.perf_counter() - t0
         self.memory_allocated = (before, torch.cuda.memory_allocated(dev))
+
+    def _run(self) -> Dict[str, torch.Tensor]:
+        """The body on the static inputs: eagerly, or a replay (captured
+        at the first call)."""
+        if not self.cuda_graph:
+            return self.body()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+        return {k: v.clone() for k, v in self.outputs.items()}
+
+
+class FusedGraph(CapturedBody):
+    """One bucket's text -> wav body with static input buffers.
+
+    Static inputs: ``x`` (B, T_x) int64 ids, ``x_lengths`` (B,) int32 and
+    ``z`` (B, T_y, n_feats) f32 unit noise; the temperature, like every
+    other key field, is a constant of the body.
+
+    Calling it returns the ``synthesise`` dict plus ``waveform`` (B, T_y *
+    hop) and ``wav_pcm24`` or ``wav_packed`` when the pipeline has a
+    vocoder.
+    """
+
+    name = "fused"
+
+    def __init__(self, pipeline, B: int, T_x: int, T_y: int, n_timesteps: int,
+                 temperature: float, length_scale: float, pcm24: bool,
+                 cuda_graph: Optional[bool] = None, pool=None):
+        super().__init__(pipeline, cuda_graph, pool)
+        self.T_y, self.n_timesteps = T_y, n_timesteps
+        self.temperature, self.length_scale, self.pcm24 = temperature, length_scale, pcm24
+        device = self.device
+        self.x = torch.zeros((B, T_x), dtype=torch.int64, device=device)
+        self.x_lengths = torch.ones((B,), dtype=torch.int32, device=device)
+        self.z = torch.zeros((B, T_y, pipeline.model.n_feats), dtype=torch.float32, device=device)
+
+    def describe(self) -> str:
+        return f"B, T_x = {tuple(self.x.shape)}, T_y = {self.T_y}"
+
+    def body(self) -> Dict[str, torch.Tensor]:
+        """The whole path on the static inputs (what the graph captures)."""
+        p = self.pipeline
+        out = p.model.synthesise(self.x, self.x_lengths, self.n_timesteps, self.temperature,
+                                 self.length_scale, y_max_length=self.T_y, z=self.z)
+        if p.vocoder is not None:
+            wav = p.vocode(out["mel"].transpose(1, 2))
+            out["waveform"] = wav
+            if self.pcm24:
+                out["wav_pcm24"] = _pack_pcm24(wav, out["mel_lengths"])
+            else:
+                out["wav_packed"] = torch.cat(
+                    [wav, out["mel_lengths"][:, None].to(torch.float32)], dim=1)
+        return out
 
     @torch.inference_mode()
     def __call__(self, x: np.ndarray, x_lengths: np.ndarray, z=None,
@@ -142,13 +207,55 @@ class FusedGraph:
         ``generator`` into the static buffer, outside the graph."""
         _stage(self.x, np.asarray(x, dtype=np.int64))
         _stage(self.x_lengths, np.asarray(x_lengths, dtype=np.int32))
-        if z is not None:
-            _stage(self.z, z.to(torch.float32) if torch.is_tensor(z) else np.asarray(z, np.float32))
-        else:
-            self.z.normal_(generator=generator)
-        if not self.cuda_graph:
-            return self.body()
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        return {k: v.clone() for k, v in self.outputs.items()}
+        _stage_noise(self.z, z, generator)
+        return self._run()
+
+
+class StageGraph(CapturedBody):
+    """Stage 3 of staged corpus synthesis at one (B, T_x, T_y, T_voc):
+    decode -> the mel sliced to ``T_voc`` frames -> vocode -> clip ->
+    denoise, with static inputs ``mu_x`` (B, T_x, n_feats), ``w_ceil``
+    (B, T_x, 1), ``x_lengths`` and ``y_lengths`` (B,) int32 (stage 1's
+    device tensors, copied in on the device) and ``z`` (B, T_y, n_feats).
+
+    Calling it returns the ``decode`` dict plus ``waveform`` (B, T_voc *
+    hop) and ``first_sample`` (the waveform's [0, 0], as JAX's stage
+    returns it). The pipeline must have a vocoder.
+    """
+
+    name = "stage"
+
+    def __init__(self, pipeline, B: int, T_x: int, T_y: int, T_voc: int, n_timesteps: int,
+                 temperature: float, cuda_graph: Optional[bool] = None, pool=None):
+        super().__init__(pipeline, cuda_graph, pool)
+        self.T_y, self.T_voc = T_y, T_voc
+        self.n_timesteps, self.temperature = n_timesteps, temperature
+        device, n_feats = self.device, pipeline.model.n_feats
+        self.mu_x = torch.zeros((B, T_x, n_feats), dtype=torch.float32, device=device)
+        self.w_ceil = torch.zeros((B, T_x, 1), dtype=torch.float32, device=device)
+        self.x_lengths = torch.ones((B,), dtype=torch.int32, device=device)
+        self.y_lengths = torch.ones((B,), dtype=torch.int32, device=device)
+        self.z = torch.zeros((B, T_y, n_feats), dtype=torch.float32, device=device)
+
+    def describe(self) -> str:
+        return f"B, T_x = {tuple(self.mu_x.shape[:2])}, T_y = {self.T_y}, T_voc = {self.T_voc}"
+
+    def body(self) -> Dict[str, torch.Tensor]:
+        p = self.pipeline
+        out = p.model.decode(self.mu_x, self.w_ceil, self.x_lengths, self.y_lengths,
+                             self.n_timesteps, self.temperature, y_max_length=self.T_y, z=self.z)
+        out["waveform"] = p.vocode(out["mel"].transpose(1, 2)[:, :self.T_voc])
+        out["first_sample"] = out["waveform"][0, 0]
+        return out
+
+    @torch.inference_mode()
+    def __call__(self, mu_x: torch.Tensor, w_ceil: torch.Tensor, x_lengths: torch.Tensor,
+                 y_lengths: torch.Tensor, z=None,
+                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Stage 1's outputs for one batch -> the stage's outputs. ``z`` as
+        for ``FusedGraph``."""
+        for dst, src in ((self.mu_x, mu_x), (self.w_ceil, w_ceil),
+                         (self.x_lengths, x_lengths), (self.y_lengths, y_lengths)):
+            _stage(dst, src)
+        _stage_noise(self.z, z, generator)
+        return self._run()

@@ -1,8 +1,8 @@
 """Host-side helpers: wav I/O, the blank interleave, the sweep metric.
 
-The port's own copies of ``matcha_tpu/utils/utils.py``'s ``write_wav``,
-``read_wav`` and ``get_metric_value``; ``intersperse`` is the text
-frontend's.
+The port's own copies of ``matcha_tpu/utils/utils.py``'s ``pcm24_bytes``,
+``write_wav``, ``read_wav`` and ``get_metric_value``; ``intersperse`` is
+the text frontend's.
 """
 
 import logging
@@ -12,7 +12,7 @@ import numpy as np
 
 from matcha_tpu_torch.text import intersperse
 
-__all__ = ["intersperse", "write_wav", "read_wav", "get_metric_value"]
+__all__ = ["intersperse", "pcm24_bytes", "write_wav", "read_wav", "get_metric_value"]
 
 log = logging.getLogger(__name__)
 
@@ -20,16 +20,22 @@ log = logging.getLogger(__name__)
 PCM24_SCALE = 2**23 - 1
 
 
-def write_wav(path, audio: np.ndarray, sample_rate: int = 22050) -> None:
-    """Mono waveform, clipped to [-1, 1] -> 24-bit PCM .wav."""
+def pcm24_bytes(audio: np.ndarray) -> bytes:
+    """Mono float waveform -> 24-bit little-endian PCM frames (clipped to
+    [-1, 1], scaled by 2^23 - 1, truncated toward zero): the one encoder
+    of written files and of the serving daemon's responses."""
     clipped = np.clip(np.asarray(audio, dtype=np.float32).squeeze(), -1.0, 1.0)
     scaled = (clipped * PCM24_SCALE).astype("<i4")
-    frames = np.frombuffer(scaled.tobytes(), dtype=np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    return np.frombuffer(scaled.tobytes(), dtype=np.uint8).reshape(-1, 4)[:, :3].tobytes()
+
+
+def write_wav(path, audio: np.ndarray, sample_rate: int = 22050) -> None:
+    """Mono waveform, clipped to [-1, 1] -> 24-bit PCM .wav."""
     with wave.open(str(path), "wb") as f:
         f.setnchannels(1)
         f.setsampwidth(3)
         f.setframerate(sample_rate)
-        f.writeframes(frames)
+        f.writeframes(pcm24_bytes(audio))
 
 
 def read_wav(path) -> tuple:

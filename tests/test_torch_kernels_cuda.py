@@ -407,3 +407,97 @@ def test_fused_graph_capture_failure_raises(cuda_f32, monkeypatch):
                               fixed_y_bucket=128)
     assert all(g.graph is None for g in pipe._graphs.values())
     torch.cuda.synchronize()
+
+
+def _corpus(seed, n):
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(20, 60, (n,), generator=g).tolist()
+    return [torch.randint(1, 178, (k,), generator=g).numpy() for k in lengths]
+
+
+@pytest.mark.cuda
+def test_stage_graph_replay_equals_eager(cuda_f32):
+    """Staged corpus synthesis with the fused stage as CUDA graphs (each
+    triple captured at its first batch, replayed after) against the same
+    stage run eagerly on the card, on generators seeded alike: the same
+    batches and lengths, the mel within 1e-6 and the waveform within 1e-5;
+    K1 ran inside the captures and not in a replay."""
+    pipe = _tiny_pipeline(cuda_f32)
+    utts = _corpus(12, 7)
+    runs = {}
+    for mode in (None, False, None):
+        before = mrf.LAUNCHES["mrf_stage"]
+        outs = list(pipe.synthesise_corpus(utts, n_timesteps=2, batch_size=2, fuse_stages=True,
+                                           cuda_graph=mode,
+                                           generator=torch.Generator(cuda_f32).manual_seed(5)))
+        runs.setdefault(mode, []).append((outs, mrf.LAUNCHES["mrf_stage"] - before))
+    torch.cuda.synchronize()
+    graphs = [g for k, g in pipe._graphs.items() if k[0] == "stage" and g.cuda_graph]
+    assert graphs and all(g.graph is not None for g in graphs)
+    assert runs[None][0][1] == 4 * len(graphs)  # warm-up and capture, two stages each
+    assert runs[None][1][1] == 0 and sum(g.replays for g in graphs) == 2 * len(runs[False][0][0])
+    eager = runs[False][0][0]
+    for outs, _ in runs[None]:
+        assert [c for c, _ in outs] == [c for c, _ in eager]
+        for (_, a), (_, b) in zip(outs, eager):
+            assert (a["mel_lengths_host"] == b["mel_lengths_host"]).all()
+            assert (a["mel"] - b["mel"]).abs().max().item() <= 1e-6
+            assert (a["waveform"] - b["waveform"]).abs().max().item() <= 1e-5
+            assert a["first_sample"].item() == a["waveform"][0, 0].item()
+
+
+@pytest.mark.cuda
+def test_daemon_replays_only_warmed_graphs(cuda_f32):
+    """After warmup a lone request replays a warmed graph from the
+    batcher thread and equals the eager body on its call's generator; a
+    capture of any other bucket raises."""
+    import numpy as np
+
+    from matcha_tpu_torch.serve import BatchingServer
+
+    pipe = _tiny_pipeline(cuda_f32)
+    pipe.cleaner = "english_cleaners_no_espeak"
+    server = BatchingServer(pipe, max_batch=2, n_timesteps=2, default_rate=1.0)
+    try:
+        server.warmup([(64, 256)])
+        warmed = {k: g for k, g in pipe._graphs.items() if getattr(g, "graph", None) is not None}
+        assert sorted(g.T_y for g in warmed.values()) == [128, 256]
+        replays = sum(g.replays for g in warmed.values())  # one after each capture
+        r = server.submit("hello there, general kenobi", timeout_s=120)
+        assert r.error is None and server.n_fast == 1
+        assert sum(g.replays for g in warmed.values()) == replays + 1
+        T_y = next(g.T_y for g in warmed.values() if g.replays == 2)
+        x1 = np.zeros((1, 64), np.int32)
+        x1[0, :len(r.seq)] = r.seq
+        want = pipe.synthesise_batch(x1, np.asarray([len(r.seq)], np.int32), n_timesteps=2,
+                                     fixed_y_bucket=T_y, cuda_graph=False,
+                                     generator=server.call_generator(1))
+        n = int(want["mel_lengths"][0])
+        assert r.n_frames == n
+        ref = want["waveform"][0, :n * 256].clamp(-1, 1).cpu().numpy()
+        assert np.abs(r.wav - ref).max() <= 1e-5 + 2.0 / (2**23 - 1)
+        with pytest.raises(RuntimeError, match="closed captures"):
+            pipe.synthesise_batch(x1, np.asarray([len(r.seq)], np.int32), n_timesteps=2,
+                                  fixed_y_bucket=512, generator=server.call_generator(9))
+        assert all(g.graph is None for k, g in pipe._graphs.items() if k not in warmed)
+    finally:
+        server.shutdown()
+
+
+@pytest.mark.cuda
+def test_chunked_vocoder_on_cuda(cuda_f32):
+    """``vocoder_chunk`` on the card, 5 windows of a (2, 300) mel, against
+    the whole utterance (no denoiser), as numpy's allclose at 1e-5; K1
+    launched twice per window."""
+    from matcha_tpu_torch.cli import TTSPipeline
+
+    pipe = _tiny_pipeline(cuda_f32)
+    mel = torch.randn(2, 300, 80, generator=torch.Generator().manual_seed(4)).to(cuda_f32)
+    whole = TTSPipeline(pipe.model, pipe.vocoder, None, device=cuda_f32).vocode(mel)
+    before = mrf.LAUNCHES["mrf_stage"]
+    chunked = TTSPipeline(pipe.model, pipe.vocoder, None, device=cuda_f32,
+                          vocoder_chunk=64).vocode(mel)
+    torch.cuda.synchronize()
+    assert mrf.LAUNCHES["mrf_stage"] - before == 2 * 5
+    assert chunked.shape == whole.shape == (2, 300 * 256)
+    assert ((chunked - whole).abs() <= 1e-5 + 1e-5 * whole.abs()).all()
