@@ -67,6 +67,20 @@ Phases, one output line each (any failure exits non-zero):
    (``scripts/bench_serve.py``: req/s, x realtime, latency percentiles,
    requests per batch, batch ms), and K1 against its plain version at
    every (B, C, T) the daemon ran it at after warmup and in its graphs;
+   serving precision (``precision``): the fixed-bucket path at the
+   integer bucket in five modes (full precision, torch's default cuDNN
+   TF32, ``bf16_latency``, ``vocoder_bf16``, ``vocoder_pallas=False``),
+   each mode's replay p50, busy ms, K1 per replay, its replay against its
+   eager body, and its waveform's deviation from full precision's on the
+   same noise, with equal mel lengths in every mode that keeps the
+   encoder f32; the generator alone in five precisions (f32 and bf16,
+   hybrid and all-cuDNN, and K1's bf16-product instance) at B = 1 x 256
+   and B = 8 x 1,024; K1's bf16-product instance against its plain version
+   at the narrow stages of both, timed beside the 3xTF32 instance and the
+   bf16 cuDNN chain; the daemon with ``--bf16-vocoder`` and with
+   ``--no-pallas-vocoder``, one request each; the CLI with its four flags
+   on checkpoints written from the seed weights; K1 against its plain
+   version at every (B, C, T, instance) the phase ran it at;
 6. the training path at full width (the LJSpeech config, batch 32, no
    segment cut) on a synthetic corpus written from the seed: 5 steps of
    ``python -m matcha_tpu_torch.train`` (through ``train.main``) with
@@ -77,11 +91,12 @@ Phases, one output line each (any failure exits non-zero):
    over a step, and K2 at the step's shape beside its bound and its plain
    version, its call split under ``torch.profiler`` into the kernel and
    the wrapper's other device operations;
-7. the ``kernels`` line (every TPU kernel of the repo: K1, K2 and K3, all
-   ported; K1 with its launches on each path), then the last line
-   ``{"ok": true, "device": {...}}``.
+7. the ``kernels`` line (every TPU kernel of the repo: K1 in its two
+   instances, K2 and K3, all ported; K1 with its launches on each path),
+   then the last line ``{"ok": true, "device": {...}}``.
 
-All f32 with TF32 off, so that every comparison is against full f32.
+All f32 with TF32 off, so that every comparison is against full f32, but
+where the precision phase sets a mode of its own.
 """
 
 import csv
@@ -103,10 +118,21 @@ CLEANER = "english_cleaners_no_espeak"
 # TF32 on the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # 3xTF32 products summed in f32 over up to 1,408 terms per conv, in another
 # order than cuDNN's
 K1_TOL = 1e-4
+# K1's bf16-product instance against its plain version (both round every
+# conv's operands to bf16 and sum in f32), as fractions of the bf16
+# rounding's own effect on the same input (the plain bf16 version against
+# the plain f32 one): sums in another order move a few operands of the
+# next conv across a bf16 rounding boundary, and the tensor cores' bf16
+# sums are less exact than f32's (cuBLAS bf16 -> f32 measured 4x f32's
+# error on an H100), so the flips, rare and each worth about one bf16 step
+# of an operand, grow with the element count and the weights' scale
+# (measured: max 0.18-0.40 and mean 0.01-0.09 of the effect)
+K1_BF16_TOL = {"max_of_effect": 1.0, "mean_of_effect": 0.2}
 # a full-width vocoder variant against the plain generator, on the tanh
 # output: the fused stages' f32 sums in another order than cuDNN's
 VARIANT_TOL = 1e-5
@@ -143,6 +169,34 @@ CHUNK_FRAMES, CHUNK_TOL = 256, 1e-5
 # 384), lone requests per sentence, and the closed loop's clients and seconds
 SERVE_WARMUP, SERVE_REPS, SERVE_CLIENTS, SERVE_SECONDS = "384:768", 5, 8, 10.0
 N_TRAIN, N_VAL = 64, 8
+# serving precision: the fixed-bucket path's modes, each (TTSPipeline
+# options, cuDNN TF32 on, K1 launches per stage pass of the 3xTF32 and the
+# bf16-product instance, bound on the wav's mean deviation from
+# full_precision: JAX's for its bf16 modes, tests/test_cli_e2e.py; the f32
+# vocoder variants' VARIANT_TOL without the fused kernel); every mode but
+# tf32_default turns TF32 off
+PRECISION_MODES = {
+    "full_precision": ({}, False, 2, 0, 0.0),
+    "tf32_default": ({}, True, 2, 0, 0.02),
+    "bf16_latency": ({"bf16_latency": True}, False, 2, 0, 0.03),
+    "vocoder_bf16": ({"vocoder_bf16": True}, False, 2, 0, 0.02),
+    "no_pallas_vocoder": ({"vocoder_pallas": False}, False, 0, 0, VARIANT_TOL),
+}
+PRECISION_REPS = 10
+# the CLI's precision flags, each set run once on the card
+PRECISION_CLI = {
+    "bf16_latency": ["--fixed-y-bucket", "128", "--bf16-latency", "--full-precision"],
+    "bf16_vocoder_no_pallas": ["--bf16-vocoder", "--no-pallas-vocoder"],
+}
+# the generator alone: (bf16 generator, fused cap, K1's compute_dtype, K1
+# launches per call of the 3xTF32 and the bf16-product instance)
+VOCODER_PRECISIONS = {
+    "f32_hybrid": (False, 64, "float32", 2, 0),
+    "bf16_hybrid": (True, 64, "float32", 2, 0),
+    "bf16_cudnn": (True, 0, "float32", 0, 0),
+    "f32_cudnn": (False, 0, "float32", 0, 0),
+    "f32_hybrid_bf16_products": (False, 64, "bfloat16", 0, 2),
+}
 TRAIN_STEPS = 5
 # public-domain sentences (the Harvard sentences); the corpus cuts runs of
 # their words to each clip's length
@@ -178,20 +232,45 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_bound_ms(B: int, C: int, T: int, kernel_sizes, dilations) -> dict:
-    """Least time for one stage: the larger of its conv FLOPs over the f32
-    peak and its bytes (x read, y written, weights read once) over HBM
-    (``bound_ms``); and with the products as K1 takes them, 3 TF32
-    products per f32 product over the TF32 tensor-core peak
+def k1_bound_ms(B: int, C: int, T: int, kernel_sizes, dilations,
+                peak: float = PEAK_F32_FLOPS) -> dict:
+    """Least time for one stage: the larger of its conv FLOPs over ``peak``
+    (the f32 one, or the bf16 tensor cores' for the bf16-product instance)
+    and its bytes (x read, y written, f32 weights read once) over HBM
+    (``bound_ms``); and with the products as the 3xTF32 instance takes
+    them, 3 TF32 products per f32 product over the TF32 tensor-core peak
     (``bound_tc_ms``, bytes alike)."""
     taps = 2 * sum(k * len(d) for k, d in zip(kernel_sizes, dilations))
     flops = 2.0 * B * T * C * C * taps
     weight_floats = sum(2 * len(d) * (k * C * C + C) for k, d in zip(kernel_sizes, dilations))
     t_bytes = 4.0 * (2 * B * C * T + weight_floats) / PEAK_BYTES_PER_S
-    t_ops, t_tc = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS
+    t_ops, t_tc = flops / peak, 3 * flops / PEAK_TF32_FLOPS
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_tc_ms": 1e3 * max(t_tc, t_bytes)}
+
+
+def within_k1_tol(row: dict, compute_dtype) -> bool:
+    """Whether a K1 check's errors are within its instance's tolerance
+    (the bf16 instance's against the row's ``bf16_effect_max`` /
+    ``_mean``)."""
+    import torch
+
+    if compute_dtype == torch.bfloat16:
+        return (row["max_abs_err"] < K1_BF16_TOL["max_of_effect"] * row["bf16_effect_max"]
+                and row["mean_abs_err"] < K1_BF16_TOL["mean_of_effect"] * row["bf16_effect_mean"])
+    return row["max_abs_err"] < K1_TOL
+
+
+def k1_errors(got, want, f32=None) -> dict:
+    """max and mean |got - want|, and with ``f32`` (the plain f32 stage)
+    the bf16 rounding's own effect, max and mean |want - f32|."""
+    err = (got - want).abs()
+    row = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item()}
+    if f32 is not None:
+        effect = (want - f32).abs()
+        row.update(bf16_effect_max=effect.max().item(), bf16_effect_mean=effect.mean().item())
+    return row
 
 
 def device_busy(request, latency_ms: float) -> dict:
@@ -623,11 +702,12 @@ def k1_tiles(dev, gen, kernel_sizes, dilations) -> list:
 
 
 class K1Shapes:
-    """While active, records every (B, C, T, t_tile) at which the vocoder
-    calls K1's wrapper, eagerly or under a graph capture, with the stage's
-    weights and the tags it ran under (``tag``, and "graph" when captured),
-    so that ``check`` holds K1 against its plain version at exactly the
-    shapes a path ran (``pick_t_tile`` picks its tile from B, C and T)."""
+    """While active, records every (B, C, T, t_tile, compute_dtype) at which
+    the vocoder calls K1's wrapper, eagerly or under a graph capture, with
+    the stage's weights and the tags it ran under (``tag``, and "graph" when
+    captured), so that ``check`` holds K1 against its plain version at
+    exactly the shapes and in the instance a path ran (``pick_t_tile`` picks
+    its tile from B, C and T)."""
 
     def __init__(self):
         self.seen, self.tag = {}, None
@@ -639,13 +719,15 @@ class K1Shapes:
 
         self._orig = launch = hifigan_fused.fused_mrf_stage
 
-        def recording(x, weights, kernel_sizes, dilations, t_tile=None):
-            key = (*x.shape, t_tile)
+        def recording(x, weights, kernel_sizes, dilations, t_tile=None,
+                      compute_dtype=torch.float32):
+            key = (*x.shape, t_tile, compute_dtype)
             entry = self.seen.setdefault(key, {"args": (weights, kernel_sizes, dilations),
                                                "tags": set()})
             capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
             entry["tags"].add("graph" if capturing else self.tag)
-            return launch(x, weights, kernel_sizes, dilations, t_tile=t_tile)
+            return launch(x, weights, kernel_sizes, dilations, t_tile=t_tile,
+                          compute_dtype=compute_dtype)
 
         hifigan_fused.fused_mrf_stage = recording
         return self
@@ -657,24 +739,28 @@ class K1Shapes:
 
     def check(self, dev, gen, tags) -> list:
         """K1 against its plain version on random input at each recorded
-        shape that ran under one of ``tags``; raises past K1_TOL."""
+        shape that ran under one of ``tags``, in the instance it ran; raises
+        past K1_TOL (K1_BF16_TOL for the bf16-product instance)."""
         import torch
 
         from matcha_tpu_torch.ops import mrf
 
         rows = []
-        for (B, C, T, t_tile), entry in sorted(self.seen.items(), key=lambda kv: kv[0][:3]):
+        for (B, C, T, t_tile, cd), entry in sorted(self.seen.items(),
+                                                   key=lambda kv: (*kv[0][:3], str(kv[0][4]))):
             if not entry["tags"] & set(tags):
                 continue
             x = torch.randn(B, C, T, generator=gen).to(dev)
             with torch.inference_mode():
-                got = mrf.fused_mrf_stage(x, *entry["args"], t_tile=t_tile)
-                want = mrf.fused_mrf_stage_reference(x, *entry["args"])
-            err = (got - want).abs().max().item()
+                got = mrf.fused_mrf_stage(x, *entry["args"], t_tile=t_tile, compute_dtype=cd)
+                want = mrf.fused_mrf_stage_reference(x, *entry["args"], compute_dtype=cd)
+                f32 = (None if cd == torch.float32
+                       else mrf.fused_mrf_stage_reference(x, *entry["args"]))
             rows.append({"B": B, "C": C, "T": T, "t_tile": mrf.pick_t_tile(C, T, t_tile, B=B),
-                         "ran_in": sorted(entry["tags"]), "max_abs_err": err})
-            del x, got, want
-            if not (err < K1_TOL):
+                         "compute_dtype": str(cd).split(".")[-1], "ran_in": sorted(entry["tags"]),
+                         **k1_errors(got, want, f32)})
+            del x, got, want, f32
+            if not within_k1_tol(rows[-1], cd):
                 raise AssertionError(f"K1 disagrees with its plain version at {rows[-1]}")
         return rows
 
@@ -1364,6 +1450,318 @@ def serve_phase(dev, model, vocoder, bias) -> dict:
                     f"k1_shapes: K1 against its plain version on random input"}
 
 
+def set_tf32(cudnn: bool) -> None:
+    """cuDNN's TF32 as given; matmuls in full f32 (torch's default)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def precision_fixed_bucket(dev, model, vocoder, bias, tp, bucket, shapes) -> dict:
+    """The fixed-bucket path at ``bucket`` in each of PRECISION_MODES on
+    the same noise: one capture, then PRECISION_REPS timed replays (host
+    clock, synchronised, after one more), the card's busy time over one,
+    a run of the same body eagerly (bit-equal?), and the waveform's max and
+    mean deviation from full precision's, the mean within the mode's
+    bound. The modes that keep the encoder f32 (all but torch's TF32
+    default) must give full precision's mel lengths."""
+    import torch
+
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.ops import mrf
+
+    z = torch.randn(1, bucket, model.n_feats, generator=torch.Generator().manual_seed(SEED + 5))
+    z = z.to(dev)
+    rows, ref = {}, None
+    for mode, (kw, tf32, k1, k1_bf16, mean_bound) in PRECISION_MODES.items():
+        set_tf32(tf32)
+        shapes.tag = mode
+        pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev, **kw)
+
+        def run(cuda_graph=None, pipe=pipe):
+            return pipe.synthesise_batch(tp["x"], tp["x_lengths"], fixed_y_bucket=bucket, z=z,
+                                         cuda_graph=cuda_graph)
+
+        torch.cuda.synchronize()
+        mrf.LAUNCHES.update(mrf_stage=0, mrf_stage_bf16=0)
+        out = run()
+        torch.cuda.synchronize()
+        launches = dict(mrf.LAUNCHES)
+        times = []
+        for _ in range(PRECISION_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        p50 = statistics.median(times[1:]) * 1e3
+        busy = device_busy(run, p50)
+        eager = run(cuda_graph=False)
+        torch.cuda.synchronize()
+        wav = out["waveform"]
+        if ref is None:
+            ref = out
+        same_len = torch.equal(out["mel_lengths"], ref["mel_lengths"])
+        d = (wav - ref["waveform"]).abs()
+        row = rows[mode] = {
+            "tf32_cudnn": tf32, **kw, "wav_mean_dev_bound": mean_bound,
+            "replay_p50_ms": p50, "busy_ms": busy["busy_ms"], "idle_share": busy["idle_share"],
+            "k1_in_replay": busy["kernel_launches"], "k1_wrapper_launches_at_capture": launches,
+            "mel_frames": int(out["mel_lengths"][0]), "mel_lengths_equal_full": same_len,
+            "wav_max_abs_dev": d.max().item(), "wav_mean_abs_dev": d.mean().item(),
+            "mel_max_abs_dev": (out["mel"] - ref["mel"]).abs().max().item(),
+            "replay_bit_equal_eager": torch.equal(wav, eager["waveform"]),
+            "replay_max_abs_err_eager": (wav - eager["waveform"]).abs().max().item()}
+        if not (bool(torch.isfinite(wav).all()) and wav.shape == (1, bucket * HOP)
+                and (same_len or tf32) and row["wav_mean_abs_dev"] <= mean_bound
+                and launches == {"mrf_stage": 2 * k1, "mrf_stage_bf16": 2 * k1_bf16}
+                and torch.equal(out["mel_lengths"], eager["mel_lengths"])
+                and row["replay_max_abs_err_eager"] <= GRAPH_TOL):
+            raise AssertionError(f"precision, fixed-bucket path, {mode}: {row}")
+        del pipe, out, eager
+        torch.cuda.empty_cache()
+    return rows
+
+
+def precision_vocoder(dev, vocoder, shapes_run, shapes) -> dict:
+    """The generator alone in each of VOCODER_PRECISIONS at each (label, B,
+    T_mel), CUDA events, TF32 off: ms, K1's launches per call by instance,
+    and the deviation from the f32 hybrid. Returns the rows and the
+    launches of K1's bf16-product instance (its counts set to 0 before and
+    read after the calls that use it)."""
+    import copy
+
+    import torch
+
+    from matcha_tpu_torch.models.hifigan_fused import fused_stage_weights, generator_apply_fused
+    from matcha_tpu_torch.ops import mrf
+
+    set_tf32(False)
+    gens = {False: (vocoder, fused_stage_weights(vocoder))}
+    gen16 = copy.deepcopy(vocoder).to(torch.bfloat16).eval()
+    gens[True] = (gen16, fused_stage_weights(gen16))
+    g = torch.Generator().manual_seed(SEED + 9)
+    rows, bf16_launches = [], 0
+    for label, B, T_mel in shapes_run:
+        mel = torch.randn(B, T_mel, vocoder.h.num_mels, generator=g).to(dev)
+        reps = 20 if B * T_mel <= 256 else 5
+        row, ref = {"shape": label, "B": B, "T_mel": T_mel, "modes": {}}, None
+        for name, (bf16, cap, cd, k1, k1_bf16) in VOCODER_PRECISIONS.items():
+            gen, weights, cd = *gens[bf16], getattr(torch, cd)
+            m = mel.to(torch.bfloat16) if bf16 else mel
+            shapes.tag = f"vocoder_{name}"
+
+            def fn(gen=gen, m=m, weights=weights, cap=cap, cd=cd):
+                return generator_apply_fused(gen, m, weights, max_fused_channels=cap,
+                                             compute_dtype=cd)
+
+            torch.cuda.synchronize()
+            mrf.LAUNCHES.update(mrf_stage=0, mrf_stage_bf16=0)
+            wav = fn().float()
+            torch.cuda.synchronize()
+            launches = dict(mrf.LAUNCHES)
+            bf16_launches += launches["mrf_stage_bf16"]
+            ref = wav if ref is None else ref
+            d = (wav - ref).abs()
+            row["modes"][name] = {"ms": cuda_ms(fn, reps), "k1_launches": launches,
+                                  "max_abs_dev": d.max().item(), "mean_abs_dev": d.mean().item()}
+            if not (launches == {"mrf_stage": k1, "mrf_stage_bf16": k1_bf16}
+                    and bool(torch.isfinite(wav).all()) and wav.shape == (B, T_mel * HOP, 1)):
+                raise AssertionError(f"precision, vocoder {name} at {label}: {row['modes'][name]}")
+        rows.append(row)
+    return rows, bf16_launches
+
+
+def precision_k1_bf16(dev, vocoder, shapes_run) -> list:
+    """K1's bf16-product instance at each narrow stage (C <= 64) of a
+    random mel at each (label, B, T_mel), against its plain version
+    (K1_BF16_TOL), timed (CUDA events) beside the 3xTF32 instance, its
+    plain version and the bf16 generator's cuDNN conv chain, with its
+    bf16 tensor-core bound."""
+    import copy
+
+    import torch
+
+    from matcha_tpu_torch.models.hifigan_fused import MAX_FUSED_CHANNELS
+    from matcha_tpu_torch.ops import mrf
+
+    set_tf32(False)
+    h = vocoder.h
+    ks, dils = h.resblock_kernel_sizes, h.resblock_dilation_sizes
+    gen16 = copy.deepcopy(vocoder).to(torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(SEED + 10)
+    bf16, rows = torch.bfloat16, []
+    for label, B, T_mel in shapes_run:
+        reps = 20 if B * T_mel <= 256 else 5
+        mel = torch.randn(B, T_mel, h.num_mels, generator=g).to(dev)
+        with torch.inference_mode():
+            x = vocoder.conv_pre(mel.transpose(1, 2))
+            for i in range(len(vocoder.ups)):
+                x = vocoder.upsample(i, x)
+                C, T = x.shape[1], x.shape[2]
+                if C <= MAX_FUSED_CHANNELS:
+                    w = mrf.mrf_weights_from_resblocks(vocoder.stage_blocks(i))
+                    xc, x16 = x.contiguous(), x.to(bf16)
+                    got = mrf.fused_mrf_stage(xc, w, ks, dils, compute_dtype=bf16)
+                    want = mrf.fused_mrf_stage_reference(xc, w, ks, dils, compute_dtype=bf16)
+                    f32 = mrf.fused_mrf_stage_reference(xc, w, ks, dils)
+                    row = {"shape": label, "B": B, "T_mel": T_mel, "C": C, "T": T,
+                           "t_tile": mrf.pick_t_tile(C, T, B=B), **k1_errors(got, want, f32),
+                           "ms": cuda_ms(lambda: mrf.fused_mrf_stage(
+                               xc, w, ks, dils, compute_dtype=bf16), reps),
+                           "tf32x3_ms": cuda_ms(lambda: mrf.fused_mrf_stage(xc, w, ks, dils), reps),
+                           "plain_ms": cuda_ms(lambda: mrf.fused_mrf_stage_reference(
+                               xc, w, ks, dils, compute_dtype=bf16), reps),
+                           "library_ms": cuda_ms(lambda i=i: gen16.mrf_stage(i, x16), reps),
+                           **k1_bound_ms(B, C, T, ks, dils, peak=PEAK_BF16_FLOPS)}
+                    rows.append(row)
+                    del got, want, f32
+                    if not within_k1_tol(row, bf16):
+                        raise AssertionError(f"K1's bf16 instance disagrees at {row}")
+                x = vocoder.mrf_stage(i, x)
+    torch.cuda.synchronize()
+    return rows
+
+
+def precision_daemon(dev, model, vocoder, bias) -> dict:
+    """The daemon in process on 127.0.0.1 with each of its precision flags
+    (its pipeline built from ``serve.build_parser``'s parse of the flag, as
+    ``serve.main`` builds it), ``max_batch`` 1, warmed at 128:256 (its
+    graphs captured in that mode): one /synthesise request each must
+    answer a 24-bit WAV of finite samples by replaying a warmed graph."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from matcha_tpu_torch import serve
+    from matcha_tpu_torch.cli import TTSPipeline
+
+    set_tf32(False)
+    rows = {}
+    for flag in ("--bf16-vocoder", "--no-pallas-vocoder"):
+        args = serve.build_parser().parse_args([flag])
+        pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev,
+                           vocoder_bf16=args.bf16_vocoder,
+                           vocoder_pallas=not args.no_pallas_vocoder)
+        server = serve.BatchingServer(pipe, max_batch=1, n_timesteps=10, seed=SEED)
+        httpd = None
+        try:
+            t0 = time.perf_counter()
+            server.warmup(serve._parse_warmup("128:256"))
+            warm_s = time.perf_counter() - t0
+            httpd = serve.make_http_server(server, "127.0.0.1", 0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/synthesise",
+                data=_json.dumps({"text": SHORT_SENTENCE}).encode(),
+                headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                status, body = resp.status, resp.read()
+            ms = (time.perf_counter() - t1) * 1e3
+            samples, fields = _wav_samples(body)
+            row = rows[flag] = {
+                "status": status, "samples": int(samples.size), "client_ms": ms,
+                "warmup_s": warm_s, "fast_path_replays": server.n_fast,
+                "vocoder_dtype": str(pipe.vocoder.conv_pre.weight.dtype),
+                "fused_stages": sorted(pipe.vocoder_weights)}
+            if not (status == 200 and fields == (1, 3, SR) and samples.size > 0
+                    and bool(np.isfinite(samples).all()) and server.n_fast == 1):
+                raise AssertionError(f"precision, daemon {flag}: {row}")
+        finally:
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+            server.shutdown()
+        del pipe, server
+        torch.cuda.empty_cache()
+    return rows
+
+
+def precision_cli(model, vocoder) -> dict:
+    """``python -m matcha_tpu_torch.cli``'s precision flags on the card:
+    the seed model and vocoder written as reference-format checkpoints
+    into a temporary ``$MATCHA_HOME``, then ``cli.cli`` in process with
+    each of PRECISION_CLI's flag sets, starting from torch's TF32 default.
+    Each must write a wav of its mel's frames x hop; ``--full-precision``
+    must leave TF32 off and its absence leave it on."""
+    import wave
+
+    import numpy as np
+    import torch
+
+    from matcha_tpu_torch import cli
+
+    rows, home = {}, os.environ.get("MATCHA_HOME")
+    with tempfile.TemporaryDirectory() as root:
+        ckpts = os.path.join(root, "matcha_tpu")
+        os.makedirs(ckpts)
+        torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "hyper_parameters": {}}, os.path.join(ckpts, "matcha_ljspeech.ckpt"))
+        torch.save({"generator": {k: v.cpu() for k, v in vocoder.state_dict().items()}},
+                   os.path.join(ckpts, "hifigan_T2_v1"))
+        os.environ["MATCHA_HOME"] = root
+        try:
+            for name, flags in PRECISION_CLI.items():
+                set_tf32(True)
+                out = os.path.join(root, name)
+                t0 = time.perf_counter()
+                cli.cli(["--text", SHORT_SENTENCE, "--cleaner", CLEANER, "--output_folder", out,
+                         *flags])
+                seconds = time.perf_counter() - t0
+                with wave.open(os.path.join(out, "utterance_001.wav")) as f:
+                    frames = f.getnframes()
+                mel = np.load(os.path.join(out, "utterance_001.npy"))
+                row = rows[name] = {"flags": flags, "seconds": seconds, "wav_frames": frames,
+                                    "mel_frames": int(mel.shape[1]),
+                                    "tf32_after": torch.backends.cudnn.allow_tf32}
+                if not (frames == mel.shape[1] * HOP > 0 and bool(np.isfinite(mel).all())
+                        and row["tf32_after"] is ("--full-precision" not in flags)):
+                    raise AssertionError(f"precision, CLI {flags}: {row}")
+        finally:
+            if home is None:
+                os.environ.pop("MATCHA_HOME", None)
+            else:
+                os.environ["MATCHA_HOME"] = home
+    return rows
+
+
+def precision_phase(dev, model, vocoder, bias, tp, bucket, shapes_run) -> dict:
+    """Serving precision on the card: the fixed-bucket path in five modes,
+    the generator in five precisions, K1's bf16-product instance at the
+    vocoder's narrow stages, the daemon with each precision flag, the CLI
+    with its four; then K1 against its plain version at every (B, C, T,
+    instance) the phase ran it at. The TF32 flags are set here per part
+    and restored at the end."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        with K1Shapes() as shapes:
+            fixed = precision_fixed_bucket(dev, model, vocoder, bias, tp, bucket, shapes)
+            voc, bf16_launches = precision_vocoder(dev, vocoder, shapes_run, shapes)
+        set_tf32(False)
+        k1_shapes = shapes.check(dev, torch.Generator().manual_seed(SEED),
+                                 {e for v in shapes.seen.values() for e in v["tags"]})
+        k1_bf16 = precision_k1_bf16(dev, vocoder, shapes_run)
+        daemon = precision_daemon(dev, model, vocoder, bias)
+        cli_runs = precision_cli(model, vocoder)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return {"bucket": bucket, "fixed_bucket": fixed, "vocoder": voc,
+            "k1_bf16_launches": bf16_launches, "k1_bf16": k1_bf16, "k1_shapes": k1_shapes,
+            "daemon": daemon, "cli": cli_runs, "k1_bf16_tolerance": K1_BF16_TOL,
+            "note": f"fixed_bucket: host clock around synthesise_batch at the bucket, "
+                    f"synchronised, median of {PRECISION_REPS} replays after 1; busy ms and "
+                    f"K1 per replay from torch.profiler; deviations against full_precision on "
+                    f"the same noise. vocoder and k1_bf16: CUDA events, TF32 off; library_ms: "
+                    f"the bf16 generator's cuDNN conv chain; bound: bf16 FLOPs / 989 TFLOP/s"}
+
+
 def main() -> int:
     import torch
 
@@ -1499,6 +1897,11 @@ def main() -> int:
     served = serve_phase(dev, model, vocoder, bias)
     emit({"phase": "serve", **served, "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    precision = precision_phase(dev, model, vocoder, bias, texts[1], fused["integer_bucket"],
+                                shapes)
+    emit({"phase": "precision", **precision, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
     # K1 at the dynamic path's shape, at 512 frames, and at every mel bucket
     # the fixed-bucket graphs ran (their replays are held only against the
@@ -1566,6 +1969,7 @@ def main() -> int:
     # shape; K2's at the training step's shape
     path = [s for s in stages if s["shape"] == "main_path"]
     k3_path = [s for s in k3_rows if s["shape"] == "main_path"]
+    bf16_path = [r for r in precision["k1_bf16"] if r["shape"] == "main_path"]
     emit({"kernels": [
         {"name": "mrf_stage", "route": "cuda", "status": "ported",
          "engine": "tensor cores: 3xTF32 mma.sync.m16n8k8, f32 sums",
@@ -1577,7 +1981,8 @@ def main() -> int:
          "serve_launches": served["k1_launches"],
          "max_abs_err": max([worst] + [s["max_abs_err"] for s in stages]
                             + [r["max_abs_err"]
-                               for r in corpus["k1_shapes"] + served["k1_shapes"]]),
+                               for r in corpus["k1_shapes"] + served["k1_shapes"]
+                               + precision["k1_shapes"] if r["compute_dtype"] == "float32"]),
          "ms": sum(s["ms"] for s in path),
          "plain_ms": sum(s["plain_ms"] for s in path),
          "bound_ms": sum(s["bound_ms"] for s in path),
@@ -1585,6 +1990,24 @@ def main() -> int:
                       else "bytes"),
          "bound_tc_ms": sum(s["bound_tc_ms"] for s in path),
          "library_ms": sum(s["library_ms"] for s in path)},
+        {"name": "mrf_stage_bf16", "route": "cuda", "status": "ported",
+         "path": "generator_apply_fused(compute_dtype=bfloat16): the stage profiler's "
+                 "--mrf-dtype bfloat16 (the Pallas kernel's compute_dtype)",
+         "engine": "tensor cores: bf16 mma.sync.m16n8k16, f32 sums",
+         "source": "matcha_tpu_torch/csrc/mrf_stage.cu",
+         "replaces": "matcha_tpu/ops/mrf_pallas.py:121",
+         "launches": precision["k1_bf16_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in precision["k1_bf16"]
+                            + [r for r in precision["k1_shapes"]
+                               if r["compute_dtype"] == "bfloat16"]),
+         "mean_abs_err": max(r["mean_abs_err"] for r in precision["k1_bf16"]),
+         "ms": sum(r["ms"] for r in bf16_path),
+         "tf32x3_ms": sum(r["tf32x3_ms"] for r in bf16_path),
+         "plain_ms": sum(r["plain_ms"] for r in bf16_path),
+         "bound_ms": sum(r["bound_ms"] for r in bf16_path),
+         "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in bf16_path)
+                      else "bytes"),
+         "library_ms": sum(r["library_ms"] for r in bf16_path)},
         {"name": "maximum_path", "route": "cuda", "status": "ported", "path": "training",
          "source": "matcha_tpu_torch/csrc/mas.cu",
          "replaces": "matcha_tpu/ops/mas_pallas.py:69",

@@ -15,10 +15,15 @@ Port of ``matcha_tpu/cli.py``'s three synthesis paths:
   other host sync, split or (``--fused-stage``) as one CUDA graph per
   bucket triple.
 With ``vocoder_chunk`` (``--vocoder-chunk N``) every path vocodes in
-N-frame mel windows with a halo. The CLI synthesises one utterance at a
-time, in length-sorted batches (``--batched``, ``--staged``) or sentence
-by sentence (``--long-form``). Checkpoints
-are the reference formats (a Lightning ``.ckpt`` for Matcha,
+N-frame mel windows with a halo. Precision, as in JAX: ``vocoder_bf16``
+(``--bf16-vocoder``) runs every path's vocoder on a bf16 copy of the
+generator; ``bf16_latency`` (``--bf16-latency``) runs the fixed-bucket
+body's Euler loop on a bf16 copy of the decoder and its vocoder in bf16;
+``vocoder_pallas=False`` (``--no-pallas-vocoder``) runs the generator
+all on cuDNN, no fused MRF kernel; ``--full-precision`` turns TF32 off.
+The CLI synthesises one utterance at a time, in length-sorted batches
+(``--batched``, ``--staged``) or sentence by sentence (``--long-form``).
+Checkpoints are the reference formats (a Lightning ``.ckpt`` for Matcha,
 ``{"generator": state_dict}`` for HiFi-GAN), read from
 ``$MATCHA_HOME/matcha_tpu/`` or a given path; nothing is downloaded.
 
@@ -27,6 +32,7 @@ are the reference formats (a Lightning ``.ckpt`` for Matcha,
 
 import argparse
 import collections
+import copy
 import os
 import sys
 import time
@@ -42,8 +48,12 @@ from matcha_tpu_torch.convert import fold_hifigan_state_dict
 from matcha_tpu_torch.fused import FusedGraph, StageGraph, _pack_pcm24
 from matcha_tpu_torch.models.denoiser import compute_bias_spec, denoise
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
-from matcha_tpu_torch.models.hifigan_fused import fused_stage_weights, generator_apply_fused
-from matcha_tpu_torch.models.matcha import MatchaTTS
+from matcha_tpu_torch.models.hifigan_fused import (
+    MAX_FUSED_CHANNELS,
+    fused_stage_weights,
+    generator_apply_fused,
+)
+from matcha_tpu_torch.models.matcha import MatchaTTS, decoder_cast
 from matcha_tpu_torch.text import intersperse, sequence_to_text, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
 from matcha_tpu_torch.utils.utils import PCM24_SCALE, write_wav
@@ -180,12 +190,33 @@ class TTSPipeline:
                  denoiser_bias: Optional[torch.Tensor] = None,
                  cleaner: str = "english_cleaners2", device=None,
                  denoiser_strength: float = 0.00025, pcm24_transfer: bool = True,
-                 vocoder_chunk: int = 0):
+                 vocoder_chunk: int = 0, vocoder_bf16: bool = False,
+                 vocoder_pallas: bool = True, bf16_latency: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
+        # the fused MRF kernel on the narrow stages, or (False) every stage
+        # on cuDNN, on every path
+        self.vocoder_pallas = vocoder_pallas
+        self.max_fused_channels = MAX_FUSED_CHANNELS if vocoder_pallas else 0
+        # bf16 vocoder weights and activations (a copy; the caller's
+        # generator is left as it is)
+        self.vocoder_bf16 = vocoder_bf16
+        vocoder = None if vocoder is None else vocoder.to(self.device).eval()
+        self._vocoders = {}
+        if vocoder is not None:
+            self._vocoders[False] = self._packed(vocoder)
+            if vocoder_bf16 or bf16_latency:
+                self._vocoders[True] = self._packed(
+                    copy.deepcopy(vocoder).to(torch.bfloat16).eval())
+        self.vocoder = None if vocoder is None else self._vocoders[vocoder_bf16][0]
         # the fused stages' kernel weights, packed once here and not per call
-        self.vocoder_weights = None if vocoder is None else fused_stage_weights(self.vocoder)
+        self.vocoder_weights = None if vocoder is None else self._vocoders[vocoder_bf16][1]
+        # the fixed-bucket body's Euler loop on a bf16 copy of the decoder
+        # and its vocoder in bf16; the encoder, the durations and every
+        # other path stay f32
+        self.bf16_latency = bf16_latency
+        self.latency_model = decoder_cast(self.model, torch.bfloat16) if bf16_latency else None
+        # the denoiser's bias spectrum stays the f32 generator's
         self.denoiser_bias = None if denoiser_bias is None else denoiser_bias.to(self.device)
         self.cleaner = cleaner
         self.denoiser_strength = denoiser_strength
@@ -206,27 +237,46 @@ class TTSPipeline:
         self._dur_ratio = None
         self._dur_obs = collections.deque(maxlen=64)
 
-    def _generate(self, mel_btc: torch.Tensor) -> torch.Tensor:
-        """Mel (B, T, n_feats) -> the generator's output (B, T * hop, 1);
-        with ``vocoder_chunk``, window by window: each window of N frames
-        runs with ``VOC_CHUNK_HALO`` frames of the mel on either side (fewer
-        at the edges, where the generator's own zero padding applies), and
+    def _packed(self, vocoder: Generator) -> tuple:
+        """(generator, its fused stages' packed weights under this
+        pipeline's cap)."""
+        return vocoder, fused_stage_weights(vocoder, self.max_fused_channels)
+
+    def _generate(self, mel_btc: torch.Tensor, bf16: Optional[bool] = None) -> torch.Tensor:
+        """Mel (B, T, n_feats) f32 -> the generator's output (B, T * hop, 1)
+        in f32; with ``bf16`` (None = ``vocoder_bf16``) on the bf16
+        generator, the mel cast to bf16 and each output cast back. With
+        ``vocoder_chunk``, window by window: each window of N frames runs
+        with ``VOC_CHUNK_HALO`` frames of the mel on either side (fewer at
+        the edges, where the generator's own zero padding applies), and
         only its centre is kept."""
+        bf16 = self.vocoder_bf16 if bf16 is None else bf16
+        if bf16 not in self._vocoders:
+            raise ValueError("a bf16 vocoder call on a pipeline built without vocoder_bf16 or "
+                             "bf16_latency")
+        gen, weights = self._vocoders[bf16]
+        mel = mel_btc.to(torch.bfloat16) if bf16 else mel_btc
+
+        def run(m):
+            out = generator_apply_fused(gen, m, weights, max_fused_channels=self.max_fused_channels)
+            return out.float() if bf16 else out
+
         chunk, halo = self.vocoder_chunk, self.VOC_CHUNK_HALO
-        T = mel_btc.shape[1]
+        T = mel.shape[1]
         if not chunk or T <= chunk + halo:
-            return generator_apply_fused(self.vocoder, mel_btc, self.vocoder_weights)
+            return run(mel)
         outs = []
         for s in range(0, T, chunk):
             e = min(s + chunk, T)
             s0, e0 = max(0, s - halo), min(T, e + halo)
-            w = generator_apply_fused(self.vocoder, mel_btc[:, s0:e0], self.vocoder_weights)
-            outs.append(w[:, (s - s0) * HOP:(e - s0) * HOP])
+            outs.append(run(mel[:, s0:e0])[:, (s - s0) * HOP:(e - s0) * HOP])
         return torch.cat(outs, dim=1)
 
-    def vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
-        """Mel (B, T, n_feats) -> clipped, denoised waveform (B, T * hop)."""
-        wav = torch.clamp(self._generate(mel_btc)[..., 0], -1.0, 1.0)
+    def vocode(self, mel_btc: torch.Tensor, bf16: Optional[bool] = None) -> torch.Tensor:
+        """Mel (B, T, n_feats) -> clipped, denoised waveform (B, T * hop),
+        f32. ``bf16``: the generator in bf16 (None = ``vocoder_bf16``); the
+        clip and the denoiser run in f32 on its output either way."""
+        wav = torch.clamp(self._generate(mel_btc, bf16)[..., 0], -1.0, 1.0)
         if self.denoiser_bias is not None:
             wav = denoise(wav, self.denoiser_bias, strength=self.denoiser_strength)
         return wav
@@ -731,6 +781,21 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Run the vocoder on N-frame mel windows (with a receptive-field "
                              "halo, one after another) to bound its activation memory. 0 = the "
                              "whole utterance (default)")
+    parser.add_argument("--full-precision", action="store_true",
+                        help="Turn TF32 off for cuDNN convolutions and for matmuls, so that f32 "
+                             "runs in full f32. Without it torch's defaults stand: cuDNN "
+                             "convolutions in TF32, matmuls in full f32")
+    parser.add_argument("--bf16-latency", action="store_true",
+                        help="With --fixed-y-bucket: run the CFM Euler loop on a bf16 copy of the "
+                             "decoder and the vocoder in bf16. The encoder and the durations stay "
+                             "f32, so the mel lengths equal the f32 path's")
+    parser.add_argument("--bf16-vocoder", action="store_true",
+                        help="Run the vocoder with bf16 weights and activations on every path "
+                             "(cuDNN convs in bf16; the fused MRF kernel computes in f32 inside). "
+                             "The clip, the denoiser and the PCM packing stay f32")
+    parser.add_argument("--no-pallas-vocoder", action="store_true",
+                        help="Run every vocoder stage as cuDNN convs instead of the fused MRF "
+                             "kernel on the narrow stages")
     return parser
 
 
@@ -760,6 +825,9 @@ def cli(argv=None):
     args.speaking_rate = rate if args.speaking_rate is None else args.speaking_rate
     if args.speaking_rate <= 0:
         raise SystemExit("--speaking_rate must be > 0")
+    if args.full_precision:  # JAX's jax_default_matmul_precision = "highest"
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[+] Device: {device}")
 
     model = load_matcha(matcha_path, device)
@@ -767,7 +835,9 @@ def cli(argv=None):
     pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
                            denoiser_strength=args.denoiser_strength,
                            pcm24_transfer=not args.no_pcm24_transfer,
-                           vocoder_chunk=args.vocoder_chunk)
+                           vocoder_chunk=args.vocoder_chunk, vocoder_bf16=args.bf16_vocoder,
+                           vocoder_pallas=not args.no_pallas_vocoder,
+                           bf16_latency=args.bf16_latency)
 
     texts = _texts(args)
     folder = Path(args.output_folder)

@@ -61,6 +61,16 @@
 //   * The chain sum is accumulated in the output tensor: each block owns
 //     its central tile, and the same lane writes the same outputs for
 //     every chain, so no synchronisation is needed for it.
+//
+// A second instance (BF16, the Pallas kernel's compute_dtype=bfloat16)
+// rounds both operands of every product to bf16 (to nearest even) and
+// sums in f32: one mma.sync.m16n8k16 bf16 product per 16 channels of a
+// tap in place of three TF32 products per 8, so its bound is FLOPs /
+// 989 TFLOP/s. Bias, leaky, re-zero, residual and chain mean stay f32,
+// and so do activations in and out and in shared memory. The k order of
+// a product is free as long as A and B agree: k = 2t, 2t + 1, 2t + 8,
+// 2t + 9 of lane (g, t) stand for channels t, t + 4, t + 8, t + 12, so
+// the A loads are the TF32 pass's (conflict-free) and B reads four rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,14 +146,33 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// lo and hi rounded to bf16 (to nearest even), packed lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
+{
+    uint32_t r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+    return r;
+}
+
+// d += a (16 x 16, row major) * b (16 x 8, column major), bf16 in, f32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // One 'same' conv over the whole window. src and dst point at row 0 of
 // their buffer. CONV1: reads leaky(src), stores leaky(masked conv) into
 // dst. !CONV1: adds the masked conv into dst (the chain state) and, when
 // out_mode > 0, folds the new chain state of the central tile into the
 // output: 1 = first chain, 2 = middle chain, 3 = last chain (then divided
 // by n_blocks). K is the kernel size, fixed at compile time so that the
-// tap loop unrolls.
-template <int C, bool CONV1, int K>
+// tap loop unrolls. BF16: the products' operands rounded to bf16, one
+// m16n8k16 product per 16 channels of a tap; else 3xTF32 per 8.
+template <int C, bool CONV1, int K, bool BF16>
 __device__ __forceinline__ void conv_pass(
     const float* src, float* dst, const float* __restrict__ wt, const float* __restrict__ bias,
     int E, int d, int g0, int T, int t_tile, float* __restrict__ yg, int out_mode, int n_blocks)
@@ -171,34 +200,66 @@ __device__ __forceinline__ void conv_pass(
                 for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
 
 #pragma unroll 1
-        for (int ci0 = 0; ci0 < C; ci0 += 8) {
+        for (int ci0 = 0; ci0 < C; ci0 += BF16 ? 16 : 8) {
             const float* arow = src + (e0 + gr) * S + ci0 + tg;
             const float* wrow = wt + (ci0 + tg) * C + co0 + gr * NT;
+            if constexpr (BF16) {
 #pragma unroll
-            for (int tap = 0; tap < K; ++tap) {
-                const int off = (tap - c0) * d * S;
-                uint32_t ahi[MT][4], alo[MT][4];
-#pragma unroll
-                for (int m = 0; m < MT; ++m) {
-                    const float* p = arow + off + m * 16 * S;
-                    const float v[4] = {p[0], p[8 * S], p[4], p[8 * S + 4]};
-#pragma unroll
-                    for (int q = 0; q < 4; ++q) split(CONV1 ? leaky(v[q]) : v[q], ahi[m][q], alo[m][q]);
-                }
-                const float* wp = wrow + tap * C * C;
-                float wv0[NT], wv1[NT];
-                load_run<NT>(wp, wv0);
-                load_run<NT>(wp + 4 * C, wv1);
-#pragma unroll
-                for (int n = 0; n < NT; ++n) {
-                    uint32_t bhi0, blo0, bhi1, blo1;
-                    split(wv0[n], bhi0, blo0);
-                    split(wv1[n], bhi1, blo1);
+                for (int tap = 0; tap < K; ++tap) {
+                    const int off = (tap - c0) * d * S;
+                    // a[m]: rows g, g + 8 of m16 tile m; channels t, t + 4
+                    // (regs 0, 1) and t + 8, t + 12 (regs 2, 3)
+                    uint32_t a[MT][4];
 #pragma unroll
                     for (int m = 0; m < MT; ++m) {
-                        mma_tf32(acc[m][n], alo[m], bhi0, bhi1);
-                        mma_tf32(acc[m][n], ahi[m], blo0, blo1);
-                        mma_tf32(acc[m][n], ahi[m], bhi0, bhi1);
+                        const float* p = arow + off + m * 16 * S;
+                        float v[8] = {p[0], p[4], p[8 * S], p[8 * S + 4],
+                                      p[8], p[12], p[8 * S + 8], p[8 * S + 12]};
+#pragma unroll
+                        for (int q = 0; q < 8; ++q) v[q] = CONV1 ? leaky(v[q]) : v[q];
+#pragma unroll
+                        for (int q = 0; q < 4; ++q) a[m][q] = pack_bf16(v[2 * q], v[2 * q + 1]);
+                    }
+                    const float* wp = wrow + tap * C * C;
+                    float wv[4][NT];
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) load_run<NT>(wp + 4 * r * C, wv[r]);
+#pragma unroll
+                    for (int n = 0; n < NT; ++n) {
+                        const uint32_t b0 = pack_bf16(wv[0][n], wv[1][n]);
+                        const uint32_t b1 = pack_bf16(wv[2][n], wv[3][n]);
+#pragma unroll
+                        for (int m = 0; m < MT; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int tap = 0; tap < K; ++tap) {
+                    const int off = (tap - c0) * d * S;
+                    uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+                    for (int m = 0; m < MT; ++m) {
+                        const float* p = arow + off + m * 16 * S;
+                        const float v[4] = {p[0], p[8 * S], p[4], p[8 * S + 4]};
+#pragma unroll
+                        for (int q = 0; q < 4; ++q)
+                            split(CONV1 ? leaky(v[q]) : v[q], ahi[m][q], alo[m][q]);
+                    }
+                    const float* wp = wrow + tap * C * C;
+                    float wv0[NT], wv1[NT];
+                    load_run<NT>(wp, wv0);
+                    load_run<NT>(wp + 4 * C, wv1);
+#pragma unroll
+                    for (int n = 0; n < NT; ++n) {
+                        uint32_t bhi0, blo0, bhi1, blo1;
+                        split(wv0[n], bhi0, blo0);
+                        split(wv1[n], bhi1, blo1);
+#pragma unroll
+                        for (int m = 0; m < MT; ++m) {
+                            mma_tf32(acc[m][n], alo[m], bhi0, bhi1);
+                            mma_tf32(acc[m][n], ahi[m], blo0, blo1);
+                            mma_tf32(acc[m][n], ahi[m], bhi0, bhi1);
+                        }
                     }
                 }
             }
@@ -247,7 +308,7 @@ __device__ __forceinline__ void conv_pass(
 }
 
 // HiFi-GAN's kernel sizes (v1 and v2); the launch refuses any other.
-template <int C, bool CONV1>
+template <int C, bool CONV1, bool BF16>
 __device__ __forceinline__ void conv_dispatch(
     const float* src, float* dst, const float* __restrict__ wt, const float* __restrict__ bias,
     int E, int k, int d, int g0, int T, int t_tile, float* __restrict__ yg, int out_mode,
@@ -255,18 +316,21 @@ __device__ __forceinline__ void conv_dispatch(
 {
     switch (k) {
         case 3:
-            conv_pass<C, CONV1, 3>(src, dst, wt, bias, E, d, g0, T, t_tile, yg, out_mode, n_blocks);
+            conv_pass<C, CONV1, 3, BF16>(src, dst, wt, bias, E, d, g0, T, t_tile, yg, out_mode,
+                                         n_blocks);
             break;
         case 7:
-            conv_pass<C, CONV1, 7>(src, dst, wt, bias, E, d, g0, T, t_tile, yg, out_mode, n_blocks);
+            conv_pass<C, CONV1, 7, BF16>(src, dst, wt, bias, E, d, g0, T, t_tile, yg, out_mode,
+                                         n_blocks);
             break;
         case 11:
-            conv_pass<C, CONV1, 11>(src, dst, wt, bias, E, d, g0, T, t_tile, yg, out_mode, n_blocks);
+            conv_pass<C, CONV1, 11, BF16>(src, dst, wt, bias, E, d, g0, T, t_tile, yg, out_mode,
+                                          n_blocks);
             break;
     }
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 mrf_stage_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
                  float* hscratch, int T, int t_tile, MrfConfig cfg)
@@ -312,18 +376,18 @@ mrf_stage_kernel(const float* __restrict__ x, const float* __restrict__ w, float
         __syncthreads();
 
         for (int j = 0; j < cfg.n_dil; ++j) {
-            conv_dispatch<C, true>(xb, hb, W1 + (size_t)j * k * C * C, B1 + j * C, E, k,
-                                   cfg.d[blk][j], g0, T, t_tile, yg, 0, cfg.n_blocks);
+            conv_dispatch<C, true, BF16>(xb, hb, W1 + (size_t)j * k * C * C, B1 + j * C, E, k,
+                                         cfg.d[blk][j], g0, T, t_tile, yg, 0, cfg.n_blocks);
             __syncthreads();
-            conv_dispatch<C, false>(hb, xb, W2 + (size_t)j * k * C * C, B2 + j * C, E, k, 1, g0,
-                                    T, t_tile, yg, j == cfg.n_dil - 1 ? out_mode : 0,
-                                    cfg.n_blocks);
+            conv_dispatch<C, false, BF16>(hb, xb, W2 + (size_t)j * k * C * C, B2 + j * C, E, k,
+                                          1, g0, T, t_tile, yg,
+                                          j == cfg.n_dil - 1 ? out_mode : 0, cfg.n_blocks);
             __syncthreads();
         }
     }
 }
 
-template <int C>
+template <int C, bool BF16>
 static int launch(const float* x, const float* w, float* y, float* hscratch, int B, int T,
                   int t_tile, const MrfConfig& cfg, int threads, cudaStream_t stream)
 {
@@ -332,12 +396,30 @@ static int launch(const float* x, const float* w, float* y, float* hscratch, int
     const int E = t_tile + 2 * HALO;
     const int rows = (G::HB_GLOBAL ? E + 2 * MARGIN : 2 * E + 3 * MARGIN) + TAIL;
     const size_t smem = (size_t)rows * G::S * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(mrf_stage_kernel<C>,
+    cudaError_t err = cudaFuncSetAttribute(mrf_stage_kernel<C, BF16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((T + t_tile - 1) / t_tile, B);
-    mrf_stage_kernel<C><<<grid, threads, smem, stream>>>(x, w, y, hscratch, T, t_tile, cfg);
+    mrf_stage_kernel<C, BF16><<<grid, threads, smem, stream>>>(x, w, y, hscratch, T, t_tile, cfg);
     return (int)cudaGetLastError();
+}
+
+template <bool BF16>
+static int launch_width(const float* x, const float* w, float* y, float* hscratch, int B, int C,
+                        int T, int t_tile, const MrfConfig& cfg, int threads, void* stream)
+{
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (C) {
+        case 16: return launch<16, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        case 32: return launch<32, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        case 48: return launch<48, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        case 64: return launch<64, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        case 80: return launch<80, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        case 96: return launch<96, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        case 112: return launch<112, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        case 128: return launch<128, BF16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // Launches the stage on `stream`. x, y: (B, C, T) f32 contiguous; w: the
@@ -346,15 +428,17 @@ static int launch(const float* x, const float* w, float* y, float* hscratch, int
 // and (n_blocks, n_dil). C: a multiple of 16 up to 128. t_tile: a multiple
 // of TILE_STEP whose buffers fit the block's shared memory. hscratch: null
 // up to C = 80, else B * ceil(T / t_tile) * (t_tile + 2 * HALO + 2 *
-// MARGIN + TAIL) * (C + 4) f32 of device memory for hb. Returns the CUDA error
-// code of the launch.
+// MARGIN + TAIL) * (C + 4) f32 of device memory for hb. bf16: 0 = the
+// 3xTF32 instance (f32 accuracy), 1 = the bf16-product instance. Returns
+// the CUDA error code of the launch.
 extern "C" int mrf_stage_launch(const float* x, const float* w, float* y, float* hscratch,
                                 int B, int C, int T, int t_tile, int n_blocks, int n_dil,
-                                const int* ks, const int* dils, int threads, void* stream)
+                                const int* ks, const int* dils, int threads, int bf16,
+                                void* stream)
 {
     if (n_blocks < 1 || n_blocks > MAX_BLOCKS || n_dil < 1 || n_dil > MAX_DIL ||
         t_tile < TILE_STEP || t_tile % TILE_STEP != 0 || threads < 32 ||
-        threads > MAX_THREADS || threads % 32 != 0)
+        threads > MAX_THREADS || threads % 32 != 0 || (bf16 != 0 && bf16 != 1))
         return (int)cudaErrorInvalidValue;
     MrfConfig cfg;
     cfg.n_blocks = n_blocks;
@@ -378,18 +462,8 @@ extern "C" int mrf_stage_launch(const float* x, const float* w, float* y, float*
         cfg.w_off[b][3] = off;
         off += (long long)n_dil * C;
     }
-    const cudaStream_t s = (cudaStream_t)stream;
-    switch (C) {
-        case 16: return launch<16>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        case 32: return launch<32>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        case 48: return launch<48>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        case 64: return launch<64>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        case 80: return launch<80>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        case 96: return launch<96>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        case 112: return launch<112>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        case 128: return launch<128>(x, w, y, hscratch, B, T, t_tile, cfg, threads, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return bf16 ? launch_width<true>(x, w, y, hscratch, B, C, T, t_tile, cfg, threads, stream)
+                : launch_width<false>(x, w, y, hscratch, B, C, T, t_tile, cfg, threads, stream);
 }
 
 extern "C" const char* mrf_error_string(int code)

@@ -185,12 +185,18 @@ class FusedGraph(CapturedBody):
         return f"B, T_x = {tuple(self.x.shape)}, T_y = {self.T_y}"
 
     def body(self) -> Dict[str, torch.Tensor]:
-        """The whole path on the static inputs (what the graph captures)."""
+        """The whole path on the static inputs (what the graph captures).
+        With the pipeline's ``bf16_latency``: the Euler loop on its bf16
+        decoder copy (the f32 noise buffer cast inside) and the vocoder in
+        bf16, as JAX's ``_fused_fn``."""
         p = self.pipeline
-        out = p.model.synthesise(self.x, self.x_lengths, self.n_timesteps, self.temperature,
-                                 self.length_scale, y_max_length=self.T_y, z=self.z)
+        lat = p.bf16_latency
+        model = p.latency_model if lat else p.model
+        out = model.synthesise(self.x, self.x_lengths, self.n_timesteps, self.temperature,
+                               self.length_scale, y_max_length=self.T_y, z=self.z,
+                               compute_dtype=torch.bfloat16 if lat else None)
         if p.vocoder is not None:
-            wav = p.vocode(out["mel"].transpose(1, 2))
+            wav = p.vocode(out["mel"].transpose(1, 2), bf16=True if lat else None)
             out["waveform"] = wav
             if self.pcm24:
                 out["wav_pcm24"] = _pack_pcm24(wav, out["mel_lengths"])

@@ -156,7 +156,9 @@ class SinusoidalPosEmb(nn.Module):
 
 
 class TimestepEmbedding(nn.Module):
-    """Two-layer MLP over the sinusoidal embedding (silu in between)."""
+    """Two-layer MLP over the sinusoidal embedding (silu in between), in
+    the embedding's type: f32 parameters as they are, bf16 ones upcast (a
+    bf16 decoder's MLP computes in f32, as JAX promotes it)."""
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
@@ -164,4 +166,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(F.silu(self.linear_1(sample)))
+        def linear(layer, v):
+            return F.linear(v, layer.weight.to(v.dtype), layer.bias.to(v.dtype))
+
+        return linear(self.linear_2, F.silu(linear(self.linear_1, sample)))

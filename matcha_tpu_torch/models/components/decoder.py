@@ -133,7 +133,9 @@ class Decoder(nn.Module):
         time. Returns the (B, T, out_channels) vector field, masked."""
         if t.dim() == 0:
             t = t.expand(x.shape[0])
-        temb = self.time_mlp(self.time_embeddings(t))
+        # the sinusoidal embedding is f32; its MLP's output takes the
+        # activations' type, so that a bf16 flow stays bf16
+        temb = self.time_mlp(self.time_embeddings(t)).to(x.dtype)
 
         h = torch.cat([x, mu], dim=-1).transpose(1, 2)
         mask_cf = mask.transpose(1, 2)  # (B, 1, T)

@@ -26,8 +26,9 @@ def euler_schedule(n_timesteps: int, device=None) -> torch.Tensor:
 
 def solve_euler(estimator: Callable, x: torch.Tensor, t_span: torch.Tensor,
                 mu: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """x_{i+1} = x_i + dt_i * estimator(x_i, mask, mu, t_i) over t_span."""
-    dts = t_span[1:] - t_span[:-1]
+    """x_{i+1} = x_i + dt_i * estimator(x_i, mask, mu, t_i) over t_span.
+    The f32 dt is cast to x's type first, so that a bf16 x stays bf16."""
+    dts = (t_span[1:] - t_span[:-1]).to(x.dtype)
     for t, dt in zip(t_span[:-1], dts):
         x = x + dt * estimator(x, mask, mu, t)
     return x
@@ -38,9 +39,11 @@ def cfm_sample(estimator: Callable, mu: torch.Tensor, mask: torch.Tensor,
                z: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Integrate the probability flow from ``z * temperature`` (z unit
-    normal, shaped like ``mu``; drawn from ``generator`` when not given)."""
+    normal, shaped like ``mu``; drawn from ``generator`` when not given).
+    The noise is drawn in f32 and then cast to ``mu``'s type, as in JAX:
+    a bf16 flow starts from the f32 flow's z, rounded."""
     if z is None:
-        z = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        z = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=torch.float32)
     elif z.shape != mu.shape:
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {tuple(mu.shape)}")
     t_span = euler_schedule(n_timesteps, device=mu.device)

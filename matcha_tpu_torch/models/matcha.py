@@ -11,6 +11,7 @@ returned dict keep the JAX package's layouts: ids (B, T_x), mels
 (B, n_feats, T) at the boundary.
 """
 
+import copy
 import math
 from typing import Dict, Optional
 
@@ -72,17 +73,32 @@ class MatchaTTS(nn.Module):
     def decode(self, mu_x: torch.Tensor, w_ceil: torch.Tensor, x_lengths: torch.Tensor,
                y_lengths: torch.Tensor, n_timesteps: int = 10, temperature: float = 1.0,
                y_max_length: int = 1024, z: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
         """Expand durations to ``y_max_length`` frames and sample the flow.
         ``z``: unit-normal noise (B, y_max_length, n_feats), else drawn
-        from ``generator``."""
+        from ``generator``.
+
+        ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the Euler loop in
+        that type: ``mu_y`` and the mask are cast to it, and the decoder's
+        parameters must be of it (``decoder_cast``). The durations and the
+        alignment stay f32 (bf16 cannot count frames above 256), and the
+        mel comes back f32."""
         x_mask = sequence_mask(x_lengths, mu_x.shape[1]).float()[..., None]
         y_lengths = torch.clamp(y_lengths, max=y_max_length).to(torch.int32)
         y_mask = sequence_mask(y_lengths, y_max_length).float()[..., None]
         attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, :, 0][:, None, :]
         attn = generate_path(w_ceil[:, :, 0], attn_mask)
         mu_y = torch.einsum("bxy,bxf->byf", attn, mu_x)
-        decoder_outputs = self.decoder(mu_y, y_mask, n_timesteps, temperature, z, generator)
+        if compute_dtype is None:
+            decoder_outputs = self.decoder(mu_y, y_mask, n_timesteps, temperature, z, generator)
+        else:
+            held = {p.dtype for p in self.decoder.parameters()}
+            if held != {compute_dtype}:
+                raise ValueError(f"compute_dtype={compute_dtype} needs a decoder of that type "
+                                 f"(decoder_cast), not one of {held}")
+            decoder_outputs = self.decoder(mu_y.to(compute_dtype), y_mask.to(compute_dtype),
+                                           n_timesteps, temperature, z, generator).float()
         mel = denormalize(decoder_outputs.transpose(1, 2), self.mel_mean, self.mel_std)
         return {
             "encoder_outputs": mu_y.transpose(1, 2),
@@ -96,12 +112,14 @@ class MatchaTTS(nn.Module):
     def synthesise(self, x: torch.Tensor, x_lengths: torch.Tensor, n_timesteps: int = 10,
                    temperature: float = 1.0, length_scale: float = 1.0,
                    y_max_length: int = 1024, z: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None,
+                   compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
         """ids -> mel in one call at a fixed mel bucket ``y_max_length``
-        (multiple of 4); lengths beyond it are clipped."""
+        (multiple of 4); lengths beyond it are clipped. ``compute_dtype``
+        as for ``decode``: the encoder and the durations stay f32."""
         mu_x, w_ceil, y_lengths = self.encode(x, x_lengths, length_scale)
         return self.decode(mu_x, w_ceil, x_lengths, y_lengths, n_timesteps, temperature,
-                           y_max_length, z, generator)
+                           y_max_length, z, generator, compute_dtype)
 
     def losses(self, x: torch.Tensor, x_lengths: torch.Tensor, y: torch.Tensor,
                y_lengths: torch.Tensor, out_size: Optional[int] = None,
@@ -161,3 +179,15 @@ class MatchaTTS(nn.Module):
         else:
             prior = torch.zeros((), device=y.device)
         return dur_loss, prior, diff_loss, attn
+
+
+def decoder_cast(model: MatchaTTS, dtype: torch.dtype) -> MatchaTTS:
+    """A copy of ``model`` whose decoder (the CFM U-Net) is cast to
+    ``dtype``; it shares every other module and buffer with ``model``,
+    which stays as it was. The counterpart of JAX's
+    ``TTSPipeline._latency_params``: the encoder and the durations stay
+    f32, bit-identical to the f32 path."""
+    cast = copy.copy(model)
+    cast._modules = dict(model._modules)  # copy.copy shares the dict itself
+    cast.decoder = copy.deepcopy(model.decoder).to(dtype)
+    return cast.eval()

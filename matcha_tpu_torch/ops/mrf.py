@@ -5,8 +5,10 @@
 x (B, C, T) f32 channels-first; ``weights`` a flat tuple with, per
 ResBlock1 chain, W1 (n_dil, k, C_in, C_out), B1 (n_dil, C_out), W2, B2.
 A CUDA tensor launches the kernel in ``csrc/mrf_stage.cu`` (or raises): the
-18 convs of the stage as 3xTF32 tensor-core products with f32 accuracy. A
-CPU tensor takes ``fused_mrf_stage_reference``.
+18 convs of the stage as 3xTF32 tensor-core products with f32 accuracy, or
+with ``compute_dtype=torch.bfloat16`` (the Pallas kernel's option of that
+name) its second instance, whose products take both operands rounded to
+bf16 and sum in f32. A CPU tensor takes ``fused_mrf_stage_reference``.
 
 The kernel reads all of a stage's weights from one buffer. ``pack_mrf_weights``
 copies the tuple into it once, when a model is loaded, and returns the tuple
@@ -24,8 +26,11 @@ import torch.nn.functional as F
 
 from matcha_tpu_torch.ops import cuda_build
 
-#: launches of the CUDA kernel in this process (the CPU path does not count)
-LAUNCHES = {"mrf_stage": 0}
+#: launches of the CUDA kernel in this process, per instance: 3xTF32 and
+#: bf16 products (the CPU path does not count)
+LAUNCHES = {"mrf_stage": 0, "mrf_stage_bf16": 0}
+#: the products' operand types, each a compiled instance of the kernel
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 HALO = 64  # halo per side in the kernel; >= the stage's receptive field
 MARGIN = 32  # zero rows per buffer side; >= the widest tap reach c0 * d
@@ -91,24 +96,38 @@ def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None, B: int = 1) -> int
 
 
 def fused_mrf_stage_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                              kernel_sizes=(3, 7, 11),
-                              dilations=((1, 3, 5),) * 3) -> torch.Tensor:
+                              kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3,
+                              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain torch version: 6 F.conv1d per chain. Each conv zero-pads at
     the true sequence edges, which is the kernel's re-zero after every
-    conv."""
+    conv. ``compute_dtype=torch.bfloat16`` rounds each conv's input and
+    weights to bf16 (to nearest even) and convolves them in f32; the bias
+    and everything between the convs stay f32."""
+    _check_compute_dtype(compute_dtype)
+
+    def conv(v, w, b, **kw):
+        if compute_dtype != torch.float32:
+            v, w = (t.to(compute_dtype).float() for t in (v, w))
+        return F.conv1d(v, w.permute(2, 1, 0), b, **kw)
+
     xs = None
     for blk, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
         W1, B1, W2, B2 = weights[4 * blk:4 * blk + 4]
         xb = x
         for j, d in enumerate(dils):
             xt = F.leaky_relu(xb, 0.1)
-            xt = F.conv1d(xt, W1[j].permute(2, 1, 0), B1[j], padding=(k - 1) // 2 * d,
-                          dilation=int(d))
+            xt = conv(xt, W1[j], B1[j], padding=(k - 1) // 2 * d, dilation=int(d))
             xt = F.leaky_relu(xt, 0.1)
-            xt = F.conv1d(xt, W2[j].permute(2, 1, 0), B2[j], padding=(k - 1) // 2)
+            xt = conv(xt, W2[j], B2[j], padding=(k - 1) // 2)
             xb = xt + xb
         xs = xb if xs is None else xs + xb
     return xs / len(kernel_sizes)
+
+
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={compute_dtype}: the kernel is built for "
+                         f"{COMPUTE_DTYPES}")
 
 
 def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
@@ -160,14 +179,14 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mrf_stage_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                                     i, p]
+                                     i, i, p]
     lib.mrf_stage_launch.restype = ctypes.c_int
     lib.mrf_error_string.argtypes = [ctypes.c_int]
     lib.mrf_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(x, weights, kernel_sizes, dilations, t_tile) -> torch.Tensor:
+def _launch(x, weights, kernel_sizes, dilations, t_tile, compute_dtype) -> torch.Tensor:
     n_blocks, n_dil = _check(x, weights, kernel_sizes, dilations)
     B, C, T = x.shape
     t_tile = pick_t_tile(C, T, t_tile, B)
@@ -181,35 +200,40 @@ def _launch(x, weights, kernel_sizes, dilations, t_tile) -> torch.Tensor:
                               dtype=torch.float32, device=x.device)
     ks = (ctypes.c_int * n_blocks)(*kernel_sizes)
     ds = (ctypes.c_int * (n_blocks * n_dil))(*(int(d) for dils in dilations for d in dils))
+    bf16 = compute_dtype == torch.bfloat16
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mrf_stage_launch(x.data_ptr(), weights[0].data_ptr(), y.data_ptr(),
                                    None if scratch is None else scratch.data_ptr(), B, C, T,
-                                   t_tile, n_blocks, n_dil, ks, ds, threads, stream)
+                                   t_tile, n_blocks, n_dil, ks, ds, threads, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage launch failed: {lib.mrf_error_string(err).decode()}")
-    LAUNCHES["mrf_stage"] += 1
+    LAUNCHES["mrf_stage_bf16" if bf16 else "mrf_stage"] += 1
     return y
 
 
 def fused_mrf_stage(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     kernel_sizes=(3, 7, 11), dilations=((1, 3, 5),) * 3,
-                    t_tile: Optional[int] = None) -> torch.Tensor:
+                    t_tile: Optional[int] = None,
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One whole MRF stage (mean of the ResBlock1 chains), (B, C, T) f32.
     CUDA tensors run the hand-written kernel; CPU tensors the plain
     version. ``t_tile``: the kernel's central tile in samples (checked on
     both devices when given, and clamped to the largest that fits; None =
-    ``pick_t_tile``'s choice for B)."""
+    ``pick_t_tile``'s choice for B). ``compute_dtype``: the products'
+    operand type, float32 (3xTF32, f32-accurate) or bfloat16 (operands
+    rounded to bf16, f32 sums); activations are f32 either way."""
+    _check_compute_dtype(compute_dtype)
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilations = tuple(tuple(int(d) for d in dils) for dils in dilations)
     if t_tile is not None:
         pick_t_tile(x.shape[1], x.shape[2], t_tile)
     if x.device.type == "cpu":
-        return fused_mrf_stage_reference(x, weights, kernel_sizes, dilations)
+        return fused_mrf_stage_reference(x, weights, kernel_sizes, dilations, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mrf_stage runs on CUDA or CPU tensors, not {x.device}")
-    return _launch(x, weights, kernel_sizes, dilations, t_tile)
+    return _launch(x, weights, kernel_sizes, dilations, t_tile, compute_dtype)
 
 
 def pack_mrf_weights(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
@@ -222,10 +246,11 @@ def pack_mrf_weights(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...
 
 def mrf_weights_from_resblocks(blocks) -> Tuple[torch.Tensor, ...]:
     """Torch ResBlock1 convs (weight (out, in, k)) -> the kernel's packed
-    weights: per block W1 (n_dil, k, in, out), B1, W2, B2."""
+    weights: per block W1 (n_dil, k, in, out), B1, W2, B2, in f32 (the
+    kernels' type; bf16 convs upcast exactly)."""
     flat = []
     for blk in blocks:
         for convs in (blk.convs1, blk.convs2):
-            flat.append(torch.stack([c.weight.permute(2, 1, 0) for c in convs]))
-            flat.append(torch.stack([c.bias for c in convs]))
+            flat.append(torch.stack([c.weight.permute(2, 1, 0) for c in convs]).float())
+            flat.append(torch.stack([c.bias for c in convs]).float())
     return pack_mrf_weights(flat)

@@ -67,7 +67,6 @@ def stage_split(pipe, tp, reps: int) -> dict:
     warm-up per stage, with the mel and vocoder buckets it ran at."""
     from matcha_tpu_torch.cli import VOC_BUCKETS, X_BUCKETS, Y_BUCKETS, pick_bucket
     from matcha_tpu_torch.models.denoiser import denoise
-    from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused
 
     dev = pipe.device
     x_pad = np.zeros((1, pick_bucket(tp["x"].shape[-1], X_BUCKETS)), np.int64)
@@ -89,8 +88,7 @@ def stage_split(pipe, tp, reps: int) -> dict:
                                 generator=torch.Generator(dev).manual_seed(SEED))
         mark()
         T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
-        wav = generator_apply_fused(pipe.vocoder, out["mel"].transpose(1, 2)[:, :T_voc],
-                                    pipe.vocoder_weights)[..., 0]
+        wav = pipe._generate(out["mel"].transpose(1, 2)[:, :T_voc])[..., 0]
         mark()
         denoise(torch.clamp(wav, -1.0, 1.0), pipe.denoiser_bias, strength=pipe.denoiser_strength)
         mark()

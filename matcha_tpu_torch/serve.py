@@ -668,11 +668,8 @@ def _parse_warmup(spec: str):
 
 #: flags of the JAX daemon whose features the port does not have
 NOT_PORTED = {
-    "bf16_vocoder": "--bf16-vocoder: bf16 serving is not ported (ROADMAP.md queue 1, item 4)",
     "data_parallel": "--data-parallel: multi-GPU serving is not ported (ROADMAP.md queue 1, "
                      "item 9)",
-    "no_pallas_vocoder": "--no-pallas-vocoder: the port's vocoder always runs its fused MRF "
-                         "kernel (K1); a cuDNN-only serving path is not ported",
     "spk": "--spk: the port serves single-speaker models only (multi-speaker models: "
            "ROADMAP.md queue 1, item 5)",
 }
@@ -696,8 +693,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable the single-request fast path (one replay of a B=1 CUDA graph; "
                         "saves its warmup captures)")
     p.add_argument("--cleaner", type=str, default="english_cleaners2")
-    p.add_argument("--bf16-vocoder", action="store_true")
-    p.add_argument("--no-pallas-vocoder", action="store_true")
+    p.add_argument("--bf16-vocoder", action="store_true",
+                   help="bf16 vocoder weights and activations (the clip, the denoiser and the "
+                        "PCM packing stay f32); the warmed graphs are captured so")
+    p.add_argument("--no-pallas-vocoder", action="store_true",
+                   help="every vocoder stage as cuDNN convs, no fused MRF kernel")
     p.add_argument("--data-parallel", action="store_true")
     p.add_argument("--vocoder-chunk", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: CUDA)")
@@ -714,7 +714,8 @@ def main(argv=None):
     model = load_matcha(matcha_path, device)
     vocoder, bias = load_vocoder(vocoder_path, device)
     pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
-                           vocoder_chunk=args.vocoder_chunk)
+                           vocoder_chunk=args.vocoder_chunk, vocoder_bf16=args.bf16_vocoder,
+                           vocoder_pallas=not args.no_pallas_vocoder)
     batcher = BatchingServer(pipeline, max_batch=args.max_batch,
                              batch_window_ms=args.batch_window_ms, n_timesteps=args.steps,
                              temperature=args.temperature,

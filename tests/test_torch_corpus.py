@@ -201,7 +201,8 @@ def test_chunked_vocoder_matches_jax_and_unchunked(loaded, monkeypatch):  # noqa
     # the first row's first 160 frames: 4 windows, the last a short one
     mel = mel[:1, :160]
     gen64 = copy.deepcopy(port_voc).double()
-    monkeypatch.setattr(port_cli, "generator_apply_fused", lambda gen, m, w: gen64(m.double()))
+    monkeypatch.setattr(port_cli, "generator_apply_fused",
+                        lambda gen, m, w, **kw: gen64(m.double()))
     whole64, chunked64 = full._generate(mel), chunked._generate(mel)
     assert whole64.dtype == torch.float64 and whole64.shape == (1, 160 * 256, 1)
     np.testing.assert_allclose(chunked64.numpy(), whole64.numpy(), rtol=CHUNK_TOL, atol=CHUNK_TOL)

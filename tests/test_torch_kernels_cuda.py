@@ -286,9 +286,10 @@ def test_mas_kernel_refuses_what_it_cannot_take(cuda_f32):
         mas.maximum_path(big, big)
 
 
-def _tiny_pipeline(device):
+def _tiny_pipeline(device, **kw):
     """A small Matcha (seed weights) with the full-width HiFi-GAN v1 and its
-    denoiser, so that the fixed-bucket body runs K1 twice."""
+    denoiser, so that the fixed-bucket body runs K1 twice; ``kw`` go to the
+    ``TTSPipeline``."""
     from matcha_tpu_torch.cli import TTSPipeline
     from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.matcha import MatchaTTS
@@ -299,7 +300,7 @@ def _tiny_pipeline(device):
                       dec_attention_head_dim=16, dec_num_heads=2)
     vocoder = Generator(HiFiGANConfig()).to(device).eval()
     bias = compute_bias_spec(lambda m: generator_apply_fused(vocoder, m), device=device)
-    return TTSPipeline(model, vocoder, bias, device=device)
+    return TTSPipeline(model, vocoder, bias, device=device, **kw)
 
 
 def _ids(seed, n):
@@ -501,3 +502,51 @@ def test_chunked_vocoder_on_cuda(cuda_f32):
     assert mrf.LAUNCHES["mrf_stage"] - before == 2 * 5
     assert chunked.shape == whole.shape == (2, 300 * 256)
     assert ((chunked - whole).abs() <= 1e-5 + 1e-5 * whole.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("B", [1, 3])
+def test_fused_mrf_bf16_kernel_matches_plain(cuda_f32, C, B):
+    """K1's bf16-product instance at every width, on T = two of its tiles
+    + 37 (not a multiple of the tile), against its plain version (the
+    operands of each conv rounded to bf16, f32 sums), as fractions of the
+    bf16 rounding's own effect (the plain bf16 stage against the plain f32
+    one): the max below it, the mean below 0.2 of it (``chip_smoke.py``'s
+    K1_BF16_TOL: sums in another order, and the tensor cores' bf16 sums,
+    less exact than f32's, flip a few roundings of the next conv's
+    operands; measured up to 1.3e-4 / 1.1e-5 against an effect of ~7e-4 /
+    1.2e-4 on an H100)."""
+    T = 2 * mrf.pick_t_tile(C, 10**6, B=B) + 37
+    g = torch.Generator().manual_seed(C * 10 + B)
+    x = torch.randn(B, C, T, generator=g).to(cuda_f32)
+    weights = _stage_weights(g, C, cuda_f32)
+    before = dict(mrf.LAUNCHES)
+    got = mrf.fused_mrf_stage(x, weights, KS, DILS, compute_dtype=torch.bfloat16)
+    want = mrf.fused_mrf_stage_reference(x, weights, KS, DILS, compute_dtype=torch.bfloat16)
+    f32 = mrf.fused_mrf_stage_reference(x, weights, KS, DILS)
+    torch.cuda.synchronize()
+    assert mrf.LAUNCHES == {**before, "mrf_stage_bf16": before["mrf_stage_bf16"] + 1}
+    err, effect = (got - want).abs(), (want - f32).abs()
+    assert err.max().item() < effect.max().item()
+    assert err.mean().item() < 0.2 * effect.mean().item()
+
+
+@pytest.mark.cuda
+def test_fused_graph_bf16_latency_replay_equals_eager(cuda_f32):
+    """``bf16_latency``: the bucket's graph (the Euler loop on the bf16
+    decoder copy, the vocoder in bf16) replayed against the same body run
+    eagerly on the card on the same noise: bit-equal waveform and mel, and
+    the mel lengths those of the f32 body."""
+    pipe = _tiny_pipeline(cuda_f32, bf16_latency=True)
+    x, xl = _ids(1, 40)
+    z = _unit_noise(2, 256, cuda_f32)
+    got = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256)
+    want = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256, cuda_graph=False)
+    f32 = _tiny_pipeline(cuda_f32).synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256,
+                                                    cuda_graph=False)
+    torch.cuda.synchronize()
+    assert [g.graph is not None for g in pipe._graphs.values()] == [True, False]
+    assert torch.equal(got["waveform"], want["waveform"]) and torch.equal(got["mel"], want["mel"])
+    assert torch.equal(got["mel_lengths"], f32["mel_lengths"])
+    assert got["waveform"].dtype == torch.float32 and bool(torch.isfinite(got["waveform"]).all())

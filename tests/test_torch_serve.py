@@ -596,9 +596,7 @@ def test_main_without_cpu_needs_a_gpu():
         serve.main(["--warmup", ""])
 
 
-@pytest.mark.parametrize("flag,item", [(["--bf16-vocoder"], "item 4"),
-                                       (["--data-parallel"], "item 9"),
-                                       (["--no-pallas-vocoder"], "K1"),
+@pytest.mark.parametrize("flag,item", [(["--data-parallel"], "item 9"),
                                        (["--spk", "0"], "item 5")])
 def test_flags_not_ported_exit(flag, item):
     """The JAX daemon's flags whose features the port lacks stop ``main``

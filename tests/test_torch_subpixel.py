@@ -119,10 +119,12 @@ def test_fused_generator_variants_match_flax(small, upsample_impl, narrow_impl, 
 def test_fused_generator_refuses_what_it_cannot_take(small):
     _, _, tgen, mel, _ = small
     m = torch.from_numpy(mel)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(ValueError, match="mel into a torch.float32 generator"):
         generator_apply_fused(tgen, m.bfloat16())
-    with pytest.raises(NotImplementedError, match="float32"):
-        generator_apply_fused(tgen, m, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        generator_apply_fused(tgen, m, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="no bf16-product instance"):
+        generator_apply_fused(tgen, m, narrow_impl="phase", compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="at most 128"):
         generator_apply_fused(tgen, m, max_fused_channels=256)
     with pytest.raises(ValueError, match="narrow_impl"):
