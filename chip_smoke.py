@@ -81,6 +81,16 @@ Phases, one output line each (any failure exits non-zero):
    ``--no-pallas-vocoder``, one request each; the CLI with its four flags
    on checkpoints written from the seed weights; K1 against its plain
    version at every (B, C, T, instance) the phase ran it at;
+   the multi-speaker model (the VCTK Matcha: 109 speakers, spk_emb_dim
+   64) at two speakers on the dynamic path, the fixed-bucket path (one
+   capture per x bucket serving both speakers, each replay bit-equal to
+   its eager body), ``--fused-stage`` over 32 of bench.py's utterances
+   against the split stages, and the daemon with a default speaker, a
+   request's own ``"spk"`` and an id out of range (400); the conformer
+   decoder (every U-Net stage, GroupNorm and BatchNorm modes) at the
+   fixed bucket (replay bit-equal to eager), and one decoder step at
+   B = 1, T = 2,048 against the transformer decoder's peak memory; K1
+   against its plain version at every shape these paths ran;
 6. the training path at full width (the LJSpeech config, batch 32, no
    segment cut) on a synthetic corpus written from the seed: 5 steps of
    ``python -m matcha_tpu_torch.train`` (through ``train.main``) with
@@ -90,7 +100,14 @@ Phases, one output line each (any failure exits non-zero):
    second, peak memory, one step split by phase, the card's busy time
    over a step, and K2 at the step's shape beside its bound and its plain
    version, its call split under ``torch.profiler`` into the kernel and
-   the wrapper's other device operations;
+   the wrapper's other device operations; ``train_bf16``: 3 steps of
+   ``trainer.precision=bf16-mixed``, the f32 and bf16 losses on one batch
+   and noise (within 2 %), K2 on the bf16 step's log-prior (EQUAL to its
+   plain version, its ties counted), preloaded step times in turns and
+   peak memory; ``multispeaker``: the serving checks above and 3 steps of
+   ``experiment=multispeaker`` in f32 and in bf16 on a ``path|spk|text``
+   corpus; ``conformer``: the serving checks above and one step at batch
+   32 in each norm mode;
 7. the ``kernels`` line (every TPU kernel of the repo: K1 in its two
    instances, K2 and K3, all ported; K1 with its launches on each path),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -198,6 +215,16 @@ VOCODER_PRECISIONS = {
     "f32_hybrid_bf16_products": (False, 64, "bfloat16", 0, 2),
 }
 TRAIN_STEPS = 5
+# the VCTK Matcha (configs/data/vctk.yaml, configs/experiment/multispeaker.yaml:
+# 109 speakers, spk_emb_dim 64 from configs/model/matcha.yaml, VCTK's mel
+# statistics); the two speakers it serves, the fixed bucket (the serving
+# sentences' at LJSpeech widths), the corpus cut of bench.py's utterances,
+# the daemon's warmed pair, timed repetitions; training steps of each new
+# configuration; the conformer decoder's two norm modes
+VCTK = {"n_spks": 109, "spk_emb_dim": 64, "mel_mean": -6.630575, "mel_std": 2.482914}
+MS_SPEAKERS, MS_BUCKET, MS_CORPUS_UTTS, MS_WARMUP, MS_REPS = (7, 100), 576, 32, (128, 256), 10
+EXTRA_STEPS = 3
+CONFORMER_MODES = {"groupnorm": False, "batchnorm": True}
 # public-domain sentences (the Harvard sentences); the corpus cuts runs of
 # their words to each clip's length
 CORPUS_TEXT = (
@@ -396,15 +423,18 @@ def k2_check(dev) -> list:
     return out
 
 
-def write_corpus(root: str, seed: int = SEED) -> dict:
-    """A synthetic single-speaker corpus at LJSpeech's clip lengths: 64
-    train and 8 val 22,050 Hz wavs of 1.5-10 s (tones, vibrato and noise),
-    each with a run of real words long enough for about 3 mel frames per
-    id (blanks included), as in LJSpeech. Returns the filelist paths."""
+def write_corpus(root: str, seed: int = SEED, speakers: int = 0) -> dict:
+    """A synthetic corpus at LJSpeech's clip lengths: 64 train and 8 val
+    22,050 Hz wavs of 1.5-10 s (tones, vibrato and noise), each with a run
+    of real words long enough for about 3 mel frames per id (blanks
+    included), as in LJSpeech. With ``speakers`` the filelists are
+    ``path|spk|text``, clip i spoken by speaker 37 i mod ``speakers``.
+    Returns the filelist paths (and the speaker ids used)."""
     import numpy as np
 
     from matcha_tpu_torch.utils.utils import write_wav
 
+    os.makedirs(root, exist_ok=True)
     rng = np.random.default_rng(seed)
     words = CORPUS_TEXT.split()
     lines = []
@@ -420,19 +450,23 @@ def write_corpus(root: str, seed: int = SEED) -> dict:
                  + 0.1 * np.sin(2 * np.pi * 3.1 * f0 * t) + rng.normal(0, 0.02, n))
         path = os.path.join(root, f"clip_{i:03d}.wav")
         write_wav(path, audio.astype(np.float32), SR)
-        lines.append(f"{path}|{' '.join(text)}")
+        spk = f"{37 * i % speakers}|" if speakers else ""
+        lines.append(f"{path}|{spk}{' '.join(text)}")
     paths = {"train": os.path.join(root, "train.txt"), "val": os.path.join(root, "val.txt")}
+    if speakers:
+        paths["speakers"] = sorted({37 * i % speakers for i in range(N_TRAIN + N_VAL)})
     for name, part in (("train", lines[:N_TRAIN]), ("val", lines[N_TRAIN:])):
         with open(paths[name], "w", encoding="utf-8") as f:
             f.write("\n".join(part) + "\n")
     return paths
 
 
-def train_overrides(corpus: dict, out_dir: str) -> list:
-    """The full-width LJSpeech training config (batch 32, out_size null)
-    on the synthetic corpus: cleaners without espeak, CSV metrics every
-    step, checkpoints on."""
-    return ["experiment=ljspeech", f"data.train_filelist_path={corpus['train']}",
+def train_overrides(corpus: dict, out_dir: str, experiment: str = "ljspeech") -> list:
+    """A full-width training config (``experiment``: ljspeech, or
+    multispeaker, the VCTK one; batch 32, out_size null) on the synthetic
+    corpus: cleaners without espeak, CSV metrics every step, checkpoints
+    on."""
+    return [f"experiment={experiment}", f"data.train_filelist_path={corpus['train']}",
             f"data.valid_filelist_path={corpus['val']}", f"data.cleaners=[{CLEANER}]",
             "data.frontend=numpy", "logger=csv", "trainer.log_every_n_steps=1",
             f"paths.output_dir={out_dir}"]
@@ -1315,7 +1349,7 @@ def serve_phase(dev, model, vocoder, bias) -> dict:
         with trace(activities=[ProfilerActivity.CUDA]) as prof:
             for rep in range(SERVE_REPS):
                 for i, s in enumerate(SENTENCES):
-                    T_y = server._pick_fused_bucket(T_x, server.default_rate, len(seqs[i]))
+                    T_y = server._pick_fused_bucket(T_x, server.default_rate, False, len(seqs[i]))
                     n_call = server._n_calls + 1
                     t1 = time.perf_counter()
                     status, headers, body = post("/synthesise", {"text": s})
@@ -1762,6 +1796,458 @@ def precision_phase(dev, model, vocoder, bias, tp, bucket, shapes_run) -> dict:
                     f"the bf16 generator's cuDNN conv chain; bound: bf16 FLOPs / 989 TFLOP/s"}
 
 
+def replay_and_eager_p50(graph_pipe, eager_pipe, tp, **kw) -> dict:
+    """p50 ms of MS_REPS fixed-bucket calls at MS_BUCKET after one warm-up,
+    the graph's replay and its body run eagerly in turns, each on a
+    generator of its own (host clock, synchronised)."""
+    import torch
+
+    runs = {"graph": [], "eager": []}
+    gens = {m: torch.Generator(graph_pipe.device).manual_seed(SEED) for m in runs}
+    for _ in range(MS_REPS + 1):
+        for m, p, mode in (("graph", graph_pipe, None), ("eager", eager_pipe, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.synthesise_batch(tp["x"], tp["x_lengths"], fixed_y_bucket=MS_BUCKET,
+                               generator=gens[m], cuda_graph=mode, **kw)
+            torch.cuda.synchronize()
+            runs[m].append((time.perf_counter() - t0) * 1e3)
+    return {f"{m}_p50_ms": statistics.median(v[1:]) for m, v in runs.items()}
+
+
+def multispeaker_serving(dev, vocoder, bias, texts) -> dict:
+    """The VCTK Matcha (109 speakers, ``spk_emb_dim`` 64, VCTK's mel
+    statistics; weights from the seed) through ``TTSPipeline`` at two
+    speakers: the dynamic path on the three serving sentences; the
+    fixed-bucket path at MS_BUCKET, each replay against the same body run
+    eagerly on the same noise (bit-equal), one capture per x bucket
+    serving both speakers, and the two speakers' mels differing; replay
+    and eager latency in turns and the card's busy time over one replay;
+    ``--fused-stage`` over MS_CORPUS_UTTS of bench.py's utterances at one
+    speaker against the split stages; the daemon warmed at MS_WARMUP with
+    a default speaker, one request without ``"spk"`` and one with another
+    speaker, each against the eager body on its call's generator, and an
+    id out of range answered 400. K1's wrapper count is set to 0 before
+    the path and read after; K1 against its plain version at every shape
+    the path gave it."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from matcha_tpu_torch.cli import X_BUCKETS, TTSPipeline, pick_bucket
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tpu_torch.ops import mrf
+    from matcha_tpu_torch.scripts.trace_settle import corpus_utterances
+    from matcha_tpu_torch.serve import BatchingServer, make_http_server
+    from matcha_tpu_torch.text import intersperse, text_to_sequence
+
+    torch.manual_seed(SEED)
+    model = MatchaTTS(**VCTK)
+    pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
+    eager = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
+    a, b = MS_SPEAKERS
+
+    def noise(seed, B, T_y):
+        return torch.randn(B, T_y, model.n_feats,
+                           generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    with K1Shapes() as shapes:
+        shapes.tag = "multispeaker"
+        mrf.LAUNCHES["mrf_stage"] = 0
+        dynamic = []
+        for i, tp in enumerate(texts):
+            for spk in MS_SPEAKERS:
+                out = pipe.synthesise_batch(tp["x"], tp["x_lengths"], spks=[spk],
+                                            generator=torch.Generator(dev).manual_seed(SEED + i))
+                wav, ml = out["waveform"], int(out["mel_lengths"][0])
+                if not (bool(torch.isfinite(wav).all()) and ml * HOP <= wav.shape[-1]):
+                    raise AssertionError(f"multispeaker: dynamic path, sentence {i} speaker {spk}")
+                dynamic.append({"sentence": i, "spk": spk, "mel_frames": ml,
+                                "samples": int(wav.shape[-1])})
+        k1_dynamic = mrf.LAUNCHES["mrf_stage"]
+        if k1_dynamic != len(pipe.vocoder_weights) * len(dynamic):
+            raise AssertionError(f"multispeaker: K1 launched {k1_dynamic} times for "
+                                 f"{len(dynamic)} requests")
+
+        fixed = []
+        for i, tp in enumerate(texts):
+            z, mels = noise(SEED + i, 1, MS_BUCKET), {}
+            for spk in MS_SPEAKERS:
+                g = pipe.synthesise_batch(tp["x"], tp["x_lengths"], fixed_y_bucket=MS_BUCKET,
+                                          z=z, spks=[spk])
+                e = eager.synthesise_batch(tp["x"], tp["x_lengths"], fixed_y_bucket=MS_BUCKET,
+                                           z=z, spks=[spk], cuda_graph=False)
+                torch.cuda.synchronize()
+                row = {"sentence": i, "spk": spk, "mel_frames": int(g["mel_lengths"][0]),
+                       "bit_equal": all(torch.equal(g[k], e[k]) for k in
+                                        ("mel", "mel_lengths", "waveform", "wav_pcm24")),
+                       "max_abs_err": (g["waveform"] - e["waveform"]).abs().max().item()}
+                row["saturated"] = row["mel_frames"] >= MS_BUCKET
+                fixed.append(row)
+                if not (row["bit_equal"] and bool(torch.isfinite(g["waveform"]).all())):
+                    raise AssertionError(f"multispeaker: replay against eager {row}")
+                mels[spk] = g["mel"]
+            fixed[-1]["speakers_differ"] = not torch.equal(mels[a], mels[b])
+            if not fixed[-1]["speakers_differ"]:
+                raise AssertionError(f"multispeaker: speakers {a} and {b} gave one mel")
+        bodies = [g for k, g in pipe._graphs.items() if k[0] != "stage"]
+        graphs = [g for g in bodies if g.graph is not None]
+        x_buckets = {pick_bucket(int(tp["x_lengths"][0]), X_BUCKETS) for tp in texts}
+        if not (len(bodies) == len(x_buckets) and all(g.spks is not None for g in bodies)
+                and all(g.graph is not None and g.replays == len(MS_SPEAKERS)
+                        for g in bodies if g.cuda_graph)):
+            raise AssertionError(f"multispeaker: {len(graphs)} captures for {len(x_buckets)} x "
+                                 "buckets, each to serve both speakers")
+        tp = texts[1]
+        latency = replay_and_eager_p50(pipe, eager, tp, spks=[a])
+        gen = torch.Generator(dev).manual_seed(SEED + 1)
+        busy = device_busy(lambda: pipe.synthesise_batch(
+            tp["x"], tp["x_lengths"], fixed_y_bucket=MS_BUCKET, generator=gen, spks=[a]),
+            latency["graph_p50_ms"])
+
+        utts = corpus_utterances(MS_CORPUS_UTTS, SEED)
+        corpus = {}
+        for fuse in (False, True):
+            t0 = time.perf_counter()
+            corpus[fuse] = list(pipe.synthesise_corpus(
+                utts, length_scale=CORPUS_RATE, batch_size=CORPUS_BATCH, fuse_stages=fuse,
+                z=lambda bi, B, T_y: noise(SEED + 100 + bi, B, T_y), spk=a))
+            torch.cuda.synchronize()
+            corpus[f"{'fused' if fuse else 'split'}_s"] = time.perf_counter() - t0
+        err, bit_equal = 0.0, True
+        for (ca, oa), (cb, ob) in zip(corpus[False], corpus[True]):
+            if ca != cb or not np.array_equal(oa["mel_lengths_host"], ob["mel_lengths_host"]):
+                raise AssertionError("multispeaker: fused stage ran other batches than split")
+            err = max(err, (oa["waveform"] - ob["waveform"]).abs().max().item())
+            bit_equal &= torch.equal(oa["waveform"], ob["waveform"])
+        stage_graphs = [g for k, g in pipe._graphs.items() if k[0] == "stage" and g.graph]
+        if err > GRAPH_TOL or not all(g.spks is not None for g in stage_graphs):
+            raise AssertionError(f"multispeaker: fused stage against split {err}")
+        audio_s = sum(int(o["mel_lengths_host"].sum()) for _, o in corpus[False]) * HOP / SR
+
+        dpipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
+        server = BatchingServer(dpipe, max_batch=1, n_timesteps=10, temperature=0.667, seed=SEED,
+                                default_spk=a)
+        httpd = None
+        try:
+            shapes.tag = "warmup"
+            server.warmup([MS_WARMUP])
+            shapes.tag = "multispeaker"
+            captured = [g for g in dpipe._graphs.values() if g.graph is not None]
+            replays0 = sum(g.replays for g in captured)
+            httpd = make_http_server(server, "127.0.0.1", 0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+            def post(payload):
+                req = urllib.request.Request(url + "/synthesise", data=json.dumps(payload).encode(),
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    return resp.read()
+
+            seq = np.asarray(intersperse(text_to_sequence(SHORT_SENTENCE, [CLEANER]), 0), np.int32)
+            T_x = server._route_x(len(seq))
+            x1 = np.zeros((1, T_x), np.int32)
+            x1[0, :len(seq)] = seq
+            daemon, wavs = [], {}
+            for spk in (None, b):
+                T_y = server._pick_fused_bucket(T_x, server.default_rate, True, len(seq))
+                n_call = server._n_calls + 1
+                got, fields = _wav_samples(post({"text": SHORT_SENTENCE, **(
+                    {} if spk is None else {"spk": spk})}))
+                want = dpipe.synthesise_batch(
+                    x1, np.asarray([len(seq)], np.int32), fixed_y_bucket=T_y, cuda_graph=False,
+                    generator=server.call_generator(n_call), spks=[a if spk is None else spk])
+                n = int(want["mel_lengths"][0])
+                ref = want["waveform"][0, :n * HOP].clamp(-1, 1).cpu().numpy()
+                row = {"spk": spk, "served_as": a if spk is None else spk, "T_y": T_y,
+                       "frames": n, "max_abs_err": (float(np.abs(got - ref).max())
+                                                    if got.size == ref.size else None)}
+                daemon.append(row)
+                wavs[row["served_as"]] = got
+                if not (fields == (1, 3, SR) and row["max_abs_err"] is not None
+                        and row["max_abs_err"] <= GRAPH_TOL + 2.0 / (2**23 - 1)):
+                    raise AssertionError(f"multispeaker: daemon request against eager {row}")
+            try:
+                post({"text": SHORT_SENTENCE, "spk": VCTK["n_spks"]})
+                refused = None
+            except urllib.error.HTTPError as e:
+                refused = e.code
+            replays = sum(g.replays for g in captured) - replays0
+            after = [g for g in dpipe._graphs.values() if g.graph is not None]
+            if dev.type == "cuda" and not captured:
+                raise AssertionError("multispeaker: the daemon's warmup captured no graph")
+            if refused != 400 or replays != 2 * bool(captured) or len(after) != len(captured) or (
+                    wavs[a].shape == wavs[b].shape and np.array_equal(wavs[a], wavs[b])):
+                raise AssertionError(f"multispeaker: daemon refused {refused}, {replays} "
+                                     f"replays, {len(after) - len(captured)} new captures")
+        finally:
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+            server.shutdown()
+        k1_launches = mrf.LAUNCHES["mrf_stage"]
+    if not k1_launches:
+        raise AssertionError("multispeaker: K1 never launched")
+    torch.cuda.empty_cache()
+    k1_rows = shapes.check(dev, torch.Generator().manual_seed(SEED), ("multispeaker", "graph"))
+    return {"model": "VCTK Matcha: LJSpeech widths, 109 speakers, spk_emb_dim 64, encoder "
+                     "stack 256 wide, decoder in_channels 224, seed weights",
+            "speakers": list(MS_SPEAKERS), "dynamic": dynamic, "k1_dynamic_launches": k1_dynamic,
+            "fixed_bucket": MS_BUCKET, "fixed": fixed, "captures": len(graphs),
+            "capture_seconds": [g.capture_seconds for g in graphs], "latency": latency,
+            "device_busy_replay": busy,
+            "corpus": {"utterances": MS_CORPUS_UTTS, "batches": len(corpus[False]),
+                       "audio_s": audio_s, "split_s": corpus["split_s"],
+                       "fused_s": corpus["fused_s"], "fused_max_abs_err": err,
+                       "fused_bit_equal": bit_equal, "stage_captures": len(stage_graphs)},
+            "daemon": {"warmup": list(MS_WARMUP), "default_spk": a, "requests": daemon,
+                       "out_of_range_status": refused, "replays": replays},
+            "k1_launches": k1_launches, "k1_shapes": k1_rows,
+            "note": f"latency: host clock around synthesise_batch at the fixed bucket, "
+                    f"synchronised, median of {MS_REPS} after 1 warm-up, graph and eager in "
+                    f"turns, sentence 1 at speaker {a}; corpus wall includes the fused mode's "
+                    f"captures; k1_launches: the wrapper's count over the phase (captures and "
+                    f"eager runs)"}
+
+
+def conformer_model(bn: bool):
+    """The LJSpeech Matcha with every U-Net stage a conformer block, weights
+    from the seed; in BatchNorm mode with random running statistics (fresh
+    ones are the identity)."""
+    import torch
+
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    torch.manual_seed(SEED)
+    model = MatchaTTS(dec_down_block_type="conformer", dec_mid_block_type="conformer",
+                      dec_up_block_type="conformer", dec_conformer_batch_norm=bn)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.5 * torch.randn(b.shape))
+            elif name.endswith("running_var"):
+                b.copy_(0.5 + 1.5 * torch.rand(b.shape))
+    return model
+
+
+def conformer_serving(dev, vocoder, bias, tp) -> dict:
+    """The LJSpeech Matcha with every U-Net stage a conformer block, in both
+    norm modes, at the fixed bucket MS_BUCKET on serving sentence 1: a
+    replay against its eager body on the same noise (bit-equal), replay
+    and eager latency in turns; and one estimator call at B = 1, T = 2,048
+    (the top fixed bucket) against the all-transformer decoder's peak
+    memory. K1's count set to 0 before and read after each mode."""
+    import torch
+
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tpu_torch.ops import mrf
+
+    rows = {}
+    z = torch.randn(1, MS_BUCKET, 80, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    with K1Shapes() as shapes:
+        shapes.tag = "conformer"
+        for mode, bn in CONFORMER_MODES.items():
+            model = conformer_model(bn)
+            pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=dev)
+            mrf.LAUNCHES["mrf_stage"] = 0
+            g = pipe.synthesise_batch(tp["x"], tp["x_lengths"], fixed_y_bucket=MS_BUCKET, z=z)
+            e = pipe.synthesise_batch(tp["x"], tp["x_lengths"], fixed_y_bucket=MS_BUCKET, z=z,
+                                      cuda_graph=False)
+            torch.cuda.synchronize()
+            launches = mrf.LAUNCHES["mrf_stage"]
+            row = {"mel_frames": int(g["mel_lengths"][0]),
+                   "bit_equal": all(torch.equal(g[k], e[k]) for k in
+                                    ("mel", "mel_lengths", "waveform", "wav_pcm24")),
+                   "max_abs_err": (g["waveform"] - e["waveform"]).abs().max().item(),
+                   "k1_launches": launches}
+            if not (row["bit_equal"] and launches and bool(torch.isfinite(g["waveform"]).all())):
+                raise AssertionError(f"conformer ({mode}): replay against eager {row}")
+            row.update(replay_and_eager_p50(pipe, pipe, tp))
+            rows[mode] = row
+            del pipe, model
+            torch.cuda.empty_cache()
+    peaks = {}
+    T = 2048
+    for name, model in (("transformer", MatchaTTS()), ("conformer", conformer_model(False))):
+        est = model.to(dev).eval().decoder.estimator
+        x = torch.randn(1, T, 80, device=dev)
+        mask, t = torch.ones(1, T, 1, device=dev), torch.full((1,), 0.5, device=dev)
+        with torch.inference_mode():
+            est(x, mask, x, t)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_ms(lambda: est(x, mask, x, t), 3)
+            peaks[name] = {"peak_above_MiB": (torch.cuda.max_memory_allocated() - base) / 2**20,
+                           "estimator_ms": ms}
+        del est, model
+        torch.cuda.empty_cache()
+    extra = peaks["conformer"]["peak_above_MiB"] - peaks["transformer"]["peak_above_MiB"]
+    if not extra < 256:
+        raise AssertionError(f"conformer: decode at T = {T} peaks {extra} MiB above the "
+                             "transformer's")
+    k1_rows = shapes.check(dev, torch.Generator().manual_seed(SEED), ("conformer", "graph"))
+    return {"bucket": MS_BUCKET, "modes": rows, "decode_2048": peaks,
+            "decode_2048_extra_MiB": extra, "k1_shapes": k1_rows,
+            "note": f"latency: host clock, synchronised, median of {MS_REPS} after 1 warm-up, "
+                    "graph and eager in turns; decode_2048: one estimator call at B = 1, "
+                    "T = 2048, max_memory_allocated above the allocation before it, and its "
+                    "CUDA-event ms (mean of 3)"}
+
+
+def train_bf16(dev, cfg, corpus: dict, root: str) -> dict:
+    """``trainer.precision=bf16-mixed`` on the LJSpeech config through
+    ``train.main`` (EXTRA_STEPS steps, K2's launches against the MAS
+    calls); then on one batch and one noise draw, dropout off, the f32 and
+    the bf16 losses (within 2 %, JAX's bound), K2 on the bf16 step's own
+    log-prior (EQUAL to its plain version; its ties counted; timed); then
+    preloaded steps in f32 and bf16 in turns (step time, peak memory),
+    with f32 masters and Adam moments after them."""
+    import torch
+
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.models import matcha as matcha_module
+    from matcha_tpu_torch.ops import mas
+    from matcha_tpu_torch.training.trainer import (batch_losses, make_optimizer, to_device,
+                                                   train_step)
+
+    out_dir = os.path.join(root, "bf16")
+    run = run_train(train_overrides(corpus, out_dir) + [
+        f"trainer.max_steps={EXTRA_STEPS}", "trainer.precision=bf16-mixed"])
+    rows = [r for r in read_metrics(out_dir) if "loss/train" in r]
+    if (len(rows) != EXTRA_STEPS or not all(math.isfinite(r["loss/train"]) for r in rows)
+            or run["k2_launches"] != run["mas_calls"] or not run["k2_launches"]):
+        raise AssertionError(f"train_bf16: {rows} {run}")
+
+    torch.manual_seed(SEED)
+    dm = train.build_datamodule_from_cfg(cfg)
+    model = train.build_model_from_cfg(cfg).to(dev)
+    loaded = list(dm.train_batches(0))[:2]
+    batch = to_device(loaded[0], dev)
+    g = torch.Generator().manual_seed(SEED)
+    B = batch["y"].shape[0]
+    noise = {"t": torch.rand(B, generator=g).to(dev),
+             "z": torch.randn(batch["y"].shape, generator=g).to(dev)}
+    seen = []
+    search = matcha_module.maximum_path
+    matcha_module.maximum_path = lambda v, m: (seen.append((v, m)), search(v, m))[1]
+    try:
+        with torch.no_grad():
+            model.eval()
+            losses = {p: [float(v) for v in batch_losses(model, batch, noise=noise, precision=p)]
+                      for p in ("f32", "bf16-mixed")}
+    finally:
+        matcha_module.maximum_path = search
+    f32, bf16 = sum(losses["f32"]), sum(losses["bf16-mixed"])
+    rel = abs(bf16 - f32) / abs(f32)
+    if not rel < 0.02:
+        raise AssertionError(f"train_bf16: bf16 loss {bf16} against f32 {f32}")
+    value, mask = seen[1]
+    valid = (mask[:, 1:] > 0) & (mask[:, :-1] > 0)
+    ties = int(((value[:, 1:] == value[:, :-1]) & valid).sum())
+    got = mas.maximum_path(value, mask)
+    equal = torch.equal(got, mas.maximum_path_reference(value, mask))
+    if not equal:
+        raise AssertionError("train_bf16: K2 differs from its plain version on the bf16 log-prior")
+    t_xs = [int(v) for v in mask[:, :, 0].sum(1)]
+    t_ys = [int(v) for v in mask[:, 0, :].sum(1)]
+    bound_ms, bound_by = k2_bound_ms(B, value.shape[1], value.shape[2], t_xs, t_ys)
+    k2 = {"shape": list(value.shape), "log_prior_dtype": str(value.dtype).split(".")[-1],
+          "adjacent_ties": ties, "equal": equal,
+          "ms": cuda_ms(lambda: mas.maximum_path(value, mask), 20),
+          "plain_ms": cuda_ms(lambda: mas.maximum_path_reference(value, mask), 2),
+          "bound_ms": bound_ms, "bound_by": bound_by}
+    del seen, value, mask, got
+
+    model.train()
+    opt, sched = make_optimizer(model, lr=float(cfg.model.optimizer.lr))
+    step_ms, peaks = {"f32": [], "bf16-mixed": []}, {}
+    for i in range(TRAIN_STEPS):
+        for p in step_ms:
+            b = to_device(loaded[i % len(loaded)], dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train_step(model, opt, sched, b, 100 + i, SEED, precision=p)
+            torch.cuda.synchronize()
+            step_ms[p].append((time.perf_counter() - t0) * 1e3)
+            peaks[p] = max(peaks.get(p, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+    moments = [v for s in opt.state.values() for k, v in s.items() if k.startswith("exp_avg")]
+    f32_state = (all(p.dtype == torch.float32 for p in model.parameters())
+                 and all(v.dtype == torch.float32 for v in moments))
+    if not f32_state:
+        raise AssertionError("train_bf16: masters or Adam moments left f32")
+    return {"config": "experiment=ljspeech, batch 32, out_size null, trainer.precision=bf16-mixed",
+            "run": run, "train_losses": rows, "losses_same_batch_and_noise": losses,
+            "loss_f32": f32, "loss_bf16": bf16, "rel_diff": rel, "k2": k2,
+            "step_ms": step_ms,
+            "step_ms_p50_steps_2_5": {p: statistics.median(v[1:]) for p, v in step_ms.items()},
+            "max_memory_allocated_GiB": peaks, "f32_masters_and_moments": f32_state,
+            "note": "losses: one batch, dropout off, t and z from the seed; step_ms: preloaded "
+                    "batches, host clock synchronised, f32 and bf16 in turns; K2 ms: CUDA "
+                    "events, mean of 20 (plain: 2), on the log-prior the bf16 losses handed it"}
+
+
+def multispeaker_train(root: str) -> dict:
+    """``experiment=multispeaker`` (batch 32, out_size null) on a synthetic
+    corpus with a ``path|spk|text`` filelist over speaker ids 0-108:
+    EXTRA_STEPS steps in f32 and in bf16-mixed through ``train.main``,
+    K2's launches against the MAS calls."""
+    corpus = write_corpus(os.path.join(root, "vctk"), speakers=VCTK["n_spks"])
+    out = {"speakers_in_corpus": corpus["speakers"]}
+    for precision in ("f32", "bf16-mixed"):
+        out_dir = os.path.join(root, f"vctk_{precision}")
+        run = run_train(train_overrides(corpus, out_dir, "multispeaker") + [
+            f"trainer.max_steps={EXTRA_STEPS}", f"trainer.precision={precision}"])
+        rows = [r for r in read_metrics(out_dir) if "loss/train" in r]
+        if (len(rows) != EXTRA_STEPS or not all(math.isfinite(r["loss/train"]) for r in rows)
+                or run["k2_launches"] != run["mas_calls"] or not run["k2_launches"]):
+            raise AssertionError(f"multispeaker training ({precision}): {rows} {run}")
+        out[precision] = {"run": run, "train_losses": rows}
+    return out
+
+
+def conformer_train(dev, raw) -> dict:
+    """One training step at batch 32 (the LJSpeech step's batch) of the
+    all-conformer model in each norm mode: finite losses, one K2 launch,
+    the BatchNorm's running statistics unchanged."""
+    import torch
+
+    from matcha_tpu_torch.ops import mas
+    from matcha_tpu_torch.training.trainer import make_optimizer, to_device, train_step
+
+    out = {}
+    for mode, bn in CONFORMER_MODES.items():
+        model = conformer_model(bn).to(dev)
+        stats = [b.clone() for n, b in model.named_buffers() if "running" in n]
+        opt, sched = make_optimizer(model)
+        mas.LAUNCHES["maximum_path"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, sched, to_device(raw, dev), 0, SEED)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = mas.LAUNCHES["maximum_path"]
+        losses = {k: float(v) for k, v in m.items()}
+        kept = all(torch.equal(a, b) for a, b in
+                   zip(stats, [b for n, b in model.named_buffers() if "running" in n]))
+        if not (all(map(math.isfinite, losses.values())) and launches == 1 and kept):
+            raise AssertionError(f"conformer training ({mode}): {losses}, K2 {launches}, "
+                                 f"stats kept {kept}")
+        out[mode] = {"losses": losses, "k2_launches": launches, "step_ms": ms,
+                     "max_memory_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30,
+                     "batch_norm_stats_kept": kept}
+        del model, opt
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1902,6 +2388,16 @@ def main() -> int:
                                 shapes)
     emit({"phase": "precision", **precision, "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+    # the multi-speaker and conformer models' serving paths (their training
+    # steps run with the training phases; each emits one line there)
+    t0 = time.perf_counter()
+    ms_serving = multispeaker_serving(dev, vocoder, bias, texts)
+    ms_serving_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    conf_serving = conformer_serving(dev, vocoder, bias, texts[1])
+    conf_serving_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
     # K1 at the dynamic path's shape, at 512 frames, and at every mel bucket
     # the fixed-bucket graphs ran (their replays are held only against the
@@ -1963,6 +2459,17 @@ def main() -> int:
         emit({"phase": "train_time", **line})
         k2 = k2_time(dev, raw)
         emit({"phase": "k2_time", **k2})
+        t0 = time.perf_counter()
+        bf16 = train_bf16(dev, cfg, trained["corpus"], root)
+        emit({"phase": "train_bf16", **bf16, "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        ms_train = multispeaker_train(root)
+        emit({"phase": "multispeaker", **ms_serving, "train": ms_train,
+              "seconds": ms_serving_s + time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        conf_train = conformer_train(dev, raw)
+        emit({"phase": "conformer", **conf_serving, "train": conf_train,
+              "seconds": conf_serving_s + time.perf_counter() - t0})
 
     # 7. kernels: K1's and K3's ms, plain_ms, bound_ms, library_ms summed
     # over the two narrow stages of one vocoder call at the serving path's
@@ -1979,10 +2486,13 @@ def main() -> int:
          "fused_path_launches_per_replay": fused["k1_launches_per_replay"],
          "staged_corpus_launches": {m: r["k1_launches"] for m, r in corpus["modes"].items()},
          "serve_launches": served["k1_launches"],
+         "multispeaker_launches": ms_serving["k1_launches"],
+         "conformer_launches": {m: r["k1_launches"] for m, r in conf_serving["modes"].items()},
          "max_abs_err": max([worst] + [s["max_abs_err"] for s in stages]
                             + [r["max_abs_err"]
                                for r in corpus["k1_shapes"] + served["k1_shapes"]
-                               + precision["k1_shapes"] if r["compute_dtype"] == "float32"]),
+                               + precision["k1_shapes"] + ms_serving["k1_shapes"]
+                               + conf_serving["k1_shapes"] if r["compute_dtype"] == "float32"]),
          "ms": sum(s["ms"] for s in path),
          "plain_ms": sum(s["plain_ms"] for s in path),
          "bound_ms": sum(s["bound_ms"] for s in path),
@@ -2012,7 +2522,13 @@ def main() -> int:
          "source": "matcha_tpu_torch/csrc/mas.cu",
          "replaces": "matcha_tpu/ops/mas_pallas.py:69",
          "engine": "one chain warp per batch row, cp.async log-prior tiles, per-lane bit words",
-         "launches": trained["run"]["k2_launches"], "max_abs_err": 0.0, "ms": k2["ms"],
+         "launches": trained["run"]["k2_launches"],
+         "train_bf16_launches": bf16["run"]["k2_launches"],
+         "multispeaker_launches": {p: ms_train[p]["run"]["k2_launches"]
+                                   for p in ("f32", "bf16-mixed")},
+         "conformer_launches": {m: r["k2_launches"] for m, r in conf_train.items()},
+         "bf16_log_prior": {k: bf16["k2"][k] for k in ("shape", "adjacent_ties", "equal", "ms")},
+         "max_abs_err": 0.0, "ms": k2["ms"],
          "kernel_ms": k2["kernel_ms"], "wrapper_ms": k2["wrapper_ms"], "layout": k2["layout"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},

@@ -21,8 +21,11 @@ generator; ``bf16_latency`` (``--bf16-latency``) runs the fixed-bucket
 body's Euler loop on a bf16 copy of the decoder and its vocoder in bf16;
 ``vocoder_pallas=False`` (``--no-pallas-vocoder``) runs the generator
 all on cuDNN, no fused MRF kernel; ``--full-precision`` turns TF32 off.
-The CLI synthesises one utterance at a time, in length-sorted batches
-(``--batched``, ``--staged``) or sentence by sentence (``--long-form``).
+A multi-speaker model (the VCTK Matcha) takes a speaker id on every
+path (``spks``, CLI ``--spk``), checked on the host against the model's
+``n_spks`` before it reaches the card. The CLI synthesises one utterance
+at a time, in length-sorted batches (``--batched``, ``--staged``) or
+sentence by sentence (``--long-form``).
 Checkpoints are the reference formats (a Lightning ``.ckpt`` for Matcha,
 ``{"generator": state_dict}`` for HiFi-GAN), read from
 ``$MATCHA_HOME/matcha_tpu/`` or a given path; nothing is downloaded.
@@ -53,7 +56,7 @@ from matcha_tpu_torch.models.hifigan_fused import (
     fused_stage_weights,
     generator_apply_fused,
 )
-from matcha_tpu_torch.models.matcha import MatchaTTS, decoder_cast
+from matcha_tpu_torch.models.matcha import MatchaTTS, check_speakers, decoder_cast
 from matcha_tpu_torch.text import intersperse, sequence_to_text, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
 from matcha_tpu_torch.utils.utils import PCM24_SCALE, write_wav
@@ -282,27 +285,30 @@ class TTSPipeline:
         return wav
 
     def fused_graph(self, B: int, T_x: int, T_y: int, n_timesteps: int, temperature: float,
-                    length_scale: float, cuda_graph: Optional[bool] = None) -> FusedGraph:
+                    length_scale: float, cuda_graph: Optional[bool] = None,
+                    has_spk: bool = False) -> FusedGraph:
         """The cached fixed-bucket body for this key (``_fused_fn``'s key
-        fields plus B, the wire format and the graph mode; the port runs
-        single-speaker models and has no key fold)."""
-        key = (B, T_x, T_y, n_timesteps, temperature, length_scale,
+        fields, ``has_spk`` among them, plus B, the wire format and the
+        graph mode; the port has no key fold)."""
+        key = (B, T_x, T_y, n_timesteps, temperature, length_scale, has_spk,
                float(self.denoiser_strength), self.pcm24_transfer, cuda_graph)
         if key not in self._graphs:
             self._graphs[key] = FusedGraph(self, B, T_x, T_y, n_timesteps, temperature,
-                                           length_scale, self.pcm24_transfer, cuda_graph,
-                                           self._pool(cuda_graph))
+                                           length_scale, self.pcm24_transfer, has_spk,
+                                           cuda_graph, self._pool(cuda_graph))
         return self._graphs[key]
 
     def stage_graph(self, B: int, T_x: int, T_y: int, T_voc: int, n_timesteps: int,
-                    temperature: float, cuda_graph: Optional[bool] = None) -> StageGraph:
+                    temperature: float, cuda_graph: Optional[bool] = None,
+                    has_spk: bool = False) -> StageGraph:
         """The cached decode + vocode stage for this key (``_decode_vocode_fn``'s
-        key fields plus B, the denoiser strength and the graph mode)."""
-        key = ("stage", B, T_x, T_y, T_voc, n_timesteps, temperature,
+        key fields plus B, ``has_spk``, the denoiser strength and the graph
+        mode)."""
+        key = ("stage", B, T_x, T_y, T_voc, n_timesteps, temperature, has_spk,
                float(self.denoiser_strength), cuda_graph)
         if key not in self._graphs:
             self._graphs[key] = StageGraph(self, B, T_x, T_y, T_voc, n_timesteps, temperature,
-                                           cuda_graph, self._pool(cuda_graph))
+                                           has_spk, cuda_graph, self._pool(cuda_graph))
         return self._graphs[key]
 
     def _pool(self, cuda_graph: Optional[bool]):
@@ -338,8 +344,13 @@ class TTSPipeline:
                          temperature: float = 0.667, length_scale: float = 1.0,
                          z: Noise = None, generator: Optional[torch.Generator] = None,
                          pack_wav: bool = False, fixed_y_bucket: Union[int, str] = 0,
-                         raw_pcm24: bool = False, cuda_graph: Optional[bool] = None) -> dict:
+                         raw_pcm24: bool = False, cuda_graph: Optional[bool] = None,
+                         spks=None) -> dict:
         """ids (B, T) + lengths -> the ``decode`` dict plus the waveform.
+
+        ``spks``: host speaker ids (B,) for a multi-speaker model (checked
+        against its ``n_spks``: ValueError before anything runs), ignored
+        by a single-speaker one.
 
         Noise: ``z``, unit normal (B, T_y, n_feats) at the mel bucket T_y
         the call uses, or a callable ``z(T_y)`` that returns it; otherwise
@@ -368,6 +379,9 @@ class TTSPipeline:
         """
         x = np.asarray(x)
         x_lengths_host = np.asarray(x_lengths, dtype=np.int32)
+        spk_ids = check_speakers(self.model.n_spks, spks)
+        if spk_ids is not None and spk_ids.shape != (x.shape[0],):
+            raise ValueError(f"{spk_ids.shape[0]} speaker ids for a batch of {x.shape[0]}")
         T_x = pick_bucket(x.shape[-1], X_BUCKETS)
         x_pad = np.zeros((x.shape[0], T_x), dtype=np.int64)
         x_pad[:, :x.shape[-1]] = x
@@ -378,8 +392,9 @@ class TTSPipeline:
                    if auto else int(fixed_y_bucket))
             while True:
                 graph = self.fused_graph(x.shape[0], T_x, T_y, n_timesteps, temperature,
-                                         length_scale, cuda_graph)
-                out = graph(x_pad, x_lengths_host, z(T_y) if callable(z) else z, generator)
+                                         length_scale, cuda_graph, spk_ids is not None)
+                out = graph(x_pad, x_lengths_host, z(T_y) if callable(z) else z, generator,
+                            spk_ids)
                 if not auto:
                     return out
                 ml = _fetch_auto_host(out, raw_pcm24)
@@ -401,7 +416,7 @@ class TTSPipeline:
                     out = self.synthesise_batch(
                         x, x_lengths_host, n_timesteps=n_timesteps, temperature=temperature,
                         length_scale=length_scale, z=z, generator=generator,
-                        pack_wav=raw_pcm24)
+                        pack_wav=raw_pcm24, spks=spk_ids)
                     _fetch_auto_host(out, raw_pcm24)  # the same byte-delivery contract
                     return out
                 T_y = next((b for b in self.FUSED_Y_BUCKETS if b >= 2 * T_y),
@@ -409,12 +424,13 @@ class TTSPipeline:
 
         x_t = torch.from_numpy(x_pad).to(self.device)
         xl = torch.from_numpy(x_lengths_host).to(self.device)
-        mu_x, w_ceil, y_lengths = self.model.encode(x_t, xl, length_scale)
+        spks_t = None if spk_ids is None else torch.from_numpy(spk_ids).to(self.device)
+        mu_x, w_ceil, y_lengths = self.model.encode(x_t, xl, length_scale, spks_t)
         max_y = int(y_lengths.max())  # the one host sync of the path
         T_y = pick_bucket(max_y, Y_BUCKETS)
         out = self.model.decode(mu_x, w_ceil, xl, y_lengths, n_timesteps, temperature,
                                 y_max_length=T_y, z=z(T_y) if callable(z) else z,
-                                generator=generator)
+                                generator=generator, spks=spks_t)
         if self.vocoder is not None:
             T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
             wav = self.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
@@ -429,7 +445,7 @@ class TTSPipeline:
                           length_scale: float = 1.0, batch_size: int = 8,
                           stage_window: int = 64, fuse_stages: bool = False,
                           z: CorpusNoise = None, generator: Optional[torch.Generator] = None,
-                          cuda_graph: Optional[bool] = None):
+                          cuda_graph: Optional[bool] = None, spk: Optional[int] = None):
         """Staged batched synthesis of a whole corpus, as JAX's
         ``synthesise_corpus``: the utterances (1-D id arrays) sorted by
         length and cut into batches of ``batch_size``; per window of
@@ -449,12 +465,15 @@ class TTSPipeline:
         batch's place in the sorted corpus (JAX folds it into its key),
         else drawn from ``generator`` (on the pipeline's device) batch by
         batch. ``cuda_graph=False`` runs the fused stage eagerly on a GPU.
+        ``spk``: one speaker id for the whole corpus (a multi-speaker
+        model), checked on the host first.
 
         Yields ``(utterance indices, out)`` per batch in sorted order:
         ``out`` is the ``decode`` dict plus ``waveform`` (B, T_voc * hop)
         (and ``first_sample`` when fused), and ``mel_lengths_host``, the
         lengths already on the host.
         """
+        spk_id = check_speakers(self.model.n_spks, None if spk is None else [spk])
         order = sorted(range(len(utterances)), key=lambda i: len(utterances[i]))
         batches = [order[s:s + batch_size] for s in range(0, len(order), batch_size)]
         step = max(1, stage_window)
@@ -470,28 +489,31 @@ class TTSPipeline:
                 for row, idx in enumerate(chunk):
                     x[row, :len(utterances[idx])] = torch.as_tensor(np.asarray(utterances[idx]))
                     x_lengths[row] = len(utterances[idx])
+                spks = None if spk_id is None else np.full((len(chunk),), spk_id[0], np.int32)
                 x, x_lengths = (_to_device(t, self.device) for t in (x, x_lengths))
-                encoded.append((chunk, T_x, x_lengths,
-                                *self.model.encode(x, x_lengths, length_scale)))
+                spks_t = None if spks is None else _to_device(torch.from_numpy(spks), self.device)
+                encoded.append((chunk, T_x, x_lengths, spks, spks_t,
+                                *self.model.encode(x, x_lengths, length_scale, spks_t)))
 
             # 2. one host copy of the window's predicted lengths
-            y_host = np.split(torch.cat([e[5] for e in encoded]).cpu().numpy(),
+            y_host = np.split(torch.cat([e[-1] for e in encoded]).cpu().numpy(),
                               np.cumsum([len(e[0]) for e in encoded])[:-1])
 
             # 3. decode + vocode per batch, the buckets known on the host
-            for bi, (chunk, T_x, x_lengths, mu_x, w_ceil, y_lengths) in enumerate(encoded):
+            for bi, (chunk, T_x, x_lengths, spks, spks_t, mu_x, w_ceil,
+                     y_lengths) in enumerate(encoded):
                 B, max_y = len(chunk), int(y_host[bi].max())
                 T_y = pick_bucket(max_y, Y_BUCKETS)
                 T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
                 zb = None if z is None else z(w0 + bi, B, T_y)
                 if self.vocoder is not None and fuse_stages:
                     stage = self.stage_graph(B, T_x, T_y, T_voc, n_timesteps, temperature,
-                                             cuda_graph)
-                    out = stage(mu_x, w_ceil, x_lengths, y_lengths, zb, generator)
+                                             cuda_graph, spks is not None)
+                    out = stage(mu_x, w_ceil, x_lengths, y_lengths, zb, generator, spks)
                 else:
                     out = self.model.decode(mu_x, w_ceil, x_lengths, y_lengths, n_timesteps,
                                             temperature, y_max_length=T_y, z=zb,
-                                            generator=generator)
+                                            generator=generator, spks=spks_t)
                     if self.vocoder is not None:
                         out["waveform"] = self.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
                 # decode clips the lengths to the bucket
@@ -556,11 +578,6 @@ def matcha_kwargs(hp) -> dict:
     if dp_p is not None:
         kwargs.update(dp_kernel_size=int(_get(dp_p, "kernel_size", 3)))
     if dec is not None:
-        for stage in ("down", "mid", "up"):
-            block = str(_get(dec, f"{stage}_block_type", "transformer"))
-            if block != "transformer":
-                raise NotImplementedError(f"{stage}_block_type={block!r}: only transformer "
-                                          "decoder blocks are ported")
         kwargs.update(
             dec_channels=tuple(_get(dec, "channels", (256, 256))),
             dec_attention_head_dim=int(_get(dec, "attention_head_dim", 64)),
@@ -568,6 +585,9 @@ def matcha_kwargs(hp) -> dict:
             dec_num_mid_blocks=int(_get(dec, "num_mid_blocks", 2)),
             dec_num_heads=int(_get(dec, "num_heads", 2)),
             dec_act_fn=str(_get(dec, "act_fn", "snakebeta")),
+            **{f"dec_{stage}_block_type": str(_get(dec, f"{stage}_block_type", "transformer"))
+               for stage in ("down", "mid", "up")},
+            dec_conformer_batch_norm=bool(_get(dec, "conformer_batch_norm", False)),
         )
     return kwargs
 
@@ -633,8 +653,39 @@ def _print_rtf_summary(rtfs) -> None:
     print(f"[🍵] Average Matcha-TTS + VOCODER RTF: {np.mean(rtfs):.4f} ± {np.std(rtfs)}")
 
 
+def resolve_speaker(model: MatchaTTS, spk: Optional[int]) -> Optional[int]:
+    """The speaker the CLI and the daemon run, as JAX's argument checks
+    have it: a multi-speaker model without ``--spk`` warns and takes
+    speaker 0 (the ``matcha_vctk`` default); an id outside [0, n_spks)
+    exits with the range; a single-speaker model warns and ignores
+    ``--spk``."""
+    if model.n_spks <= 1:
+        if spk is not None:
+            warnings.warn(f"[-] Ignoring speaker id {spk} for a single-speaker model", UserWarning)
+        return None
+    if spk is None:
+        warnings.warn("[!] Speaker ID not provided! Using speaker ID 0", UserWarning)
+        return 0
+    try:
+        check_speakers(model.n_spks, [spk])
+    except ValueError as e:
+        raise SystemExit(f"--spk: {e}") from e
+    return int(spk)
+
+
+def _name(i: int, spk: Optional[int]) -> str:
+    """``utterance_<i>``, with ``_speaker_<spk>`` for a multi-speaker run."""
+    return f"utterance_{i:03d}" if spk is None else f"utterance_{i:03d}_speaker_{spk:03d}"
+
+
+def speaker_batch(spk: Optional[int], B: int) -> Optional[np.ndarray]:
+    """One speaker id for a batch of B, or None."""
+    return None if spk is None else np.full((B,), spk, np.int32)
+
+
 def unbatched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -> None:
-    """One utterance per call: ``utterance_<i>.wav`` / ``.npy``, i from 1."""
+    """One utterance per call: ``utterance_<i>[_speaker_<spk>].wav`` /
+    ``.npy``, i from 1."""
     rtfs = []
     for i, text in enumerate(texts, start=1):
         tp = process_text(i, text.strip(), pipeline.cleaner)
@@ -643,12 +694,12 @@ def unbatched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -> Non
         out, wavs, mls = synth_fetch_guarded(
             pipeline, tp["x"], tp["x_lengths"], n_timesteps=args.steps,
             temperature=args.temperature, length_scale=args.speaking_rate,
-            generator=generator, fixed_y_bucket=args.fixed_y_bucket)
+            generator=generator, fixed_y_bucket=args.fixed_y_bucket, spks=speaker_batch(args.spk, 1))
         ml = int(mls[0])
         wav = wavs[0, :ml * HOP]
         rtfs.append(_rtf(time.perf_counter() - t0, wav.shape[-1]))
         print(f"[🍵-{i}] Matcha-TTS + VOCODER RTF: {rtfs[-1]:.4f}")
-        location = _save(folder, f"utterance_{i:03d}", out["mel"][0, :, :ml].cpu().numpy(), wav)
+        location = _save(folder, _name(i, args.spk), out["mel"][0, :, :ml].cpu().numpy(), wav)
         print(f"[+] Waveform saved: {location}")
     _print_rtf_summary(rtfs)
 
@@ -667,11 +718,11 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
     for chunk, out in pipeline.synthesise_corpus(
             utts, n_timesteps=args.steps, temperature=args.temperature,
             length_scale=args.speaking_rate, batch_size=args.batch_size,
-            fuse_stages=args.fused_stage, generator=generator):
+            fuse_stages=args.fused_stage, generator=generator, spk=args.spk):
         wavs, mel = out["waveform"].cpu().numpy(), out["mel"].cpu().numpy()
         for row, idx in enumerate(chunk):
             ml = int(out["mel_lengths_host"][row])
-            location = _save(folder, f"utterance_{idx:03d}", mel[row, :, :ml],
+            location = _save(folder, _name(idx, args.spk), mel[row, :, :ml],
                              wavs[row, :ml * HOP])
             print(f"[🍵-{idx}] Waveform saved: {location}")
         total_samples += int(out["mel_lengths_host"].sum()) * HOP
@@ -700,13 +751,13 @@ def batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -> None:
         out, wavs, mls = synth_fetch_guarded(
             pipeline, x, x_lengths, n_timesteps=args.steps, temperature=args.temperature,
             length_scale=args.speaking_rate, generator=generator,
-            fixed_y_bucket=args.fixed_y_bucket)
+            fixed_y_bucket=args.fixed_y_bucket, spks=speaker_batch(args.spk, len(chunk)))
         rtfs.append(_rtf(time.perf_counter() - t0, int(np.sum(mls)) * HOP))
         print(f"[🍵-Batch: {bi + 1}] Matcha-TTS + VOCODER RTF: {rtfs[-1]:.4f}")
         mel = out["mel"].cpu().numpy()
         for row, idx in enumerate(chunk):
             ml = int(mls[row])
-            location = _save(folder, f"utterance_{idx:03d}", mel[row, :, :ml],
+            location = _save(folder, _name(idx, args.spk), mel[row, :, :ml],
                              wavs[row, :ml * HOP])
             print(f"[🍵-{idx}] Waveform saved: {location}")
     _print_rtf_summary(rtfs)
@@ -726,7 +777,7 @@ def long_form_synthesis(args, pipeline: TTSPipeline, text: str, folder: Path) ->
         out, wavs_h, mls_h = synth_fetch_guarded(
             pipeline, tp["x"], tp["x_lengths"], n_timesteps=args.steps,
             temperature=args.temperature, length_scale=args.speaking_rate,
-            generator=generator, fixed_y_bucket=args.fixed_y_bucket)
+            generator=generator, fixed_y_bucket=args.fixed_y_bucket, spks=speaker_batch(args.spk, 1))
         ml = int(mls_h[0])
         wavs.append(wavs_h[0, :ml * HOP])
         mels.append(out["mel"][0, :, :ml].cpu().numpy())
@@ -760,6 +811,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--long-form", action="store_true",
                         help="Synthesize a long --text sentence by sentence into one wav")
     parser.add_argument("--seed", type=int, default=1234, help="Noise seed (default 1234)")
+    parser.add_argument("--spk", type=int, default=None,
+                        help="Speaker ID of a multi-speaker model, in [0, n_spks) (default 0, "
+                             "with a warning); ignored, with a warning, by a single-speaker one")
     parser.add_argument("--cleaner", type=str, default="english_cleaners2",
                         help="Text cleaner (english_cleaners_no_espeak works without espeak)")
     parser.add_argument("--fixed-y-bucket", type=lambda s: s if s == "auto" else int(s), default=0,
@@ -831,6 +885,7 @@ def cli(argv=None):
     print(f"[+] Device: {device}")
 
     model = load_matcha(matcha_path, device)
+    args.spk = resolve_speaker(model, args.spk)
     vocoder, bias = load_vocoder(vocoder_path, device)
     pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
                            denoiser_strength=args.denoiser_strength,

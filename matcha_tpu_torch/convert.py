@@ -13,9 +13,10 @@ Layouts (flax -> torch):
 * dense kernel (in, out)            -> Linear (out, in), or (out, in, 1) for a 1x1 Conv1d
 * conv-transpose kernel (k, in, out), flipped along k
                                     -> ConvTranspose1d weight (in, out, k), un-flipped
+* grouped (depthwise) conv kernel (k, 1, C) -> Conv1d weight (C, 1, k)
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -50,9 +51,13 @@ def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def matcha_state_dict(params: dict, n_down_blocks: int = 2, num_mid_blocks: int = 2,
                       mel_mean: float = 0.0, mel_std: float = 1.0) -> Dict[str, torch.Tensor]:
-    """Flax ``MatchaTTS`` params (the ``params`` collection) -> reference
-    torch state dict, ``mel_mean``/``mel_std`` included."""
+    """Flax ``MatchaTTS`` variables (the ``params`` collection, and
+    ``batch_stats`` for conformer blocks in BatchNorm mode) -> reference
+    torch state dict, ``mel_mean``/``mel_std`` included. Conformer blocks
+    come out in the lucidrains layout (``ff1.fn.norm``, ``attn.fn.to_kv``,
+    ``conv.net.5.running_mean``, ...)."""
     p = params["params"] if "params" in params else params
+    stats = params.get("batch_stats", {}).get("decoder", {})
     sd: Dict[str, torch.Tensor] = {
         "mel_mean": torch.tensor(float(mel_mean)), "mel_std": torch.tensor(float(mel_std))}
 
@@ -80,6 +85,8 @@ def matcha_state_dict(params: dict, n_down_blocks: int = 2, num_mid_blocks: int 
 
     enc = p["encoder"]
     sd["encoder.emb.weight"] = _t(enc["emb"]["embedding"])
+    if "spk_emb" in p:
+        sd["spk_emb.weight"] = _t(p["spk_emb"]["embedding"])
     if "prenet" in enc:
         layers = sorted(int(k.rsplit("_", 1)[1]) for k in enc["prenet"] if k.startswith("conv_layers_"))
         for i in layers:
@@ -132,6 +139,12 @@ def matcha_state_dict(params: dict, n_down_blocks: int = 2, num_mid_blocks: int 
                 sd[f"{pre}.ff.net.0.alpha"] = _t(act["alpha"])
                 sd[f"{pre}.ff.net.0.beta"] = _t(act["beta"])
             linear(node["ff"]["proj_out"], f"{pre}.ff.net.2")
+        js = sorted(int(k.rsplit("_", 1)[1]) for k in dec
+                    if k.startswith(f"{path_prefix}_conformer_"))
+        for j in js:
+            name = f"{path_prefix}_conformer_{j}"
+            block = conformer_state_dict(dec[name], stats.get(name))
+            sd.update({f"{prefix}.{j}.{k}": v for k, v in block.items()})
 
     for i in range(n_down_blocks):
         resnet(dec[f"down_{i}_resnet"], f"{est}.down_blocks.{i}.0")
@@ -155,6 +168,50 @@ def matcha_state_dict(params: dict, n_down_blocks: int = 2, num_mid_blocks: int 
     conv(dec["final_block"]["conv"], f"{est}.final_block.block.0")
     norm(dec["final_block"]["norm"], f"{est}.final_block.block.1")
     pointwise(dec["final_proj"], f"{est}.final_proj")
+    return sd
+
+
+def conformer_state_dict(params: dict, batch_stats: Optional[dict] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A flax ``ConformerBlock``'s params (and, in BatchNorm mode, its
+    ``batch_stats``) -> the lucidrains torch keys of one block, the
+    inverse of ``matcha_tpu/utils/checkpoints.py::_convert_conformer_block``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def linear(node, prefix, bias=True):
+        sd[f"{prefix}.weight"] = linear_weight(node["kernel"])
+        if bias:
+            sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    def norm(node, prefix):
+        sd[f"{prefix}.weight"] = _t(node["scale"])
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    for ff in ("ff1", "ff2"):
+        norm(params[ff]["norm"], f"{ff}.fn.norm")
+        linear(params[ff]["ff1"], f"{ff}.fn.fn.net.0")
+        linear(params[ff]["ff2"], f"{ff}.fn.fn.net.3")
+    attn = params["attn"]
+    norm(attn["norm"], "attn.norm")
+    linear(attn["to_q"], "attn.fn.to_q", bias=False)
+    linear(attn["to_kv"], "attn.fn.to_kv", bias=False)
+    linear(attn["to_out"], "attn.fn.to_out")
+    sd["attn.fn.rel_pos_emb.weight"] = _t(attn["rel_pos_emb"]["embedding"])
+    cm = params["conv"]
+    norm(cm["norm"], "conv.net.0")
+    # the pointwise convs are flax Dense layers: (in, out) -> (out, in, 1)
+    sd["conv.net.2.weight"] = pointwise_conv_weight(cm["pw1"]["kernel"])
+    sd["conv.net.2.bias"] = _t(cm["pw1"]["bias"])
+    sd["conv.net.4.conv.weight"] = conv1d_weight(cm["depthwise"]["kernel"])
+    sd["conv.net.4.conv.bias"] = _t(cm["depthwise"]["bias"])
+    norm(cm["bn"], "conv.net.5")
+    if batch_stats:  # BatchNorm mode: its running statistics
+        sd["conv.net.5.running_mean"] = _t(batch_stats["conv"]["bn"]["mean"])
+        sd["conv.net.5.running_var"] = _t(batch_stats["conv"]["bn"]["var"])
+        sd["conv.net.5.num_batches_tracked"] = torch.tensor(0)
+    sd["conv.net.7.weight"] = pointwise_conv_weight(cm["pw2"]["kernel"])
+    sd["conv.net.7.bias"] = _t(cm["pw2"]["bias"])
+    norm(params["post_norm"], "post_norm")
     return sd
 
 

@@ -20,6 +20,11 @@ replayed: one launch from the host per call, the fused MRF kernel (K1,
 ``ops/mrf.py``) inside it. On the CPU the same body runs eagerly; that is
 the plain version the tests hold against the JAX package.
 
+A body captured for a multi-speaker model (``has_spk``) reads its speaker
+ids from a static buffer, staged like the other inputs: the embedding
+lookup runs inside the graph, so one capture serves every speaker at its
+shapes.
+
 Capture fails loudly: a body raises and never runs eagerly in its place.
 Only an explicit ``cuda_graph=False`` runs it eagerly on a GPU. A
 pipeline whose ``capture_allowed`` is False (the serving daemon after its
@@ -72,7 +77,9 @@ def _stage_noise(dst: torch.Tensor, z, generator: Optional[torch.Generator]) -> 
 class CapturedBody:
     """A body of fixed shapes over static input buffers: captured as a
     CUDA graph at its first call on a GPU and replayed after, run eagerly
-    on the CPU or with ``cuda_graph=False``.
+    on the CPU or with ``cuda_graph=False``. With ``has_spk`` it has a
+    static (B,) int64 buffer ``spks`` of speaker ids (else ``spks`` is
+    None).
 
     ``pipeline``: a ``cli.TTSPipeline``. ``cuda_graph``: None = capture on
     a GPU, run eagerly on the CPU; False runs eagerly on either. ``pool``:
@@ -83,7 +90,8 @@ class CapturedBody:
     inputs on ``self.device`` and define ``body``.
     """
 
-    def __init__(self, pipeline, cuda_graph: Optional[bool] = None, pool=None):
+    def __init__(self, pipeline, B: int, has_spk: bool, cuda_graph: Optional[bool] = None,
+                 pool=None):
         device = pipeline.device
         if cuda_graph is None:
             cuda_graph = device.type == "cuda"
@@ -98,6 +106,7 @@ class CapturedBody:
         self.memory_allocated: Optional[tuple] = None
         #: replays run so far
         self.replays = 0
+        self.spks = torch.zeros((B,), dtype=torch.int64, device=device) if has_spk else None
 
     #: the body's name in error messages
     name = "captured"
@@ -144,6 +153,15 @@ class CapturedBody:
         self.capture_seconds = time.perf_counter() - t0
         self.memory_allocated = (before, torch.cuda.memory_allocated(dev))
 
+    def _stage_spks(self, spks) -> None:
+        """Host speaker ids (B,) into the static buffer; None for a body
+        without one."""
+        if (spks is None) != (self.spks is None):
+            raise ValueError(f"the {self.name} graph ({self.describe()}) was built "
+                             f"{'with' if self.spks is not None else 'without'} speaker ids")
+        if spks is not None:
+            _stage(self.spks, np.asarray(spks, dtype=np.int64))
+
     def _run(self) -> Dict[str, torch.Tensor]:
         """The body on the static inputs: eagerly, or a replay (captured
         at the first call)."""
@@ -159,9 +177,10 @@ class CapturedBody:
 class FusedGraph(CapturedBody):
     """One bucket's text -> wav body with static input buffers.
 
-    Static inputs: ``x`` (B, T_x) int64 ids, ``x_lengths`` (B,) int32 and
-    ``z`` (B, T_y, n_feats) f32 unit noise; the temperature, like every
-    other key field, is a constant of the body.
+    Static inputs: ``x`` (B, T_x) int64 ids, ``x_lengths`` (B,) int32,
+    ``z`` (B, T_y, n_feats) f32 unit noise and, with ``has_spk``, ``spks``;
+    the temperature, like every other key field, is a constant of the
+    body.
 
     Calling it returns the ``synthesise`` dict plus ``waveform`` (B, T_y *
     hop) and ``wav_pcm24`` or ``wav_packed`` when the pipeline has a
@@ -171,9 +190,9 @@ class FusedGraph(CapturedBody):
     name = "fused"
 
     def __init__(self, pipeline, B: int, T_x: int, T_y: int, n_timesteps: int,
-                 temperature: float, length_scale: float, pcm24: bool,
+                 temperature: float, length_scale: float, pcm24: bool, has_spk: bool = False,
                  cuda_graph: Optional[bool] = None, pool=None):
-        super().__init__(pipeline, cuda_graph, pool)
+        super().__init__(pipeline, B, has_spk, cuda_graph, pool)
         self.T_y, self.n_timesteps = T_y, n_timesteps
         self.temperature, self.length_scale, self.pcm24 = temperature, length_scale, pcm24
         device = self.device
@@ -194,7 +213,7 @@ class FusedGraph(CapturedBody):
         model = p.latency_model if lat else p.model
         out = model.synthesise(self.x, self.x_lengths, self.n_timesteps, self.temperature,
                                self.length_scale, y_max_length=self.T_y, z=self.z,
-                               compute_dtype=torch.bfloat16 if lat else None)
+                               compute_dtype=torch.bfloat16 if lat else None, spks=self.spks)
         if p.vocoder is not None:
             wav = p.vocode(out["mel"].transpose(1, 2), bf16=True if lat else None)
             out["waveform"] = wav
@@ -207,12 +226,15 @@ class FusedGraph(CapturedBody):
 
     @torch.inference_mode()
     def __call__(self, x: np.ndarray, x_lengths: np.ndarray, z=None,
-                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """Padded ids (B, T_x) and lengths (B,) -> the body's outputs.
-        ``z``: the unit noise (B, T_y, n_feats); else drawn from
-        ``generator`` into the static buffer, outside the graph."""
+                 generator: Optional[torch.Generator] = None,
+                 spks: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """Padded ids (B, T_x) and lengths (B,) [and checked speaker ids
+        (B,)] -> the body's outputs. ``z``: the unit noise (B, T_y,
+        n_feats); else drawn from ``generator`` into the static buffer,
+        outside the graph."""
         _stage(self.x, np.asarray(x, dtype=np.int64))
         _stage(self.x_lengths, np.asarray(x_lengths, dtype=np.int32))
+        self._stage_spks(spks)
         _stage_noise(self.z, z, generator)
         return self._run()
 
@@ -222,7 +244,8 @@ class StageGraph(CapturedBody):
     decode -> the mel sliced to ``T_voc`` frames -> vocode -> clip ->
     denoise, with static inputs ``mu_x`` (B, T_x, n_feats), ``w_ceil``
     (B, T_x, 1), ``x_lengths`` and ``y_lengths`` (B,) int32 (stage 1's
-    device tensors, copied in on the device) and ``z`` (B, T_y, n_feats).
+    device tensors, copied in on the device), ``z`` (B, T_y, n_feats) and,
+    with ``has_spk``, ``spks``.
 
     Calling it returns the ``decode`` dict plus ``waveform`` (B, T_voc *
     hop) and ``first_sample`` (the waveform's [0, 0], as JAX's stage
@@ -232,8 +255,9 @@ class StageGraph(CapturedBody):
     name = "stage"
 
     def __init__(self, pipeline, B: int, T_x: int, T_y: int, T_voc: int, n_timesteps: int,
-                 temperature: float, cuda_graph: Optional[bool] = None, pool=None):
-        super().__init__(pipeline, cuda_graph, pool)
+                 temperature: float, has_spk: bool = False, cuda_graph: Optional[bool] = None,
+                 pool=None):
+        super().__init__(pipeline, B, has_spk, cuda_graph, pool)
         self.T_y, self.T_voc = T_y, T_voc
         self.n_timesteps, self.temperature = n_timesteps, temperature
         device, n_feats = self.device, pipeline.model.n_feats
@@ -249,7 +273,8 @@ class StageGraph(CapturedBody):
     def body(self) -> Dict[str, torch.Tensor]:
         p = self.pipeline
         out = p.model.decode(self.mu_x, self.w_ceil, self.x_lengths, self.y_lengths,
-                             self.n_timesteps, self.temperature, y_max_length=self.T_y, z=self.z)
+                             self.n_timesteps, self.temperature, y_max_length=self.T_y, z=self.z,
+                             spks=self.spks)
         out["waveform"] = p.vocode(out["mel"].transpose(1, 2)[:, :self.T_voc])
         out["first_sample"] = out["waveform"][0, 0]
         return out
@@ -257,11 +282,13 @@ class StageGraph(CapturedBody):
     @torch.inference_mode()
     def __call__(self, mu_x: torch.Tensor, w_ceil: torch.Tensor, x_lengths: torch.Tensor,
                  y_lengths: torch.Tensor, z=None,
-                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """Stage 1's outputs for one batch -> the stage's outputs. ``z`` as
-        for ``FusedGraph``."""
+                 generator: Optional[torch.Generator] = None,
+                 spks: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """Stage 1's outputs for one batch -> the stage's outputs. ``z`` and
+        ``spks`` as for ``FusedGraph``."""
         for dst, src in ((self.mu_x, mu_x), (self.w_ceil, w_ceil),
                          (self.x_lengths, x_lengths), (self.y_lengths, y_lengths)):
             _stage(dst, src)
+        self._stage_spks(spks)
         _stage_noise(self.z, z, generator)
         return self._run()

@@ -1,16 +1,19 @@
-"""CFM estimator: 1-D U-Net over mel frames with transformer blocks.
+"""CFM estimator: 1-D U-Net over mel frames with transformer or conformer
+blocks.
 
-Port of ``matcha_tpu/models/components/decoder.py`` (transformer blocks
-only) with the reference module tree: ``down_blocks.i`` =
-[ResnetBlock1D, [BasicTransformerBlock...], downsample], ``mid_blocks.i``
-= [ResnetBlock1D, [blocks]], ``up_blocks.i`` = [ResnetBlock1D, [blocks],
-upsample], ``final_block``, ``final_proj``. The public ``forward`` takes
-and returns (B, T, C); the convolutional parts run channels-first
-internally. GroupNorm statistics run over the full padded length, as in
-the reference.
+Port of ``matcha_tpu/models/components/decoder.py`` with the reference
+module tree: ``down_blocks.i`` = [ResnetBlock1D, [blocks...],
+downsample], ``mid_blocks.i`` = [ResnetBlock1D, [blocks]],
+``up_blocks.i`` = [ResnetBlock1D, [blocks], upsample], ``final_block``,
+``final_proj``; the blocks of each stage (down, mid, up) are
+``BasicTransformerBlock``s or ``ConformerBlock``s. The input is
+concat(x, mu[, the speaker embedding tiled over time]) along channels.
+The public ``forward`` takes and returns (B, T, C); the convolutional
+parts run channels-first internally. GroupNorm statistics run over the
+full padded length, as in the reference.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +23,7 @@ from matcha_tpu_torch.models.components.common import (
     TimestepEmbedding,
     mish,
 )
+from matcha_tpu_torch.models.components.conformer import ConformerBlock
 from matcha_tpu_torch.models.components.transformer import BasicTransformerBlock
 
 
@@ -80,18 +84,27 @@ class Decoder(nn.Module):
                  channels: Tuple[int, ...] = (256, 256), attention_head_dim: int = 64,
                  n_blocks: int = 1, num_mid_blocks: int = 2, num_heads: int = 4,
                  act_fn: str = "snakebeta", mask_mode: str = "additive_reference",
-                 dropout: float = 0.05):
+                 dropout: float = 0.05, down_block_type: str = "transformer",
+                 mid_block_type: str = "transformer", up_block_type: str = "transformer",
+                 conformer_batch_norm: bool = False):
         super().__init__()
         channels = tuple(channels)
         time_embed_dim = channels[0] * 4
         self.time_embeddings = SinusoidalPosEmb(in_channels)
         self.time_mlp = TimestepEmbedding(in_channels, time_embed_dim)
 
-        def tblocks(dim):
-            return nn.ModuleList(
-                BasicTransformerBlock(dim, num_heads, attention_head_dim, act_fn, mask_mode,
-                                      dropout)
-                for _ in range(n_blocks))
+        def block(dim, block_type):
+            if block_type == "transformer":
+                return BasicTransformerBlock(dim, num_heads, attention_head_dim, act_fn,
+                                             mask_mode, dropout)
+            if block_type == "conformer":
+                return ConformerBlock(dim, heads=num_heads, dim_head=attention_head_dim,
+                                      attn_dropout=dropout, ff_dropout=dropout,
+                                      conv_dropout=dropout, use_batch_norm=conformer_batch_norm)
+            raise ValueError(f"Unknown block type {block_type!r}")
+
+        def tblocks(dim, block_type):
+            return nn.ModuleList(block(dim, block_type) for _ in range(n_blocks))
 
         self.down_blocks = nn.ModuleList()
         dim_in = in_channels
@@ -99,12 +112,12 @@ class Decoder(nn.Module):
             is_last = i == len(channels) - 1
             down = nn.Conv1d(ch, ch, 3, padding=1) if is_last else Downsample1D(ch)
             self.down_blocks.append(nn.ModuleList(
-                [ResnetBlock1D(dim_in, ch, time_embed_dim), tblocks(ch), down]))
+                [ResnetBlock1D(dim_in, ch, time_embed_dim), tblocks(ch, down_block_type), down]))
             dim_in = ch
 
         self.mid_blocks = nn.ModuleList(
             nn.ModuleList([ResnetBlock1D(channels[-1], channels[-1], time_embed_dim),
-                           tblocks(channels[-1])])
+                           tblocks(channels[-1], mid_block_type)])
             for _ in range(num_mid_blocks))
 
         up_channels = channels[::-1] + (channels[0],)
@@ -114,30 +127,36 @@ class Decoder(nn.Module):
             is_last = i == len(up_channels) - 2
             up = nn.Conv1d(ch, ch, 3, padding=1) if is_last else Upsample1D(ch)
             self.up_blocks.append(nn.ModuleList(
-                [ResnetBlock1D(2 * up_channels[i], ch, time_embed_dim), tblocks(ch), up]))
+                [ResnetBlock1D(2 * up_channels[i], ch, time_embed_dim), tblocks(ch, up_block_type),
+                 up]))
 
         self.final_block = Block1D(up_channels[-1], up_channels[-1])
         self.final_proj = nn.Conv1d(up_channels[-1], out_channels, 1)
 
     @staticmethod
     def _transformers(blocks, h, mask):
-        """Run (B, T, C) transformer blocks on a (B, C, T) tensor."""
+        """Run (B, T, C) transformer or conformer blocks on a (B, C, T)
+        tensor."""
         h = h.transpose(1, 2)
         for block in blocks:
             h = block(h, mask[:, 0, :])
         return h.transpose(1, 2)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, mu: torch.Tensor,
-                t: torch.Tensor) -> torch.Tensor:
+                t: torch.Tensor, spks: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x, mu: (B, T, n_feats); mask: (B, T, 1); t: (B,) or scalar flow
-        time. Returns the (B, T, out_channels) vector field, masked."""
+        time; spks: (B, spk_emb_dim) speaker embeddings or None. Returns
+        the (B, T, out_channels) vector field, masked."""
         if t.dim() == 0:
             t = t.expand(x.shape[0])
         # the sinusoidal embedding is f32; its MLP's output takes the
         # activations' type, so that a bf16 flow stays bf16
         temb = self.time_mlp(self.time_embeddings(t)).to(x.dtype)
 
-        h = torch.cat([x, mu], dim=-1).transpose(1, 2)
+        h = torch.cat([x, mu], dim=-1)
+        if spks is not None:
+            h = torch.cat([h, spks[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)
+        h = h.transpose(1, 2)
         mask_cf = mask.transpose(1, 2)  # (B, 1, T)
 
         hiddens = []

@@ -2,13 +2,17 @@
 
 The port of ``matcha_tpu/models/components/text_encoder.py`` with the
 reference module names (``emb``, ``prenet``, ``encoder``, ``proj_m``,
-``proj_w``). Tensors are (B, T, C); masks are (B, T, 1) floats. Dropout
+``proj_w``). A multi-speaker encoder tiles the speaker embedding over
+time and concatenates it after the prenet, so the transformer stack, the
+duration predictor and ``proj_m`` run ``n_channels + spk_emb_dim`` wide.
+Tensors are (B, T, C); masks are (B, T, 1) floats. Dropout
 sits where the JAX package has it (attention probabilities, FFN hidden,
 both residual branches, prenet, duration predictor) and is active only
 in ``train()`` mode.
 """
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -163,28 +167,35 @@ class DurationPredictor(nn.Module):
 
 
 class TextEncoder(nn.Module):
-    """Phoneme ids (B, T) -> mu (B, T, n_feats), logw (B, T, 1), masked.
-    Single speaker."""
+    """Phoneme ids (B, T) -> mu (B, T, n_feats), logw (B, T, 1), masked."""
 
     def __init__(self, n_vocab: int, n_feats: int, n_channels: int = 192,
                  filter_channels: int = 768, filter_channels_dp: int = 256,
                  n_heads: int = 2, n_layers: int = 6, kernel_size: int = 3,
-                 prenet: bool = True, dp_kernel_size: int = 3, p_dropout: float = 0.1):
+                 prenet: bool = True, dp_kernel_size: int = 3, p_dropout: float = 0.1,
+                 n_spks: int = 1, spk_emb_dim: int = 64):
         super().__init__()
         self.n_channels = n_channels
+        self.n_spks = n_spks
+        width = n_channels + (spk_emb_dim if n_spks > 1 else 0)
         self.emb = nn.Embedding(n_vocab, n_channels)
         self.prenet = (ConvReluNorm(n_channels, n_channels, n_channels, kernel_size=5,
                                     n_layers=3, p_dropout=0.5) if prenet else None)
-        self.encoder = Encoder(n_channels, filter_channels, n_heads, n_layers, kernel_size,
-                               p_dropout)
-        self.proj_m = PointwiseConv1d(n_channels, n_feats)
-        self.proj_w = DurationPredictor(n_channels, filter_channels_dp, dp_kernel_size,
-                                        p_dropout)
+        self.encoder = Encoder(width, filter_channels, n_heads, n_layers, kernel_size, p_dropout)
+        self.proj_m = PointwiseConv1d(width, n_feats)
+        self.proj_w = DurationPredictor(width, filter_channels_dp, dp_kernel_size, p_dropout)
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                spks: Optional[torch.Tensor] = None):
+        """``spks``: (B, spk_emb_dim) speaker embeddings, which a
+        multi-speaker encoder needs and a single-speaker one ignores."""
         h = self.emb(x) * math.sqrt(self.n_channels)
         if self.prenet is not None:
             h = self.prenet(h, x_mask)
+        if self.n_spks > 1:
+            if spks is None:
+                raise ValueError(f"a {self.n_spks}-speaker encoder needs speaker embeddings")
+            h = torch.cat([h, spks[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)
         h = self.encoder(h, x_mask)
         mu = self.proj_m(h) * x_mask
         # the duration predictor sees a detached copy: the duration loss

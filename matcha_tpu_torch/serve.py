@@ -25,9 +25,12 @@ Endpoints (the JAX daemon's, with its status codes and JSON keys):
   GET  /healthz            {"status": "ok", "batches": N, "requests": N}
 
 Each call draws its noise from a generator of its own on the pipeline's
-device, seeded from (``seed``, the call's number). The port serves
-single-speaker models: a request's ``spk`` groups requests as in JAX and
-changes nothing else.
+device, seeded from (``seed``, the call's number). A multi-speaker model
+serves every speaker: ``--spk`` is the default of requests that omit
+``"spk"``, requests group by (rate, spk), and one warmed graph per
+(x bucket, rate, has_spk) serves every speaker (its speaker id is a
+static input). A speaker id outside the model's range is answered with
+400 before it is queued.
 
     python -m matcha_tpu_torch.serve --port 8080 --warmup 128:512 [--cpu]
 """
@@ -50,8 +53,10 @@ import torch
 from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.cli import (HOP, SAMPLE_RATE, VOC_BUCKETS, X_BUCKETS, Y_BUCKETS,
                                   TTSPipeline, default_checkpoints, fetch_fused_host,
-                                  load_matcha, load_vocoder, pick_bucket)
+                                  load_matcha, load_vocoder, pick_bucket, resolve_speaker,
+                                  speaker_batch)
 from matcha_tpu_torch.fused import _pack_pcm24
+from matcha_tpu_torch.models.matcha import check_speakers
 from matcha_tpu_torch.text import intersperse, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
 from matcha_tpu_torch.utils.utils import pcm24_bytes as pcm24
@@ -158,8 +163,8 @@ class BatchingServer:
         self.pipelined = pipelined
         self._completion_q: "queue.Queue" = queue.Queue(maxsize=2)
         self._in_flight = 0  # launched batches not yet fetched
-        # the single-request fast path: (T_x bucket, rate) -> the mel
-        # buckets warmup captured, sorted; only those are ever replayed
+        # the single-request fast path: (T_x bucket, rate, has_spk) -> the
+        # mel buckets warmup captured, sorted; only those are ever replayed
         self.fused_single = fused_single
         self._fused_warm: dict = {}
         # warmed x buckets, sorted: shorter texts route up to one of them
@@ -192,9 +197,19 @@ class BatchingServer:
         return self.call_generator(n_call)
 
     # -- client side ------------------------------------------------------
+    def resolve_spk(self, spk: Optional[int]) -> Optional[int]:
+        """A request's speaker: ``default_spk`` when it gives none, checked
+        against the model's speakers (ValueError, which the HTTP layer
+        answers with 400, for an id out of range or a multi-speaker model
+        with no speaker at all)."""
+        spk = self.default_spk if spk is None else int(spk)
+        check_speakers(self.pipeline.model.n_spks, None if spk is None else [spk])
+        return spk
+
     def _enqueue(self, text: str, speaking_rate: Optional[float], spk: Optional[int],
                  urgent: bool = False, bulk: bool = False) -> _Request:
         """Phonemize and queue without waiting."""
+        spk = self.resolve_spk(spk)
         seq = intersperse(text_to_sequence(text, [self.pipeline.cleaner]), 0)
         if self.max_warm_x is not None and len(seq) > self.max_warm_x:
             raise ValueError(
@@ -204,8 +219,7 @@ class BatchingServer:
         req = _Request(seq=np.asarray(seq, np.int32),
                        speaking_rate=(self.default_rate if speaking_rate is None
                                       else self._quantize_rate(speaking_rate)),
-                       spk=self.default_spk if spk is None else int(spk),
-                       urgent=urgent, bulk=bulk)
+                       spk=spk, urgent=urgent, bulk=bulk)
         with self._lock:
             self.n_requests += 1
         self._q.put(req)
@@ -373,14 +387,14 @@ class BatchingServer:
             # the fast path: one replay of a graph warmup captured
             r = reqs[0]
             T_x = self._route_x(len(r.seq))
-            T_y = self._pick_fused_bucket(T_x, rate, len(r.seq))
+            T_y = self._pick_fused_bucket(T_x, rate, spk is not None, len(r.seq))
             if T_y:
                 x1 = np.zeros((1, T_x), np.int32)
                 x1[0, :len(r.seq)] = r.seq
                 out = self.pipeline.synthesise_batch(
                     x1, np.asarray([len(r.seq)], np.int32), n_timesteps=self.n_timesteps,
                     temperature=self.temperature, length_scale=rate, fixed_y_bucket=T_y,
-                    generator=self._next_generator())
+                    generator=self._next_generator(), spks=speaker_batch(spk, 1))
                 out["_fused_T_y"] = T_y  # the saturation check's marker
                 self._hand_over(reqs, out)
                 return
@@ -399,7 +413,7 @@ class BatchingServer:
         out = self.pipeline.synthesise_batch(
             x, xl, n_timesteps=self.n_timesteps, temperature=self.temperature,
             length_scale=rate, generator=self._next_generator(),
-            pack_wav=self.pipeline.pcm24_transfer)
+            pack_wav=self.pipeline.pcm24_transfer, spks=speaker_batch(spk, B))
         self._hand_over(reqs, out)
 
     def _hand_over(self, reqs, out):
@@ -417,12 +431,13 @@ class BatchingServer:
                 return b
         return pick_bucket(n, X_BUCKETS)
 
-    def _pick_fused_bucket(self, T_x: int, rate: float, n_ids: int) -> Optional[int]:
+    def _pick_fused_bucket(self, T_x: int, rate: float, has_spk: bool,
+                           n_ids: int) -> Optional[int]:
         """The tightest warmed fast-path bucket that holds the estimated
         length (the pipeline's calibrated frames per id, as ``"auto"``
         uses it); the largest warmed one before calibration. The
         saturation check in ``_complete`` catches an underestimate."""
-        buckets = self._fused_warm.get((T_x, rate))
+        buckets = self._fused_warm.get((T_x, rate, has_spk))
         if not buckets:
             return None
         ratio = self.pipeline._dur_ratio
@@ -455,7 +470,8 @@ class BatchingServer:
                     out2 = self.pipeline.synthesise_batch(
                         x1, np.asarray([len(r.seq)], np.int32), n_timesteps=self.n_timesteps,
                         temperature=self.temperature, length_scale=r.speaking_rate,
-                        generator=self._next_generator(), pack_wav=self.pipeline.pcm24_transfer)
+                        generator=self._next_generator(), pack_wav=self.pipeline.pcm24_transfer,
+                        spks=speaker_batch(r.spk, 1))
                     wavs, mel_lengths = fetch_fused_host(out2)
         except Exception as e:  # a device error: fail the batch, serve on
             with self._lock:
@@ -491,10 +507,11 @@ class BatchingServer:
         inside each (the finer vocoder bucket a batch is sliced to): on the
         card that loads cuDNN's and cuFFT's plans and K1's library. Then the
         fast path's graphs (B = 1) are captured at mel buckets
-        {max(64, T_y // 2), T_y} and registered; they are the only graphs
-        the daemon replays, since the pipeline refuses captures outside
-        this call. Texts longer than the largest warmed T_x are refused
-        from here on, and shorter ones route up to a warmed T_x."""
+        {max(64, T_y // 2), T_y} with the default speaker and registered;
+        they are the only graphs the daemon replays (for every speaker),
+        since the pipeline refuses captures outside this call. Texts
+        longer than the largest warmed T_x are refused from here on, and
+        shorter ones route up to a warmed T_x."""
         p = self.pipeline
         sizes, b = {1}, 1
         while b < self.max_batch:
@@ -506,13 +523,14 @@ class BatchingServer:
                 for T_x, T_y in pairs:
                     self._warm_dynamic(T_x, T_y, sorted(sizes))
                     if self.fused_single and p.vocoder is not None:
-                        key = (T_x, self.default_rate)
+                        key = (T_x, self.default_rate, self.default_spk is not None)
                         for T_f in sorted({max(64, T_y // 2), T_y}):
                             p.synthesise_batch(
                                 np.ones((1, T_x), np.int32), np.full((1,), T_x, np.int32),
                                 n_timesteps=self.n_timesteps, temperature=self.temperature,
                                 length_scale=self.default_rate, fixed_y_bucket=T_f,
-                                generator=self.call_generator(0))
+                                generator=self.call_generator(0),
+                                spks=speaker_batch(self.default_spk, 1))
                             self._fused_warm[key] = sorted(set(self._fused_warm.get(key, []))
                                                            | {T_f})
             if p.device.type == "cuda":
@@ -530,12 +548,15 @@ class BatchingServer:
         for B in sizes:
             x = torch.ones((B, T_x), dtype=torch.int64, device=p.device)
             xl = torch.full((B,), T_x, dtype=torch.int32, device=p.device)
-            mu_x, w_ceil, y_lengths = p.model.encode(x, xl, self.default_rate)
+            spks = None if self.default_spk is None else torch.full(
+                (B,), self.default_spk, dtype=torch.int64, device=p.device)
+            mu_x, w_ceil, y_lengths = p.model.encode(x, xl, self.default_rate, spks)
             for T_yb in y_buckets:
                 prev_y = max([y for y in Y_BUCKETS if y < T_yb], default=0)
                 voc_lens = [v for v in VOC_BUCKETS if prev_y < v <= T_yb] or [T_yb]
                 out = p.model.decode(mu_x, w_ceil, xl, y_lengths, self.n_timesteps,
-                                     self.temperature, y_max_length=T_yb, generator=gen)
+                                     self.temperature, y_max_length=T_yb, generator=gen,
+                                     spks=spks)
                 if p.vocoder is None:
                     continue
                 mel_btc = out["mel"].transpose(1, 2)
@@ -607,6 +628,9 @@ def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1", port: int
                     payload["speaking_rate"] = float(payload["speaking_rate"])
                 if payload.get("spk") is not None:
                     payload["spk"] = int(payload["spk"])
+                # a speaker out of range is a bad request, answered before
+                # anything is queued (or a stream's header goes out)
+                batcher.resolve_spk(payload.get("spk"))
             # ValueError covers bad JSON, a bad Content-Length and bodies
             # that are not UTF-8; TypeError a payload that is not an object
             except (KeyError, ValueError, TypeError) as e:
@@ -670,9 +694,8 @@ def _parse_warmup(spec: str):
 NOT_PORTED = {
     "data_parallel": "--data-parallel: multi-GPU serving is not ported (ROADMAP.md queue 1, "
                      "item 9)",
-    "spk": "--spk: the port serves single-speaker models only (multi-speaker models: "
-           "ROADMAP.md queue 1, item 5)",
 }
+
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -686,7 +709,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--temperature", type=float, default=0.667)
     p.add_argument("--speaking_rate", type=float, default=None)
-    p.add_argument("--spk", type=int, default=None)
+    p.add_argument("--spk", type=int, default=None,
+                   help="default speaker of a multi-speaker model (0, with a warning, when "
+                        "omitted); requests may name their own with \"spk\"")
     p.add_argument("--warmup", type=str, default="128:512",
                    help="comma list of Tx:Ty bucket pairs to warm up (empty to skip)")
     p.add_argument("--no-fused-single", action="store_true",
@@ -712,6 +737,7 @@ def main(argv=None):
     device = resolve_device("cpu" if args.cpu else None)
     matcha_path, vocoder_path, rate = default_checkpoints(args.checkpoint_path)
     model = load_matcha(matcha_path, device)
+    default_spk = resolve_speaker(model, args.spk)
     vocoder, bias = load_vocoder(vocoder_path, device)
     pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
                            vocoder_chunk=args.vocoder_chunk, vocoder_bf16=args.bf16_vocoder,
@@ -720,6 +746,7 @@ def main(argv=None):
                              batch_window_ms=args.batch_window_ms, n_timesteps=args.steps,
                              temperature=args.temperature,
                              default_rate=args.speaking_rate or rate,
+                             default_spk=default_spk,
                              fused_single=not args.no_fused_single)
     pairs = _parse_warmup(args.warmup)
     if pairs:

@@ -28,10 +28,6 @@ def build_model_from_cfg(cfg):
     enc = m.encoder.encoder_params
     dp = m.encoder.duration_predictor_params
     dec = m.decoder
-    for stage in ("down_block_type", "mid_block_type", "up_block_type"):
-        if dec.get(stage, "transformer") != "transformer":
-            raise NotImplementedError(f"decoder {stage}={dec[stage]!r}: the port has "
-                                      "transformer blocks only")
     stats = m.get("data_statistics") or {}
     return MatchaTTS(
         n_vocab=int(m.n_vocab),
@@ -54,6 +50,10 @@ def build_model_from_cfg(cfg):
         dec_num_mid_blocks=int(dec.num_mid_blocks),
         dec_num_heads=int(dec.num_heads),
         dec_act_fn=str(dec.act_fn),
+        dec_down_block_type=str(dec.get("down_block_type", "transformer")),
+        dec_mid_block_type=str(dec.get("mid_block_type", "transformer")),
+        dec_up_block_type=str(dec.get("up_block_type", "transformer")),
+        dec_conformer_batch_norm=bool(dec.get("conformer_batch_norm", False)),
         sigma_min=float(m.cfm.sigma_min),
         prior_loss=bool(m.prior_loss),
         mel_mean=float(stats.get("mel_mean", 0.0)),

@@ -5,7 +5,10 @@ The port of ``matcha_tpu/training/data.py`` for one process: it parses
 blank-interspersed ids with the port's own text frontend, extracts and
 normalises log-mels with the port's numpy mel, and pads each batch to the
 same bucket grid as the JAX package (``X_BUCKET_GRID``, ``Y_BUCKET_GRID``),
-so the two packages give identical batches. Mels come out channels-last
+so the two packages give identical batches; a multi-speaker batch carries
+``spks`` (B,) int32, each id checked to lie in [0, n_spks) when its item
+is read (an id beyond the embedding table would fire a device-side assert
+on the card). Mels come out channels-last
 (B, T, n_feats). ``num_workers`` threads load items in order (numpy's FFT
 releases the interpreter lock).
 """
@@ -120,6 +123,8 @@ class TextMelDataset:
         entry = self.filepaths_and_text[index]
         if self.n_spks > 1:
             filepath, spk, text = entry[0], int(entry[1]), entry[2]
+            if not 0 <= spk < self.n_spks:
+                raise ValueError(f"{filepath}: speaker id {spk} outside 0..{self.n_spks - 1}")
         else:
             filepath, text = entry[0], entry[1]
             spk = 0
@@ -202,8 +207,6 @@ class TextMelDataModule:
         frontend: str = "numpy",
         **_unused,
     ):
-        if n_spks > 1:
-            raise NotImplementedError("the port trains single-speaker models only")
         self.name = name
         self.batch_size = batch_size
         self.n_feats = n_feats

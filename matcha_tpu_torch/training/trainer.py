@@ -20,11 +20,22 @@ The port of ``matcha_tpu/training/trainer.py`` for a single device:
   names are the reference's (``loss/train``, ``sub_loss/train_dur_loss``,
   ..., ``grad_norm/total``).
 
-Precision: params, gradients and Adam moments are f32. ``"bf16"``,
-``"bf16-mixed"`` and ``"16-mixed"`` are not ported; every other string
-(the config's ``"bf16-compute"`` included) trains in f32.
+Precision, as JAX's ``make_train_step``: params, gradients and Adam
+moments are f32. Under ``"bf16"``, ``"bf16-mixed"`` and ``"16-mixed"``
+(the same bf16 policy: no fp16, no loss scaling) the forward and backward
+run on a copy of every float parameter and buffer rounded to bf16 and of
+the batch's ``y`` in bf16 (``batch_losses``), and the three losses are
+cast back to f32 before they are summed. In JAX a bf16 weight that meets
+an f32 activation is promoted to f32 by the flax layer, and the first
+mask product makes the activations f32, so the model computes in f32 on
+bf16-rounded weights; the port hands the layers those values as f32
+(rounded to bf16 and back, a differentiable pair of casts, so each
+gradient is rounded to bf16 on its way to the f32 master, as JAX's is).
+Validation stays f32. Every other string (the config's ``"bf16-compute"``
+included) trains in f32.
 """
 
+import itertools
 import json
 import logging
 import math
@@ -114,22 +125,45 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
+def batch_losses(model: MatchaTTS, batch: dict, out_size: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None, noise: Optional[dict] = None,
+                 precision: str = "f32"):
+    """(dur_loss, prior_loss, diff_loss) of a batch of tensors, f32.
+    Under a ``BF16_PRECISIONS`` name: on the model's float parameters and
+    buffers rounded to bf16 (held as f32, the type flax promotes them to
+    where they meet the activations) and ``y`` in bf16, the losses cast
+    back to f32 (JAX's ``make_train_step``); gradients reach the f32
+    parameters through the casts, rounded to bf16."""
+    args = [batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], out_size]
+    kwargs = dict(durations=batch.get("durations"), spks=batch.get("spks"),
+                  generator=generator, **(noise or {}))
+    if precision not in BF16_PRECISIONS:
+        return model.losses(*args, **kwargs)[:3]
+    cast = {name: t.to(torch.bfloat16).to(t.dtype)
+            for name, t in itertools.chain(model.named_parameters(), model.named_buffers())
+            if t.is_floating_point()}
+    args[2] = args[2].to(torch.bfloat16)
+    losses = torch.func.functional_call(model, cast, tuple(args), kwargs)[:3]
+    return tuple(v.float() for v in losses)
+
+
 def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int, seed: int,
                out_size: Optional[int] = None, gradient_clip_val: float = 5.0,
                noise: Optional[dict] = None,
-               on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+               on_phase: Optional[Callable[[str], None]] = None,
+               precision: str = "f32") -> Dict[str, torch.Tensor]:
     """One update on a batch of tensors on the model's device. ``noise``:
     optional ``t``, ``z``, ``offsets`` for ``MatchaTTS.losses``, else
-    drawn from the step's generator. ``on_phase(name)`` is called after
-    "forward", "backward" and "optimizer" (for timing). Returns the
-    metrics as 0-d tensors on the device."""
+    drawn from the step's generator. ``precision``: a ``BF16_PRECISIONS``
+    name runs the forward and backward in bf16 on f32 masters
+    (``batch_losses``). ``on_phase(name)`` is called after "forward",
+    "backward" and "optimizer" (for timing). Returns the metrics as 0-d
+    tensors on the device."""
     model.train()
     device = batch["y"].device
     gen = torch.Generator(device=device).manual_seed(step_seed(seed, step))
     torch.manual_seed(step_seed(seed + 1, step))  # dropout
-    dur, prior, diff, _ = model.losses(
-        batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], out_size,
-        durations=batch.get("durations"), generator=gen, **(noise or {}))
+    dur, prior, diff = batch_losses(model, batch, out_size, gen, noise, precision)
     loss = dur + prior + diff
     if on_phase:
         on_phase("forward")
@@ -151,12 +185,11 @@ def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int
 @torch.no_grad()
 def eval_step(model: MatchaTTS, batch: dict, out_size: Optional[int] = None
               ) -> Dict[str, torch.Tensor]:
-    """The losses of a batch with dropout off, noise from a fixed seed."""
+    """The losses of a batch with dropout off, noise from a fixed seed, in
+    f32 whatever the training precision (as JAX's ``make_eval_step``)."""
     model.eval()
     gen = torch.Generator(device=batch["y"].device).manual_seed(0)
-    dur, prior, diff, _ = model.losses(
-        batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], out_size,
-        durations=batch.get("durations"), generator=gen)
+    dur, prior, diff = batch_losses(model, batch, out_size, gen)
     return {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff, "loss": dur + prior + diff}
 
 
@@ -305,9 +338,7 @@ class Trainer:
         scheduler: Optional[dict] = None,
         loggers: Optional[dict] = None,
     ):
-        if precision in BF16_PRECISIONS:
-            raise NotImplementedError(f"precision={precision!r} is not ported; the port "
-                                      "trains in f32")
+        self.precision = precision
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.dm = datamodule
@@ -419,7 +450,8 @@ class Trainer:
                 for batch in prefetch_iterator(batches, pin=pin):
                     metrics = train_step(self.model, self.optimizer, self.lr_scheduler,
                                          to_device(batch, self.device), self.step, self.seed,
-                                         self.out_size, self.gradient_clip_val)
+                                         self.out_size, self.gradient_clip_val,
+                                         precision=self.precision)
                     self.step += 1
                     if self.step % self.log_every_n_steps == 0 or self.fast_dev_run:
                         host = {k: float(v) for k, v in metrics.items()}

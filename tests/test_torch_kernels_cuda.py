@@ -550,3 +550,114 @@ def test_fused_graph_bf16_latency_replay_equals_eager(cuda_f32):
     assert torch.equal(got["waveform"], want["waveform"]) and torch.equal(got["mel"], want["mel"])
     assert torch.equal(got["mel_lengths"], f32["mel_lengths"])
     assert got["waveform"].dtype == torch.float32 and bool(torch.isfinite(got["waveform"]).all())
+
+
+def _bf16_log_prior(seed, B, T_x, T_y, t_xs, t_ys):
+    """A Gaussian log-prior of LJSpeech's magnitude (~ -1e3, a few units
+    between neighbours) rounded to bf16, where the spacing is 4-8: whole
+    runs of cells tie. Returns (value f32, mask) on the CPU and the tied
+    neighbour pairs along x."""
+    g = torch.Generator().manual_seed(seed)
+    value = (-900.0 - 40.0 * torch.rand(B, 1, T_y, generator=g)
+             - 6.0 * torch.randn(B, T_x, T_y, generator=g)).to(torch.bfloat16).float()
+    t_xs, t_ys = torch.tensor(t_xs), torch.tensor(t_ys)
+    mask = ((torch.arange(T_x)[None, :, None] < t_xs[:, None, None])
+            & (torch.arange(T_y)[None, None, :] < t_ys[:, None, None])).float()
+    ties = int((value[:, 1:] == value[:, :-1]).sum())
+    return value, mask, ties
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_x,T_y,t_xs,t_ys", [
+    # the multi-speaker (and LJSpeech) training batch: 32 rows, T_x 304, T_y 896
+    (32, 304, 896, [304 - 7 * i for i in range(32)], [896 - 19 * i for i in range(32)]),
+    (3, 31, 33, [31, 20, 1], [33, 33, 5]),
+    (3, 33, 7, [33, 7, 1], [7, 7, 7]),
+    (2, 1024, 2051, [1024, 700], [2051, 1500]),
+    (2, 1025, 1027, [1025, 3], [1027, 1027]),
+])
+def test_mas_kernel_equals_plain_on_bf16_log_priors(cuda_f32, B, T_x, T_y, t_xs, t_ys):
+    """bf16 training hands K2 a log-prior rounded to bf16 and cast back
+    (as JAX's kernel takes it f32): ties are everywhere, and the kernel's
+    path must still be EQUAL to the plain version's."""
+    value, mask, ties = _bf16_log_prior(T_x + T_y, B, T_x, T_y, t_xs, t_ys)
+    assert ties > B * T_y  # the input is built to tie
+    want = mas.maximum_path(value, mask)
+    got = mas.maximum_path(value.to(cuda_f32), mask.to(cuda_f32))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(
+        mas.maximum_path_reference(value.to(cuda_f32), mask.to(cuda_f32)).cpu(), want)
+
+
+def _tiny_ms_pipeline(device):
+    """A small 4-speaker Matcha (seed weights) with the full-width
+    HiFi-GAN v1."""
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.models.denoiser import compute_bias_spec
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    torch.manual_seed(5)
+    model = MatchaTTS(n_spks=4, spk_emb_dim=16, enc_n_channels=32, enc_filter_channels=64,
+                      enc_filter_channels_dp=32, enc_n_heads=2, enc_n_layers=2,
+                      dec_channels=(32, 32), dec_attention_head_dim=16, dec_num_heads=2)
+    vocoder = Generator(HiFiGANConfig()).to(device).eval()
+    bias = compute_bias_spec(lambda m: generator_apply_fused(vocoder, m), device=device)
+    return TTSPipeline(model, vocoder, bias, device=device)
+
+
+@pytest.mark.cuda
+def test_multispeaker_fused_graph_serves_two_speakers_from_one_capture(cuda_f32):
+    """A multi-speaker fixed-bucket graph reads the speaker from its static
+    buffer: one capture, replayed at speakers 0 and 2, each replay
+    bit-equal to the eager body at that speaker on the same noise, and
+    the two speakers' mels differ."""
+    pipe = _tiny_ms_pipeline(cuda_f32)
+    x, xl = _ids(4, 40)
+    z = _unit_noise(5, 256, cuda_f32)
+    outs = {}
+    for spk in (0, 2):
+        got = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256, spks=[spk])
+        want = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256,
+                                     cuda_graph=False, spks=[spk])
+        torch.cuda.synchronize()
+        assert torch.equal(got["mel_lengths"], want["mel_lengths"])
+        assert torch.equal(got["waveform"], want["waveform"])
+        assert torch.equal(got["mel"], want["mel"])
+        outs[spk] = got
+    graphs = [g for g in pipe._graphs.values() if g.graph is not None]
+    assert len(graphs) == 1 and graphs[0].replays == 2 and graphs[0].spks is not None
+    assert not torch.equal(outs[0]["mel"], outs[2]["mel"])
+    with pytest.raises(ValueError, match="out of range"):
+        pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256, spks=[4])
+
+
+@pytest.mark.cuda
+def test_conformer_decode_builds_no_relative_embedding_tensor(cuda_f32):
+    """An all-conformer decoder step at B = 1, T = 2,048 (the top fixed
+    bucket), LJSpeech width (U-Net 256, 2 heads of 64), peaks less than
+    256 MiB above the all-transformer decoder's peak at the same shape:
+    the (T, T, 64) relative-embedding tensor alone would be 1 GiB."""
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    peaks = {}
+    T = 2048
+    for block in ("transformer", "conformer"):
+        torch.manual_seed(0)
+        model = MatchaTTS(dec_down_block_type=block, dec_mid_block_type=block,
+                          dec_up_block_type=block).to(cuda_f32).eval()
+        est = model.decoder.estimator
+        x = torch.randn(1, T, 80, device=cuda_f32)
+        mask = torch.ones(1, T, 1, device=cuda_f32)
+        t = torch.full((1,), 0.5, device=cuda_f32)
+        with torch.inference_mode():
+            est(x, mask, x, t)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = est(x, mask, x, t)
+            torch.cuda.synchronize()
+        assert out.shape == (1, T, 80) and bool(torch.isfinite(out).all())
+        peaks[block] = torch.cuda.max_memory_allocated() - base
+        del model, est, out
+        torch.cuda.empty_cache()
+    assert peaks["conformer"] - peaks["transformer"] < 256 * 2**20, peaks

@@ -156,7 +156,7 @@ def test_cfm_noise_is_drawn_in_f32_then_cast():
     mu = torch.zeros(2, 16, 8)
     mask = torch.ones(2, 16, 1)
 
-    def zero_field(x, mask, mu, t):
+    def zero_field(x, mask, mu, t, spks=None):
         return torch.zeros_like(x)
 
     z32 = torch.randn(mu.shape, generator=torch.Generator().manual_seed(5))
@@ -421,7 +421,9 @@ def test_cli_precision_flags(fabricated_ckpts, tmp_path, monkeypatch, tf32_resto
 
 
 def test_not_ported_holds_only_data_parallel_and_spk():
-    assert set(serve.NOT_PORTED) == {"data_parallel", "spk"}
+    """``--spk`` is ported (multi-speaker models); only
+    ``--data-parallel`` stays refused."""
+    assert set(serve.NOT_PORTED) == {"data_parallel"}
 
 
 @pytest.mark.parametrize("flag,bf16,pallas", [("--bf16-vocoder", True, True),

@@ -17,6 +17,7 @@ import signal
 import subprocess
 import sys
 import threading
+import urllib.error
 import urllib.request
 import wave
 from collections import deque
@@ -34,6 +35,7 @@ from matcha_tpu_torch.scripts import bench_serve
 from matcha_tpu_torch.serve import BatchingServer, make_http_server
 from matcha_tpu_torch.text import text_to_sequence
 from tests.test_cli_e2e import fabricated_ckpts  # noqa: F401  (fixture reuse)
+from tests.test_torch_multispeaker import ms_home  # noqa: F401  (fixture reuse)
 
 REPO = Path(__file__).resolve().parents[1]
 CLEANER = "english_cleaners_no_espeak"
@@ -81,7 +83,8 @@ def _bare_batcher(max_batch=4, window_ms=50.0):
     """A BatchingServer shell with no threads and no pipeline: _enqueue,
     _take_batch and the chunking are queue and text logic only."""
     b = object.__new__(BatchingServer)
-    b.pipeline = type("P", (), {"cleaner": CLEANER})()
+    # a single-speaker model's pipeline: speaker ids pass through unchecked
+    b.pipeline = type("P", (), {"cleaner": CLEANER, "model": type("M", (), {"n_spks": 1})()})()
     b.default_rate = 1.0
     b.default_spk = None
     b.max_warm_x = None
@@ -253,7 +256,7 @@ def test_fused_single_fast_path_and_saturation_fallback(batcher, monkeypatch):
 
     monkeypatch.setattr(batcher.pipeline, "synthesise_batch", spy)
     T_big = 64 * ((n // 64) + 2)
-    batcher._fused_warm[(T_x, batcher.default_rate)] = [T_big]
+    batcher._fused_warm[(T_x, batcher.default_rate, False)] = [T_big]
     r1 = batcher.submit(text, timeout_s=600.0)
     assert r1.error is None and r1.n_frames == n
     assert np.isfinite(r1.wav).all() and r1.wav.size == n * 256
@@ -261,7 +264,7 @@ def test_fused_single_fast_path_and_saturation_fallback(batcher, monkeypatch):
 
     T_small = max(16, (n - 1) // 16 * 16)
     assert T_small < n
-    batcher._fused_warm[(T_x, batcher.default_rate)] = [T_small]
+    batcher._fused_warm[(T_x, batcher.default_rate, False)] = [T_small]
     calls.clear()
     r2 = batcher.submit(text, timeout_s=600.0)
     assert r2.error is None and r2.n_frames == n, "the fallback must not cut the audio"
@@ -483,12 +486,12 @@ def test_lone_request_equals_fixed_bucket_path(batcher):
     ``synthesise_batch`` at that bucket on the call's own generator, to
     one 24-bit step; the next call draws other noise."""
     batcher.warmup([(32, 128)])
-    assert batcher._fused_warm == {(32, batcher.default_rate): [64, 128]}
+    assert batcher._fused_warm == {(32, batcher.default_rate, False): [64, 128]}
     assert batcher.max_warm_x == 32 and batcher._warm_x == [32]
     assert batcher.pipeline.capture_allowed is False
     text = "hello there"
     seq = np.asarray(serve.intersperse(text_to_sequence(text, [CLEANER]), 0), np.int32)
-    T_y = batcher._pick_fused_bucket(32, batcher.default_rate, len(seq))
+    T_y = batcher._pick_fused_bucket(32, batcher.default_rate, False, len(seq))
     n_calls = batcher._n_calls
     r = batcher.submit(text, timeout_s=300.0)
     assert r.error is None and batcher.n_fast == 1
@@ -596,13 +599,67 @@ def test_main_without_cpu_needs_a_gpu():
         serve.main(["--warmup", ""])
 
 
-@pytest.mark.parametrize("flag,item", [(["--data-parallel"], "item 9"),
-                                       (["--spk", "0"], "item 5")])
+@pytest.mark.parametrize("flag,item", [(["--data-parallel"], "item 9")])
 def test_flags_not_ported_exit(flag, item):
     """The JAX daemon's flags whose features the port lacks stop ``main``
     with a message naming why (and the ROADMAP item), on any host."""
     with pytest.raises(SystemExit, match=item):
         serve.main(["--cpu", *flag])
+
+
+def test_main_spk_sets_the_default_speaker(ms_home, monkeypatch):
+    """``serve.main --spk 3`` on a 4-speaker checkpoint: ``default_spk`` is
+    3, a request that omits ``"spk"`` is answered with speaker 3 (the
+    port's ``synthesise_batch`` at speaker 3 on the call's generator, to
+    one 24-bit step, and not speaker 0's), and an id out of range is a 400
+    on /synthesise and /synthesise_stream, before anything is queued."""
+    home, ckpt = ms_home
+    monkeypatch.setenv("MATCHA_HOME", home)
+    real_server = serve.make_http_server
+    seen = {}
+
+    class Stop:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    def fake_server(batcher, host, port):
+        seen["default_spk"] = batcher.default_spk
+        text = "hello there"
+        r = batcher.submit(text, timeout_s=300.0)
+        assert r.error is None and r.spk == 3
+        seq = np.asarray(serve.intersperse(text_to_sequence(text, [CLEANER]), 0), np.int32)
+        for spk in (3, 0):
+            want = batcher.pipeline.synthesise_batch(
+                seq[None], np.asarray([len(seq)], np.int32), n_timesteps=1,
+                generator=batcher.call_generator(1), spks=[spk])
+            n = int(want["mel_lengths"][0])
+            seen[spk] = np.clip(want["waveform"][0, :n * 256].numpy(), -1, 1)
+        seen["wav"] = r.wav
+        server, url = _http(batcher)
+        try:
+            for path in ("/synthesise", "/synthesise_stream"):
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    _post(url + path, {"text": "hi", "spk": 4})
+                assert e.value.code == 400 and b"out of range" in e.value.read()
+        finally:
+            server.shutdown()
+            server.server_close()
+        assert batcher.n_requests == 1
+        return Stop()
+
+    monkeypatch.setattr(serve, "make_http_server", fake_server)
+    monkeypatch.setattr(sys.modules[__name__], "make_http_server", real_server)
+    serve.main(["--cpu", "--warmup", "", "--steps", "1", "--spk", "3", "--checkpoint_path",
+                ckpt, "--cleaner", CLEANER])
+    assert seen["default_spk"] == 3
+    np.testing.assert_allclose(seen["wav"], seen[3], rtol=0, atol=2.0 / port_cli.PCM24_SCALE)
+    other = seen[0]
+    assert other.shape != seen["wav"].shape or np.abs(other - seen["wav"]).max() > 1e-3
 
 
 def test_bench_serve_runs_a_short_load(batcher):

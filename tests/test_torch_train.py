@@ -12,6 +12,12 @@
   1e-5 of the learning rate per update (optax takes Adam's bias
   corrections 1 - beta^t in f32, where 1 - 0.999 keeps only 4 digits:
   its updates are off by ~6e-6 of the rate);
+* the bf16 policy (``precision="bf16-mixed"``) against JAX's bf16 step
+  on the same weights, batch and bf16 noise: the loss within 2 % of
+  JAX's and of the port's own f32 loss (JAX's bound for bf16 against
+  f32, tests/test_training.py), with f32 masters and Adam moments; every
+  bf16 name trains a step; a multi-speaker batch (``path|spk|text``)
+  trains a step too;
 * resume from a checkpoint continues bit for bit; ``Trainer.fit`` keeps
   ``last``, the top-k checkpoints and their ledger;
 * ``python -m matcha_tpu_torch.train trainer.accelerator=cpu`` trains
@@ -333,11 +339,134 @@ def test_fit_checkpoints_topk_and_logs(corpus, tmp_path):
     assert len([p for p in ckpt_dir.glob("checkpoint_*") if not p.name.endswith(".json")]) == 1
 
 
-def test_precision_modes():
-    for precision in ("bf16", "bf16-mixed", "16-mixed"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_trainer.Trainer(MatchaTTS(**TINY_TRAIN), None, "cpu", precision=precision,
-                                 loggers={})
+def test_precision_modes(corpus, tmp_path):
+    """Each of the three bf16 names trains one tiny step with f32 masters
+    and f32 Adam moments, and its loss is finite."""
+    for precision in port_trainer.BF16_PRECISIONS:
+        trainer = make_trainer(corpus, tmp_path / precision, precision=precision, max_steps=1,
+                               check_val_every_n_epoch=100, enable_checkpointing=False,
+                               log_every_n_steps=1)
+        metrics = trainer.fit()
+        assert trainer.step == 1 and np.isfinite(metrics["loss/train"]), precision
+        assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+        moments = [v for s in trainer.optimizer.state.values() for k, v in s.items()
+                   if k in ("exp_avg", "exp_avg_sq")]
+        assert moments and all(v.dtype == torch.float32 for v in moments)
+
+
+def _jax_bf16_noise(key, batch) -> dict:
+    """t and z as JAX's bf16 step draws them: t in mu's type (f32), z in
+    the bf16 y's type."""
+    B, T_y, n_feats = batch["y"].shape
+    k_t, k_z = jax.random.split(key)
+    return {"t": torch.from_numpy(np.asarray(jax.random.uniform(k_t, (B, 1, 1)))[:, 0, 0]),
+            "z": torch.from_numpy(np.asarray(
+                jax.random.normal(k_z, (B, T_y, n_feats), dtype=jnp.bfloat16), np.float32))}
+
+
+def test_bf16_step_matches_jax_and_f32():
+    """One ``bf16-mixed`` step against JAX's: the loss within 2 % of JAX's
+    bf16 loss and of the port's f32 loss on the same batch and noise;
+    after it the masters, their gradients and Adam's moments are f32."""
+    jm, variables, port = tiny_pair(prenet=False)
+    batch = tiny_batch()
+    seed = 3
+    tx = jax_trainer.make_optimizer(lr=1e-3, gradient_clip_val=5.0)
+    state = jax_trainer.TrainState(step=jnp.asarray(0, jnp.int32), params=variables,
+                                   opt_state=tx.init(variables))
+    step_fn = jax_trainer.make_train_step(jm, tx, precision="bf16-mixed")
+    base_key = jax.random.PRNGKey(seed + 17)
+    _, want = step_fn(state, {k: jnp.asarray(v) for k, v in batch.items()}, base_key)
+    k_loss, _ = jax.random.split(jax.random.fold_in(base_key, 0))
+    noise = _jax_bf16_noise(k_loss, batch)
+
+    tb = port_trainer.to_device(batch, "cpu")
+    with torch.no_grad():
+        f32 = sum(port_trainer.batch_losses(port.train(), tb, noise=noise))
+    opt, sched = port_trainer.make_optimizer(port, lr=1e-3)
+    got = port_trainer.train_step(port, opt, sched, tb, step=0, seed=seed,
+                                  gradient_clip_val=5.0, noise=noise, precision="bf16-mixed")
+    loss = float(got["loss"])
+    assert abs(loss - float(want["loss"])) / float(want["loss"]) < 0.02
+    assert abs(loss - float(f32)) / float(f32) < 0.02
+    assert got["loss"].dtype == torch.float32
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in port.parameters())
+    moments = [v for s in opt.state.values() for k, v in s.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    assert len(moments) == 2 * len(list(port.parameters()))
+    assert all(v.dtype == torch.float32 for v in moments)
+
+
+def test_bf16_losses_run_on_rounded_weights_and_round_the_gradients():
+    """The bf16 losses equal the f32 losses of a model whose weights were
+    rounded to bf16, on ``y`` rounded to bf16 (where the two differ, only
+    the bf16 arithmetic on y: its sum of squares and the flow's target
+    ``u``); every gradient reaching an f32 master is a bf16 value (JAX's
+    cotangents pass the same cast); the masters are left as they were."""
+    _, _, port = tiny_pair(prenet=False)
+    batch = port_trainer.to_device(tiny_batch(), "cpu")
+    noise = jax_noise(jax.random.PRNGKey(5), tiny_batch())
+    before = {n: p.detach().clone() for n, p in port.named_parameters()}
+    port.train()
+    losses = port_trainer.batch_losses(port, batch, noise=noise, precision="bf16-mixed")
+    sum(losses).backward()
+    for n, p in port.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p.detach(), before[n]), n
+        assert torch.equal(p.grad, p.grad.to(torch.bfloat16).float()), n
+    rounded = MatchaTTS(**dict(TINY, enc_p_dropout=0.0, dec_dropout=0.0, enc_prenet=False))
+    rounded.load_state_dict({k: v.to(torch.bfloat16).float() if v.is_floating_point() else v
+                             for k, v in port.state_dict().items()})
+    with torch.no_grad():
+        want = port_trainer.batch_losses(rounded.train(), dict(
+            batch, y=batch["y"].to(torch.bfloat16).float()), noise=dict(
+            noise, z=noise["z"].to(torch.bfloat16).float()))
+    # the duration and prior losses do not see the bf16 arithmetic: EQUAL;
+    # the flow's target u = y - (1 - sigma_min) z is rounded to bf16
+    # (2^-9 of each element): the CFM loss within 1e-3 (measured 3.3e-4)
+    assert [float(v) for v in losses[:2]] == [float(v) for v in want[:2]]
+    np.testing.assert_allclose(float(losses[2]), float(want[2]), rtol=1e-3)
+
+
+def test_multispeaker_batch_trains_a_step(tmp_path):
+    """A ``path|spk|text`` filelist: the port's batches equal the JAX data
+    module's (``spks`` included); a 3-speaker model trains a step in f32
+    and in bf16 on them; a speaker id beyond the table is refused when its
+    item is read."""
+    root = tmp_path
+    entries = []
+    for i, text in enumerate(TEXTS[:4]):
+        t = np.arange(int(3 * (2 * len(text) + 1) * 256)) / SR
+        path = root / f"s{i}.wav"
+        port_utils.write_wav(path, (0.3 * np.sin(2 * np.pi * (150 + 30 * i) * t)).astype(
+            np.float32), SR)
+        entries.append(f"{path}|{i % 3}|{text}")
+    (root / "ms.txt").write_text("\n".join(entries), encoding="utf-8")
+    args = dict(name="ms", train_filelist_path=str(root / "ms.txt"),
+                valid_filelist_path=str(root / "ms.txt"), batch_size=2, cleaners=[CLEANER],
+                n_spks=3, n_feats=16, f_max=4000,
+                data_statistics={"mel_mean": -5.5, "mel_std": 2.1}, seed=1)
+    got = next(port_data.TextMelDataModule(**args).train_batches(0))
+    want = next(jax_data.TextMelDataModule(**args).train_batches(0))
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["spks"].dtype == np.int32 and set(got["spks"]) <= {0, 1, 2}
+
+    torch.manual_seed(0)
+    model = MatchaTTS(**dict(TINY_TRAIN, n_spks=3, spk_emb_dim=8))
+    opt, sched = port_trainer.make_optimizer(model, lr=1e-3)
+    for step, precision in enumerate(("f32", "bf16-mixed")):
+        m = port_trainer.train_step(model, opt, sched, port_trainer.to_device(got, "cpu"), step,
+                                    seed=1, precision=precision)
+        assert np.isfinite(float(m["loss"])), precision
+    assert model.spk_emb.weight.grad is not None
+
+    (root / "bad.txt").write_text(entries[0].replace("|0|", "|3|", 1), encoding="utf-8")
+    bad = port_data.TextMelDataModule(**dict(args, train_filelist_path=str(root / "bad.txt"),
+                                             batch_size=1))
+    with pytest.raises(ValueError, match="speaker id 3"):
+        next(bad.train_batches(0))
 
 
 def test_train_module_on_cpu_loads_no_jax(corpus, tmp_path):
