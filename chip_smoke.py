@@ -107,7 +107,21 @@ Phases, one output line each (any failure exits non-zero):
    peak memory; ``multispeaker``: the serving checks above and 3 steps of
    ``experiment=multispeaker`` in f32 and in bf16 on a ``path|spk|text``
    corpus; ``conformer``: the serving checks above and one step at batch
-   32 in each norm mode;
+   32 in each norm mode; ``train_extras``: 4 steps at batch 16 through
+   ``train.main`` with the native mel frontend, ``trainer.profiler=jax``
+   and tensorboard + CSV loggers (the trace's kernel events, the image
+   tags written after the validation, K2's launches against the MAS
+   calls), the native mel against numpy's over the corpus (5e-4, ms per
+   clip), one forward + backward with ``remat`` on and off (gradients
+   within 1e-6, peak memory), then 8 alternating pairs of them timed
+   (median, min, max); ``vocoder_train``: ``python -m
+   matcha_tpu_torch.training.vocoder_train`` (through its ``main``) at
+   the v1 width with the MPD and MSD, batch 16 x 8,192 samples, for 2
+   epochs of the corpus and one more resumed from ``last`` (losses finite,
+   scale 0's u moved, the rate's staircase, the restored state equal to
+   the saved one, K1 never launched; step ms, peak memory, the step's
+   FLOPs and their share of the f32 peak), and one step of the tiny
+   vocoder on the card against the CPU;
 7. the ``kernels`` line (every TPU kernel of the repo: K1 in its two
    instances, K2 and K3, all ported; K1 with its launches on each path),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -2248,6 +2262,309 @@ def conformer_train(dev, raw) -> dict:
     return out
 
 
+# vocoder GAN training: the v1 generator with the MPD and MSD at batch 16 x
+# 8,192 samples (HiFiGANConfig's protocol) for VOC_EPOCHS epochs of the
+# corpus, then one more resumed from `last`
+VOC_EPOCHS = 2
+# the tiny vocoder of the CPU tests (tests/test_deploy_and_vocoder.py's
+# TINY_HIFI) for one step on the card and on the CPU: the losses to rtol
+# VOC_LOSS_RTOL; every weight within VOC_WEIGHT_ATOL but at most a share
+# VOC_WEIGHT_SHARE of them, which Adam's first update, about +-lr wherever
+# a gradient is near zero, may move by up to 2 lr (f32 sums in another
+# order, TF32 off)
+VOC_TINY = {"upsample_rates": (4, 2), "upsample_kernel_sizes": (8, 4),
+            "upsample_initial_channel": 16, "resblock_kernel_sizes": (3,),
+            "resblock_dilation_sizes": ((1, 2),), "hop_size": 8, "n_fft": 32, "win_size": 32,
+            "fmax": 4000.0, "segment_size": 128}
+VOC_LOSS_RTOL, VOC_WEIGHT_ATOL, VOC_WEIGHT_SHARE = 1e-4, 1e-5, 1e-4
+# the native mel frontend against the numpy one (tests/test_native_audio.py)
+NATIVE_MEL_TOL = 5e-4
+EXTRAS_STEPS, EXTRAS_BATCH = 4, 16
+REMAT_REPS = 8
+
+
+def vocoder_states_equal(a, b) -> bool:
+    """Every tensor of two training states' state dicts (models, the MSD's
+    u, both optimisers) equal, and the step."""
+    import torch
+
+    def leaves(x):
+        if isinstance(x, dict):
+            return [v for k in sorted(x, key=str) for v in leaves(x[k])]
+        if isinstance(x, (list, tuple)):
+            return [v for item in x for v in leaves(item)]
+        return [x]
+
+    la, lb = leaves(a.state_dict()), leaves(b.state_dict())
+    return len(la) == len(lb) and all(
+        torch.equal(x, y.to(x.device)) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def vocoder_gpu_vs_cpu(dev, train_list: str) -> dict:
+    """One GAN step of the tiny vocoder on the card and on the CPU: the
+    same weights, optimiser state and segments."""
+    import torch
+
+    from matcha_tpu_torch.models.hifigan import HiFiGANConfig
+    from matcha_tpu_torch.training import vocoder_trainer as vt
+    from matcha_tpu_torch.training.vocoder_data import MelDataset
+
+    h = HiFiGANConfig(**VOC_TINY)
+    states = {"cpu": vt.init_vocoder_state(h, "cpu", steps_per_epoch=1)}
+    states["gpu"] = vt.init_vocoder_state(h, dev, steps_per_epoch=1)
+    for name in ("gen", "mpd", "msd"):
+        getattr(states["gpu"], name).load_state_dict(getattr(states["cpu"], name).state_dict())
+    ds = MelDataset(train_list, segment_size=h.segment_size, n_fft=h.n_fft, hop_size=h.hop_size,
+                    win_size=h.win_size, fmax=h.fmax, seed=SEED)
+    batch = next(ds.batches(2))
+    metrics = {}
+    for name, st in states.items():
+        device = "cpu" if name == "cpu" else dev
+        metrics[name] = {k: float(v) for k, v in vt.vocoder_train_step(
+            st, {k: v.to(device) for k, v in batch.items()}).items()}
+    loss_rel = max(abs(metrics["gpu"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+                   for k in metrics["cpu"])
+    worst, beyond, total = 0.0, 0, 0
+    for name in ("gen", "mpd", "msd"):
+        want = getattr(states["cpu"], name).state_dict()
+        for k, v in getattr(states["gpu"], name).state_dict().items():
+            d = (v.cpu() - want[k]).abs()
+            worst = max(worst, float(d.max()))
+            beyond += int((d > VOC_WEIGHT_ATOL).sum())
+            total += d.numel()
+    lr = h.learning_rate
+    if not (loss_rel < VOC_LOSS_RTOL and beyond <= VOC_WEIGHT_SHARE * total
+            and worst <= 2 * lr + 1e-6):
+        raise AssertionError(f"vocoder step: card against CPU: losses {metrics}, weights "
+                             f"max {worst}, {beyond} of {total} beyond {VOC_WEIGHT_ATOL}")
+    return {"config": "TINY_HIFI (tests/test_deploy_and_vocoder.py), batch 2 x 128 samples",
+            "metrics": metrics, "max_loss_rel_diff": loss_rel, "max_weight_abs_diff": worst,
+            "weights_beyond_atol": beyond, "weights": total, "weight_atol": VOC_WEIGHT_ATOL}
+
+
+def vocoder_train_phase(dev, corpus: dict, root: str) -> dict:
+    """``python -m matcha_tpu_torch.training.vocoder_train`` (through its
+    ``main``) at the v1 width, batch 16 x 8,192 samples, on the corpus's
+    train clips: VOC_EPOCHS epochs with checkpoints, then one more epoch
+    resumed from ``last``. Each step timed (synchronised), its losses,
+    rate and scale 0's u recorded; K1 never launched (the training
+    generator runs plain convs under autograd); the restored state
+    against the live one; the step's FLOPs counted on one more step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from matcha_tpu_torch.models.hifigan import HiFiGANConfig
+    from matcha_tpu_torch.ops import mrf, mrf_phase
+    from matcha_tpu_torch.training import vocoder_train
+    from matcha_tpu_torch.training import vocoder_trainer as vt
+    from matcha_tpu_torch.training.vocoder_data import MelDataset
+
+    h = HiFiGANConfig()
+    out_dir = os.path.join(root, "vocoder")
+    records, live = [], {}
+    step_fn = vocoder_train.vocoder_train_step
+
+    def timed(state, batch):
+        u0 = state.msd.discriminators[0].convs[0].weight_u.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        records.append({"step": state.step, "ms": (time.perf_counter() - t0) * 1e3,
+                        "lr": state.gen_opt.param_groups[0]["lr"],
+                        "u_moved": not torch.equal(u0, state.msd.discriminators[0].convs[0].weight_u),
+                        **{k: float(v) for k, v in m.items()}})
+        live["state"] = state
+        return m
+
+    argv = ["--train-filelist", corpus["train"], "--output-dir", out_dir,
+            "--batch-size", str(h.batch_size), "--log-every-n-steps", "1",
+            "--save-every-n-epochs", str(VOC_EPOCHS)]
+    vocoder_train.vocoder_train_step = timed
+    mrf.LAUNCHES["mrf_stage"] = mrf_phase.LAUNCHES["mrf_stage_phase"] = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vocoder_train.main(argv + ["--epochs", str(VOC_EPOCHS)])
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        first = live.pop("state")
+        last = os.path.join(out_dir, "checkpoints", "last")
+        restored = vt.init_vocoder_state(h, dev, steps_per_epoch=first.steps_per_epoch)
+        epoch = vocoder_train.load_vocoder_checkpoint(last, restored)
+        exact = vocoder_states_equal(first, restored)
+        del first, restored
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        vocoder_train.main(argv + ["--epochs", str(VOC_EPOCHS + 1), "--restore-from", last])
+        resumed_s = time.perf_counter() - t0
+    finally:
+        vocoder_train.vocoder_train_step = step_fn
+    k1 = mrf.LAUNCHES["mrf_stage"] + mrf_phase.LAUNCHES["mrf_stage_phase"]
+    spe = N_TRAIN // h.batch_size
+    with open(last + ".meta.json", encoding="utf-8") as f:
+        meta = json.load(f)
+    losses = [r[k] for r in records for k in ("disc_loss", "gen_loss", "mel_l1")]
+    lr4 = records[spe]["lr"]
+    ok = (len(records) == (VOC_EPOCHS + 1) * spe and all(map(math.isfinite, losses))
+          and records[0]["u_moved"] and lr4 == h.learning_rate * h.lr_decay
+          and records[0]["lr"] == h.learning_rate and exact and epoch == VOC_EPOCHS
+          and meta == {"step": (VOC_EPOCHS + 1) * spe, "epoch": VOC_EPOCHS + 1} and k1 == 0
+          and os.path.exists(os.path.join(out_dir, "checkpoints",
+                                          f"g_{VOC_EPOCHS * spe:08d}")))
+    if not ok:
+        raise AssertionError(f"vocoder_train: records {records}, restored exact {exact}, "
+                             f"epoch {epoch}, meta {meta}, K1 launches {k1}")
+
+    # the step's FLOPs, counted on one more step of a fresh state
+    state = vt.init_vocoder_state(h, dev, steps_per_epoch=spe)
+    ds_batch = next(MelDataset(corpus["train"], seed=SEED).batches(h.batch_size))
+    with FlopCounterMode(display=False) as counter:
+        vt.vocoder_train_step(state, {k: v.to(dev) for k, v in ds_batch.items()})
+    flops = counter.get_total_flops()
+    del state
+    torch.cuda.empty_cache()
+    p50 = statistics.median(r["ms"] for r in records[1:VOC_EPOCHS * spe])
+    return {"config": "HiFi-GAN v1 (512 wide, upsampling 8, 8, 2, 2) + MPD + MSD, weight "
+                      f"norm, batch {h.batch_size} x {h.segment_size} samples, seed weights",
+            "corpus": f"{N_TRAIN} train clips of the synthetic corpus, {spe} steps an epoch",
+            "steps": records, "step_ms_p50_steps_2_8": p50,
+            "segments_per_s": h.batch_size / (p50 / 1e3),
+            "audio_s_per_s": h.batch_size * h.segment_size / SR / (p50 / 1e3),
+            "max_memory_allocated_GiB": peak, "run_s": run_s, "resumed_s": resumed_s,
+            "lr_update_4": lr4, "lr_expected": h.learning_rate * h.lr_decay,
+            "restored_equals_saved": exact, "resumed_meta": meta, "k1_launches": k1,
+            "step_flops": flops,
+            "achieved_tflops": flops / (p50 / 1e3) / 1e12,
+            "share_of_f32_peak": flops / (p50 / 1e3) / PEAK_F32_FLOPS,
+            "note": "step ms: host clock around vocoder_train_step, synchronised; FLOPs: "
+                    "torch.utils.flop_counter over one step (convs, forward and backward)"}
+
+
+def train_extras(dev, corpus: dict, root: str, cfg) -> dict:
+    """The Matcha trainer's options on the LJSpeech config: a short run
+    through ``train.main`` with the native mel frontend,
+    ``trainer.profiler=jax`` and tensorboard + CSV loggers (K2's launches
+    against the MAS calls; the trace; the image tags written after the
+    validation); the native frontend against numpy over the corpus; one
+    step's gradients with ``remat`` on and off."""
+    import copy
+
+    import torch
+
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.audio.mel import mel_spectrogram_np
+    from matcha_tpu_torch.audio.native import library_path, mel_spectrogram_native
+    from matcha_tpu_torch.training.trainer import batch_losses, to_device
+    from matcha_tpu_torch.utils.utils import read_wav
+
+    out_dir = os.path.join(root, "extras")
+    overrides = [o for o in train_overrides(corpus, out_dir)
+                 if not o.startswith(("data.frontend=", "logger="))]
+    run = run_train(overrides + [
+        "data.frontend=native", "logger=many_loggers", "trainer.profiler=jax",
+        f"trainer.max_steps={EXTRAS_STEPS}", f"data.batch_size={EXTRAS_BATCH}"])
+    rows = [r for r in read_metrics(out_dir) if "loss/train" in r]
+    traces = sorted(os.listdir(os.path.join(out_dir, "profile")))
+    trace_path = os.path.join(out_dir, "profile", traces[0]) if traces else None
+    trace_bytes = os.path.getsize(trace_path) if trace_path else 0
+    with open(trace_path, encoding="utf-8") as f:
+        kernels = sum(1 for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    events = EventAccumulator(os.path.join(out_dir, "tensorboard"), size_guidance={"images": 0})
+    events.Reload()
+    tags = sorted(events.Tags()["images"])
+    want_tags = sorted(f"{kind}/{i}" for i in (0, 1)
+                       for kind in ("original", "generated_enc", "generated_dec", "alignment"))
+    try:
+        import matplotlib  # noqa: F401
+        renderer = "matplotlib"
+    except ImportError:
+        renderer = "numpy (matplotlib is not installed)"
+    if (len(rows) != EXTRAS_STEPS or not all(math.isfinite(r["loss/train"]) for r in rows)
+            or run["k2_launches"] != run["mas_calls"] or not run["k2_launches"]
+            or trace_bytes == 0 or not kernels or tags != want_tags):
+        raise AssertionError(f"train_extras: rows {rows}, run {run}, traces {traces} "
+                             f"({trace_bytes} bytes, {kernels} kernels), tags {tags}")
+
+    # the native frontend against numpy, clip by clip over the corpus
+    paths = []
+    for name in ("train", "val"):
+        with open(corpus[name], encoding="utf-8") as f:
+            paths += [line.split("|")[0] for line in f if line.strip()]
+    worst, times = 0.0, {"native": 0.0, "numpy": 0.0}
+    for path in paths:
+        audio, _ = read_wav(path)
+        mels = {}
+        for name, fn in (("native", mel_spectrogram_native), ("numpy", mel_spectrogram_np)):
+            t0 = time.perf_counter()
+            mels[name] = fn(audio, 1024, 80, SR, HOP, 1024, 0.0, 8000.0)
+            times[name] += time.perf_counter() - t0
+        worst = max(worst, float(abs(mels["native"] - mels["numpy"]).max()))
+    if not worst < NATIVE_MEL_TOL:
+        raise AssertionError(f"train_extras: native mel {worst} from numpy's")
+
+    # remat: one step's gradients with the estimator rematerialised and without
+    torch.manual_seed(SEED)
+    model = train.build_model_from_cfg(cfg).to(dev)
+    remat = copy.deepcopy(model)
+    remat.decoder.remat = True
+    batch = to_device(next(train.build_datamodule_from_cfg(cfg).train_batches(0)), dev)
+
+    def forward_backward(m) -> float:
+        """Losses + backward from zeroed gradients, the same noise and
+        dropout draws every time; host clock, synchronised, in ms."""
+        m.zero_grad(set_to_none=True)
+        m.train()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.manual_seed(SEED + 1)  # dropout
+        loss = sum(batch_losses(m, batch, generator=torch.Generator(dev).manual_seed(SEED)))
+        loss.backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    grads, peaks = [], {}
+    for name, m in (("warm-up", model), ("off", model), ("on", remat)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        forward_backward(m)
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        if name != "warm-up":
+            grads.append({n: p.grad for n, p in m.named_parameters() if p.grad is not None})
+    del peaks["warm-up"]
+    diff = max(float((grads[0][n] - grads[1][n]).abs().max()) for n in grads[0])
+    equal = grads[0].keys() == grads[1].keys() and all(
+        torch.equal(grads[0][n], grads[1][n]) for n in grads[0])
+    if not diff <= 1e-6:
+        raise AssertionError(f"train_extras: remat gradients {diff} from those without")
+    # remat's time: REMAT_REPS pairs, the order alternating (off-on, on-off)
+    samples = {"off": [], "on": []}
+    for rep in range(REMAT_REPS):
+        for name in (("off", "on") if rep % 2 == 0 else ("on", "off")):
+            samples[name].append(forward_backward(model if name == "off" else remat))
+    step_ms = {name: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                      "samples": v} for name, v in samples.items()}
+    del model, remat, grads
+    torch.cuda.empty_cache()
+    return {"config": f"experiment=ljspeech, batch {EXTRAS_BATCH}, data.frontend=native, "
+                      "trainer.profiler=jax, logger=many_loggers (tensorboard + csv)",
+            "run": run, "train_losses": rows,
+            "trace": {"file": traces[0], "bytes": trace_bytes, "kernel_events": kernels},
+            "image_tags": tags, "image_renderer": renderer,
+            "native_library": library_path().name,
+            "native_vs_numpy": {"clips": len(paths), "max_abs_diff": worst,
+                                "tol": NATIVE_MEL_TOL,
+                                "ms_per_clip": {k: v / len(paths) * 1e3 for k, v in times.items()}},
+            "remat": {"max_abs_grad_diff": diff, "bit_equal": equal, "forward_backward_ms": step_ms,
+                      "max_memory_allocated_GiB": peaks},
+            "note": "remat: losses + backward of the LJSpeech model on the corpus's first "
+                    f"batch (32), the same noise and dropout draws; {REMAT_REPS} alternating "
+                    "pairs after a warm-up; host clock, synchronised"}
+
+
 def main() -> int:
     import torch
 
@@ -2470,6 +2787,17 @@ def main() -> int:
         conf_train = conformer_train(dev, raw)
         emit({"phase": "conformer", **conf_serving, "train": conf_train,
               "seconds": conf_serving_s + time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        extras = train_extras(dev, trained["corpus"], root, cfg)
+        emit({"phase": "train_extras", "nvidia_smi": smi, **extras,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        voc_train = vocoder_train_phase(dev, trained["corpus"], root)
+        voc_train["gpu_vs_cpu"] = vocoder_gpu_vs_cpu(dev, trained["corpus"]["train"])
+        emit({"phase": "vocoder_train", "nvidia_smi": smi, **voc_train,
+              "seconds": time.perf_counter() - t0})
 
     # 7. kernels: K1's and K3's ms, plain_ms, bound_ms, library_ms summed
     # over the two narrow stages of one vocoder call at the serving path's
@@ -2527,6 +2855,7 @@ def main() -> int:
          "multispeaker_launches": {p: ms_train[p]["run"]["k2_launches"]
                                    for p in ("f32", "bf16-mixed")},
          "conformer_launches": {m: r["k2_launches"] for m, r in conf_train.items()},
+         "train_extras_launches": extras["run"]["k2_launches"],
          "bf16_log_prior": {k: bf16["k2"][k] for k in ("shape", "adjacent_ties", "equal", "ms")},
          "max_abs_err": 0.0, "ms": k2["ms"],
          "kernel_ms": k2["kernel_ms"], "wrapper_ms": k2["wrapper_ms"], "layout": k2["layout"],

@@ -1,15 +1,22 @@
-"""Log-mel spectrogram on the host, numpy, HiFi-GAN convention.
+"""Log-mel spectrogram, HiFi-GAN convention: on the host and on the device.
 
-The port's own copy of ``matcha_tpu/audio/mel.py``'s numpy pipeline:
-reflect-pad by (n_fft - hop) / 2, framed STFT with a periodic Hann
-window and center=False, magnitude ``sqrt(re^2 + im^2 + 1e-9)``, the
-Slaney-normalised librosa mel filterbank, ``log(clamp(x, 1e-5))``. The
-training data path calls it for every utterance.
+The port's own copy of ``matcha_tpu/audio/mel.py``: reflect-pad by
+(n_fft - hop) / 2, framed STFT with a periodic Hann window and
+center=False, magnitude ``sqrt(re^2 + im^2 + 1e-9)``, the
+Slaney-normalised librosa mel filterbank, ``log(clamp(x, 1e-5))``.
+``mel_spectrogram_np`` is the host pipeline the training data path calls
+for every utterance; ``mel_spectrogram`` is the same function in torch on
+any device, differentiable (the vocoder GAN step's mel loss).
 """
 
 import functools
+import logging
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+log = logging.getLogger(__name__)
 
 
 def _hz_to_mel(frequencies: np.ndarray) -> np.ndarray:
@@ -104,14 +111,65 @@ def mel_spectrogram_np(
     return np.log(np.clip(mel, 1e-5, None)).astype(np.float32)
 
 
+_DEVICE_CONSTANTS = {}
+
+
+def _device_constants(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
+                      device, dtype):
+    """(window, filterbank) on ``device``, cached: the host arrays of
+    :func:`hann_window_periodic` and :func:`mel_filterbank`."""
+    key = (sr, n_fft, n_mels, fmin, fmax, str(device), dtype)
+    if key not in _DEVICE_CONSTANTS:
+        _DEVICE_CONSTANTS[key] = (
+            torch.from_numpy(hann_window_periodic(n_fft)).to(device, dtype),
+            torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(device, dtype))
+    return _DEVICE_CONSTANTS[key]
+
+
+def mel_spectrogram(
+    y: torch.Tensor,
+    n_fft: int = 1024,
+    num_mels: int = 80,
+    sampling_rate: int = 22050,
+    hop_size: int = 256,
+    win_size: int = 1024,
+    fmin: float = 0.0,
+    fmax: float = 8000.0,
+    center: bool = False,
+) -> torch.Tensor:
+    """Log-mel of waveform ``y`` (..., n_samples) -> (..., n_mels,
+    n_frames), on ``y``'s device and differentiable in ``y``."""
+    if center or win_size != n_fft:
+        raise ValueError("the HiFi-GAN convention is center=False and win_size == n_fft")
+    pad = int((n_fft - hop_size) / 2)
+    lead = y.shape[:-1]
+    y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")
+    frames = y[:, 0].unfold(-1, n_fft, hop_size)  # (N, n_frames, n_fft)
+    window, fb = _device_constants(sampling_rate, n_fft, num_mels, fmin, fmax, y.device,
+                                   y.dtype)
+    spec_c = torch.fft.rfft(frames * window, dim=-1)
+    mag = torch.sqrt(spec_c.real ** 2 + spec_c.imag ** 2 + 1e-9)
+    mel = torch.einsum("mf,ntf->nmt", fb, mag)
+    return torch.log(torch.clamp(mel, min=1e-5)).reshape(*lead, num_mels, -1)
+
+
 def resolve_mel_frontend(frontend: str):
-    """The mel function of the data path. ``"numpy"`` and ``"auto"`` give
-    :func:`mel_spectrogram_np` (``"auto"`` is what the JAX package falls
-    back to when its native frontend does not build); ``"native"`` is not
-    ported yet."""
-    if frontend in ("numpy", "auto"):
+    """The mel function of the data path, as the JAX package picks it:
+    ``"numpy"`` gives :func:`mel_spectrogram_np`; ``"native"`` the C++
+    frontend (``audio/native.py``), built now so that a failure raises
+    here and not in a loader thread; ``"auto"`` the native one when it
+    builds, else numpy with a warning."""
+    if frontend == "numpy":
         return mel_spectrogram_np
-    if frontend == "native":
-        raise NotImplementedError("the native (C++) mel frontend is not ported; "
-                                  "use frontend=numpy")
-    raise ValueError(f"unknown mel frontend {frontend!r}")
+    if frontend not in ("native", "auto"):
+        raise ValueError(f"unknown mel frontend {frontend!r}")
+    try:
+        from matcha_tpu_torch.audio.native import mel_spectrogram_native
+
+        mel_spectrogram_native(np.zeros(4096, dtype=np.float32))
+        return mel_spectrogram_native
+    except Exception as e:
+        if frontend == "native":
+            raise
+        log.warning(f"native mel frontend unavailable ({e}); using numpy")
+        return mel_spectrogram_np

@@ -5,8 +5,12 @@ The inverse of ``matcha_tpu/utils/checkpoints.py`` (its layout helpers,
 returned state dicts carry the reference torch names and layouts, so the
 port's ``MatchaTTS`` and ``Generator`` load them with ``load_state_dict``,
 exactly as they load a reference checkpoint. HiFi-GAN comes out folded
-(weight norm removed). Leaves are numpy arrays (or anything
-``np.asarray`` takes); nothing here imports JAX.
+(weight norm removed) from ``hifigan_state_dict``, and in its (g, v)
+training form from ``hifigan_wn_state_dict``; the discriminators of
+vocoder training from ``mpd_state_dict`` and ``msd_state_dict`` (the
+reference's ``discriminators.{i}.convs.{j}.*`` names, which
+``matcha_tpu/utils/checkpoints.py`` reads). Leaves are numpy arrays (or
+anything ``np.asarray`` takes); nothing here imports JAX.
 
 Layouts (flax -> torch):
 * conv kernel (k, in, out)          -> Conv1d weight (out, in, k)
@@ -14,6 +18,8 @@ Layouts (flax -> torch):
 * conv-transpose kernel (k, in, out), flipped along k
                                     -> ConvTranspose1d weight (in, out, k), un-flipped
 * grouped (depthwise) conv kernel (k, 1, C) -> Conv1d weight (C, 1, k)
+* 2-D conv kernel (kh, kw, in, out)  -> Conv2d weight (out, in, kh, kw)
+* weight-norm g (n,)                 -> weight_g (n, 1, ...), n the first dim of weight_v
 """
 
 from typing import Dict, Optional
@@ -257,3 +263,95 @@ def fold_hifigan_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
         else:
             out[key] = value.float()
     return out
+
+
+def _wn(node, v_layout) -> Dict[str, torch.Tensor]:
+    """A flax weight-norm node {weight_v, weight_g, bias} -> torch's
+    ``weight_v`` (``v_layout`` of the flax kernel), ``weight_g`` (shaped
+    (n, 1, ...) like ``weight_v``) and ``bias``."""
+    v = v_layout(node["weight_v"])
+    g = _t(node["weight_g"]).reshape(-1, *([1] * (v.dim() - 1)))
+    return {"weight_v": v, "weight_g": g, "bias": _t(node["bias"])}
+
+
+def hifigan_wn_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax ``Generator(weight_norm=True)`` params -> the state dict of the
+    port's ``Generator(weight_norm=True)`` (the reference's ``weight_g``/
+    ``weight_v``/``bias`` keys). Fold it for serving with
+    :func:`fold_hifigan_state_dict`."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix, node, layout=conv1d_weight):
+        sd.update({f"{prefix}.{k}": v for k, v in _wn(node, layout).items()})
+
+    for name, node in p.items():
+        if name in ("conv_pre", "conv_post"):
+            put(name, node)
+        elif name.startswith("ups_"):
+            put(f"ups.{name.split('_')[1]}", node, conv_transpose1d_weight)
+        elif name.startswith("resblocks_"):
+            n = name.split("_")[1]
+            for conv_name, conv_node in node.items():
+                group, j = conv_name.rsplit("_", 1)
+                put(f"resblocks.{n}.{group}.{j}", conv_node)
+        else:
+            raise KeyError(f"unknown HiFi-GAN param group {name!r}")
+    return sd
+
+
+def conv2d_weight(kernel) -> torch.Tensor:
+    """flax HWIO (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)."""
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def _wn_discriminator_convs(node, prefix: str, layout, sd: dict) -> None:
+    """The weight-normed ``convs_j`` and ``conv_post`` of one flax
+    discriminator -> torch keys under ``prefix``."""
+    for name, conv in node.items():
+        key = f"{prefix}.convs.{name.split('_')[1]}" if name.startswith("convs_") \
+            else f"{prefix}.{name}"
+        sd.update({f"{key}.{k}": v for k, v in _wn(conv, layout).items()})
+
+
+def mpd_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax ``MultiPeriodDiscriminator(weight_norm=True)`` params -> the
+    port's state dict: ``discriminators.{i}.convs.{j}.weight_g|weight_v|
+    bias``, as the reference names them."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in p.items():
+        _wn_discriminator_convs(node, f"discriminators.{name.split('_')[1]}", conv2d_weight, sd)
+    return sd
+
+
+def msd_state_dict(params: dict, spectral: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Flax ``MultiScaleDiscriminator(weight_norm=True)`` params, and its ``"spectral"``
+    collection when it ran with ``running_u``, -> the port's state dict.
+    Scale 0 is spectrally normalised: its flax ``kernel`` becomes
+    ``weight_orig`` and its running u ``weight_u``, with ``weight_v`` the
+    normalised Wᵀu that u gives (torch ``spectral_norm``'s names); without
+    a u it starts at 1 / sqrt(out), as JAX's. Scales 1 and 2 as
+    :func:`mpd_state_dict`'s convs."""
+    p = params["params"] if "params" in params else params
+    spectral = (spectral or {}).get("spectral", spectral or {})
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in p.items():
+        i = name.split("_")[1]
+        if i != "0":
+            _wn_discriminator_convs(node, f"discriminators.{i}", conv1d_weight, sd)
+            continue
+        for conv_name, conv in node.items():
+            key = (f"discriminators.0.convs.{conv_name.split('_')[1]}"
+                   if conv_name.startswith("convs_") else f"discriminators.0.{conv_name}")
+            w = conv1d_weight(conv["kernel"])
+            out = w.shape[0]
+            u_node = spectral.get(name, {}).get(conv_name)
+            u = (_t(u_node["u"]) if u_node is not None
+                 else torch.ones(out) / torch.sqrt(torch.tensor(float(out))))
+            v = w.reshape(out, -1).t() @ u
+            sd[f"{key}.weight_orig"] = w
+            sd[f"{key}.bias"] = _t(conv["bias"])
+            sd[f"{key}.weight_u"] = u
+            sd[f"{key}.weight_v"] = v / (torch.linalg.vector_norm(v) + 1e-12)
+    return sd

@@ -170,3 +170,66 @@ class TimestepEmbedding(nn.Module):
             return F.linear(v, layer.weight.to(v.dtype), layer.bias.to(v.dtype))
 
         return linear(self.linear_2, F.silu(linear(self.linear_1, sample)))
+
+
+class WeightNormConv(nn.Module):
+    """A conv in torch's ``weight_norm(dim=0)`` (g, v) training form:
+    ``weight = g * v / ||v||``, the norm over every dim of ``v`` but the
+    first (the output channel of a conv, the *input* channel of a
+    transposed conv). Parameters ``weight_g`` (shape of ``v`` with every
+    dim but the first 1), ``weight_v`` and ``bias``, as torch names them,
+    so a reference state dict loads as is. Initial values are those of
+    ``weight_norm(conv)`` on a fresh torch conv (``g = ||v||``).
+
+    ``eps``: added under the square root and applied as ``v * (g / norm)``
+    (the JAX package's ``WNConv1d``/``WNConvTranspose1d``: 1e-12); None
+    computes ``g * v / norm`` with no epsilon (its discriminator convs)."""
+
+    def _init_from(self, conv: nn.Module, eps) -> None:
+        v = conv.weight.detach()
+        self.weight_v = nn.Parameter(v.clone())
+        self.weight_g = nn.Parameter(torch.sqrt(torch.sum(v ** 2, dim=tuple(range(1, v.dim())),
+                                                          keepdim=True)))
+        self.bias = None if conv.bias is None else nn.Parameter(conv.bias.detach().clone())
+        self.eps = eps
+        self.stride, self.padding = conv.stride, conv.padding
+        self.dilation, self.groups = conv.dilation, conv.groups
+
+    @property
+    def weight(self) -> torch.Tensor:
+        v, g = self.weight_v, self.weight_g
+        sq = torch.sum(v ** 2, dim=tuple(range(1, v.dim())), keepdim=True)
+        if self.eps is None:
+            return g * v / torch.sqrt(sq)
+        return v * (g / torch.sqrt(sq + self.eps))
+
+
+class WNConv1d(WeightNormConv):
+    """Weight-normalised ``Conv1d`` on (B, C, T); weight_v (out, in/groups,
+    k), weight_g (out, 1, 1)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, groups: int = 1, bias: bool = True,
+                 eps=1e-12):
+        super().__init__()
+        self._init_from(nn.Conv1d(in_channels, out_channels, kernel_size, stride, padding,
+                                  dilation, groups, bias), eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
+                        self.groups)
+
+
+class WNConvTranspose1d(WeightNormConv):
+    """Weight-normalised ``ConvTranspose1d`` on (B, C, T); weight_v (in,
+    out, k), weight_g (in, 1, 1): torch's dim 0 of a transposed conv is
+    its input channel, so the norm is per input channel."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True, eps=1e-12):
+        super().__init__()
+        self._init_from(nn.ConvTranspose1d(in_channels, out_channels, kernel_size, stride,
+                                           padding, bias=bias), eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose1d(x, self.weight, self.bias, self.stride, self.padding)

@@ -11,6 +11,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from matcha_tpu_torch.models.components.decoder import Decoder
 
@@ -57,12 +58,16 @@ def cfm_sample(estimator: Callable, mu: torch.Tensor, mask: torch.Tensor,
 
 class CFM(nn.Module):
     """Holds the U-Net as ``estimator`` (the reference's ``decoder``
-    module, so its keys read ``decoder.estimator.*``)."""
+    module, so its keys read ``decoder.estimator.*``). ``remat``: the loss
+    runs the estimator under ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint``), so its activations are recomputed in the backward
+    pass instead of kept."""
 
-    def __init__(self, estimator: Decoder, sigma_min: float = 1e-4):
+    def __init__(self, estimator: Decoder, sigma_min: float = 1e-4, remat: bool = False):
         super().__init__()
         self.estimator = estimator
         self.sigma_min = sigma_min
+        self.remat = remat
 
     def forward(self, mu, mask, n_timesteps, temperature=1.0, z=None, generator=None,
                 spks=None):
@@ -89,5 +94,8 @@ class CFM(nn.Module):
         z = z.to(x1.device, x1.dtype)
         y = (1.0 - (1.0 - self.sigma_min) * t) * z + t * x1
         u = x1 - (1.0 - self.sigma_min) * z
-        pred = self.estimator(y, mask, mu, t[:, 0, 0], spks)
+        if self.remat and torch.is_grad_enabled():
+            pred = checkpoint(self.estimator, y, mask, mu, t[:, 0, 0], spks, use_reentrant=False)
+        else:
+            pred = self.estimator(y, mask, mu, t[:, 0, 0], spks)
         return torch.sum((pred - u) ** 2) / (torch.sum(mask) * u.shape[-1])

@@ -55,7 +55,9 @@ def check_speakers(n_spks: int, spks) -> Optional[np.ndarray]:
 
 
 class MatchaTTS(nn.Module):
-    """Defaults are the LJSpeech Matcha configuration."""
+    """Defaults are the LJSpeech Matcha configuration. ``remat``: the loss
+    recomputes the CFM estimator's activations in the backward pass
+    (``CFM.remat``) instead of keeping them."""
 
     def __init__(self, n_vocab: int = 178, n_spks: int = 1, spk_emb_dim: int = 64,
                  n_feats: int = 80, enc_n_channels: int = 192,
@@ -68,7 +70,7 @@ class MatchaTTS(nn.Module):
                  dec_act_fn: str = "snakebeta", dec_mask_mode: str = "additive_reference",
                  dec_down_block_type: str = "transformer", dec_mid_block_type: str = "transformer",
                  dec_up_block_type: str = "transformer", dec_conformer_batch_norm: bool = False,
-                 sigma_min: float = 1e-4, prior_loss: bool = True,
+                 sigma_min: float = 1e-4, prior_loss: bool = True, remat: bool = False,
                  mel_mean: float = 0.0, mel_std: float = 1.0):
         super().__init__()
         self.n_spks = n_spks
@@ -83,7 +85,7 @@ class MatchaTTS(nn.Module):
             in_channels, n_feats, tuple(dec_channels), dec_attention_head_dim,
             dec_n_blocks, dec_num_mid_blocks, dec_num_heads, dec_act_fn, dec_mask_mode,
             dec_dropout, dec_down_block_type, dec_mid_block_type, dec_up_block_type,
-            dec_conformer_batch_norm), sigma_min)
+            dec_conformer_batch_norm), sigma_min, remat)
         if n_spks > 1:
             self.spk_emb = nn.Embedding(n_spks, spk_emb_dim)
         self.register_buffer("mel_mean", torch.tensor(float(mel_mean)))

@@ -126,6 +126,7 @@ def train(cfg) -> Tuple[dict, dict]:
         hparams={"cfg": dict(cfg)},
         scheduler=cfg.model.get("scheduler"),
         loggers=cfg.get("logger", {"tensorboard": {}}),
+        profiler=t.get("profiler"),
     )
 
     metric_dict = {}

@@ -16,9 +16,16 @@ The port of ``matcha_tpu/training/trainer.py`` for a single device:
   ``max_steps``/``max_epochs``, ``fast_dev_run``, ``limit_*_batches``,
   ``overfit_batches``, ``last`` and top-k checkpoints with the
   ``topk.json`` ledger, and resume from a checkpoint;
-* ``MetricLogger``: CSV, plus tensorboard when it is installed. Metric
-  names are the reference's (``loss/train``, ``sub_loss/train_dur_loss``,
-  ..., ``grad_norm/total``).
+* ``MetricLogger``: CSV, tensorboard when it is installed, and the
+  wandb / mlflow / neptune / comet / aim backends, each a warning when its
+  client is not installed. Metric names are the reference's
+  (``loss/train``, ``sub_loss/train_dur_loss``, ..., ``grad_norm/total``);
+  after each validation but the first-epoch-only ``original/i``, 2
+  samples are synthesised (10 steps, noise seed 42) and their encoder
+  output, decoder output and alignment written as images
+  (``_log_images``);
+* ``profiler="jax"`` (``configs/debug/profiler.yaml``): steps 1-3 of
+  epoch 0 traced with ``torch.profiler`` into ``<output_dir>/profile``.
 
 Precision, as JAX's ``make_train_step``: params, gradients and Adam
 moments are f32. Under ``"bf16"``, ``"bf16-mixed"`` and ``"16-mixed"``
@@ -195,8 +202,10 @@ def eval_step(model: MatchaTTS, batch: dict, out_size: Optional[int] = None
 
 class MetricLogger:
     """Scalars to CSV (``csv_path``) and to tensorboard (``logdir``) when
-    ``torch.utils.tensorboard`` can be imported; other backends are not
-    ported and are skipped with a warning."""
+    ``torch.utils.tensorboard`` can be imported, and to the external
+    backends the config names (wandb, mlflow, neptune, comet, aim; the
+    JAX package's ``_make_backend``), each of which degrades to a warning
+    when its client library is not installed."""
 
     def __init__(self, logdir: Optional[str], csv_path: Optional[str] = None,
                  backends: Optional[dict] = None):
@@ -204,6 +213,7 @@ class MetricLogger:
         self._csv = None
         self._csv_fields = None
         self._csv_path = csv_path
+        self._external: list = []  # (name, log_fn(metrics, step), close_fn)
         if logdir:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -215,13 +225,59 @@ class MetricLogger:
         if csv_path:
             os.makedirs(os.path.dirname(csv_path) or ".", exist_ok=True)
             self._csv = open(csv_path, "a", encoding="utf-8", buffering=1)
-        for name in backends or {}:
-            log.warning(f"logger backend {name!r} is not ported; skipping")
+        for name, cfg in (backends or {}).items():
+            try:
+                self._external.append(self._make_backend(name, dict(cfg or {})))
+            except ImportError:
+                log.warning(f"logger backend {name!r} requested but its client "
+                            f"library is not installed; skipping")
+            except Exception as e:  # a backend's own failure must not stop training
+                log.warning(f"logger backend {name!r} failed to initialize: {e}")
+
+    @staticmethod
+    def _make_backend(name: str, cfg: dict):
+        """One external backend -> (name, log_fn(metrics, step), close_fn),
+        configured as ``configs/logger/<name>.yaml`` says."""
+        if name == "wandb":
+            import wandb
+
+            run = wandb.init(project=cfg.get("project", "matcha-tpu"),
+                             name=cfg.get("name"), group=cfg.get("group") or None,
+                             tags=cfg.get("tags") or None, reinit=True)
+            return (name, lambda m, s: run.log(m, step=s), run.finish)
+        if name == "mlflow":
+            import mlflow
+
+            if cfg.get("tracking_uri"):
+                mlflow.set_tracking_uri(cfg["tracking_uri"])
+            mlflow.start_run(run_name=cfg.get("run_name"))
+            return (name, lambda m, s: mlflow.log_metrics(
+                {k.replace("/", "_"): v for k, v in m.items()}, step=s), mlflow.end_run)
+        if name == "neptune":
+            import neptune
+
+            run = neptune.init_run(project=cfg.get("project"))
+            return (name, lambda m, s: [run[k].append(v, step=s) for k, v in m.items()],
+                    run.stop)
+        if name == "comet":
+            import comet_ml
+
+            exp = comet_ml.Experiment(project_name=cfg.get("project_name", "matcha-tpu"))
+            return (name, lambda m, s: exp.log_metrics(m, step=s), exp.end)
+        if name == "aim":
+            import aim
+
+            run = aim.Run(experiment=cfg.get("experiment", "matcha-tpu"))
+            return (name, lambda m, s: [run.track(v, name=k, step=s) for k, v in m.items()],
+                    run.close)
+        raise ImportError(f"unknown logger backend {name!r}")
 
     def scalars(self, metrics: Dict[str, float], step: int) -> None:
         if self.writer:
             for k, v in metrics.items():
                 self.writer.add_scalar(k, float(v), step)
+        for _, log_fn, _ in self._external:
+            log_fn({k: float(v) for k, v in metrics.items()}, step)
         if self._csv:
             new_fields = [k for k in sorted(metrics)
                           if self._csv_fields is None or k not in self._csv_fields]
@@ -243,6 +299,11 @@ class MetricLogger:
             row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
             self._csv.write(",".join(str(row.get(f, "")) for f in self._csv_fields) + "\n")
 
+    def image(self, tag: str, img: np.ndarray, step: int) -> None:
+        """An (H, W, 3) image to tensorboard."""
+        if self.writer:
+            self.writer.add_image(tag, img, step, dataformats="HWC")
+
     def hparams(self, hparams: dict) -> None:
         if self.writer:
             text = "\n".join(f"{k}: {v}" for k, v in hparams.items())
@@ -253,6 +314,11 @@ class MetricLogger:
             self.writer.close()
         if self._csv:
             self._csv.close()
+        for name, _, close_fn in self._external:
+            try:
+                close_fn()
+            except Exception:
+                log.warning(f"logger backend {name!r} failed to close")
 
 
 def summarize_params(model: torch.nn.Module, max_depth: int = 3) -> str:
@@ -337,8 +403,13 @@ class Trainer:
         hparams: Optional[dict] = None,
         scheduler: Optional[dict] = None,
         loggers: Optional[dict] = None,
+        profiler: Optional[str] = None,
     ):
         self.precision = precision
+        if profiler not in (None, "", "jax"):
+            log.warning(f"trainer.profiler={profiler!r} is not known (only 'jax': a "
+                        "torch.profiler trace of steps 1-3); no trace is taken")
+        self.profiler = profiler
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.dm = datamodule
@@ -447,12 +518,18 @@ class Trainer:
                     batches = [b for _, b in zip(range(self.overfit_batches), batches)]
                 else:
                     batches = self.dm.train_batches(epoch, limit=self.limit_train_batches)
-                for batch in prefetch_iterator(batches, pin=pin):
+                trace = None
+                for i, batch in enumerate(prefetch_iterator(batches, pin=pin)):
+                    if self.profiler == "jax" and i == 1 and epoch == 0:
+                        trace = self._start_trace()
                     metrics = train_step(self.model, self.optimizer, self.lr_scheduler,
                                          to_device(batch, self.device), self.step, self.seed,
                                          self.out_size, self.gradient_clip_val,
                                          precision=self.precision)
                     self.step += 1
+                    if trace is not None and i == 3:
+                        self._stop_trace(trace)
+                        trace = None
                     if self.step % self.log_every_n_steps == 0 or self.fast_dev_run:
                         host = {k: float(v) for k, v in metrics.items()}
                         last_metrics = host
@@ -473,6 +550,8 @@ class Trainer:
                     if self.fast_dev_run or (self.max_steps > 0 and self.step >= self.max_steps):
                         stop = True
                         break
+                if trace is not None:  # the epoch ended inside the traced steps
+                    self._stop_trace(trace)
 
                 if (epoch + 1) % self.check_val_every_n_epoch == 0 or self.fast_dev_run:
                     val = self.validate(epoch)
@@ -487,11 +566,37 @@ class Trainer:
         return {"loss/train": last_metrics.get("loss", float("nan")),
                 "loss/val": last_metrics.get("val_loss", float("nan"))}
 
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        trace = profile(activities=activities)
+        trace.__enter__()
+        return trace
+
+    def _stop_trace(self, trace) -> str:
+        """End a ``torch.profiler`` trace and write it as a Chrome trace
+        under ``<output_dir>/profile``; returns its path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        trace.__exit__(None, None, None)
+        out_dir = os.path.join(self.output_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"trace_to_step_{self.step}.json")
+        trace.export_chrome_trace(path)
+        log.info(f"profiler trace written to {path}")
+        return path
+
     # ------------------------------------------------------------------
     def validate(self, epoch: int) -> Dict[str, float]:
         sums: Dict[str, torch.Tensor] = {}
         count = 0
+        first_batch = None
         for batch in self.dm.val_batches(limit=self.limit_val_batches):
+            if first_batch is None:
+                first_batch = batch
             m = eval_step(self.model, to_device(batch, self.device), self.out_size)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + v
@@ -508,7 +613,36 @@ class Trainer:
             "sub_loss/val_diff_loss": means["diff_loss"],
         }, self.step)
         log.info(f"epoch {epoch} validation: loss={means['loss']:.4f}")
+        if first_batch is not None and not self.fast_dev_run:
+            self._log_images(first_batch, epoch)
         return means
+
+    @torch.no_grad()
+    def _log_images(self, batch: dict, epoch: int) -> None:
+        """2 samples of the validation batch synthesised (10 steps, noise
+        from seed 42) -> images of the encoder output, the decoder output
+        and the alignment; in epoch 0 the ground truth too."""
+        if self.logger.writer is None:
+            return
+        from matcha_tpu_torch.utils.utils import plot_tensor
+
+        n = min(2, batch["x"].shape[0])
+        if epoch == 0:
+            for i in range(n):
+                self.logger.image(f"original/{i}", plot_tensor(batch["y"][i].T), epoch)
+        self.model.eval()
+        spks = batch.get("spks")
+        out = self.model.synthesise(
+            torch.as_tensor(batch["x"][:n]).long().to(self.device),
+            torch.as_tensor(batch["x_lengths"][:n]).to(self.device), n_timesteps=10,
+            y_max_length=batch["y"].shape[1],
+            generator=torch.Generator(self.device).manual_seed(42),
+            spks=None if spks is None else torch.as_tensor(spks[:n]).to(self.device))
+        for i in range(n):
+            for key, tag in (("encoder_outputs", "generated_enc"),
+                             ("decoder_outputs", "generated_dec"), ("attn", "alignment")):
+                self.logger.image(f"{tag}/{i}", plot_tensor(out[key][i].float().cpu().numpy()),
+                                  epoch)
 
     # ------------------------------------------------------------------
     def _monitor_score(self, epoch: int) -> float:

@@ -1,8 +1,8 @@
-"""Host-side helpers: wav I/O, the blank interleave, the sweep metric.
+"""Host-side helpers: wav I/O, the blank interleave, the sweep metric, plots.
 
 The port's own copies of ``matcha_tpu/utils/utils.py``'s ``pcm24_bytes``,
-``write_wav``, ``read_wav`` and ``get_metric_value``; ``intersperse`` is
-the text frontend's.
+``write_wav``, ``read_wav``, ``get_metric_value`` and ``plot_tensor``;
+``intersperse`` is the text frontend's.
 """
 
 import logging
@@ -12,7 +12,8 @@ import numpy as np
 
 from matcha_tpu_torch.text import intersperse
 
-__all__ = ["intersperse", "pcm24_bytes", "write_wav", "read_wav", "get_metric_value"]
+__all__ = ["intersperse", "pcm24_bytes", "write_wav", "read_wav", "get_metric_value",
+           "plot_tensor"]
 
 log = logging.getLogger(__name__)
 
@@ -69,3 +70,38 @@ def get_metric_value(metric_dict: dict, metric_name):
     metric_value = float(metric_dict[metric_name])
     log.info(f"Retrieved metric value! <{metric_name}={metric_value}>")
     return metric_value
+
+
+#: viridis at 0, 1/4, 1/2, 3/4 and 1: the colours of ``plot_tensor``'s
+#: rendering without matplotlib
+_VIRIDIS = np.array([[68, 1, 84], [59, 82, 139], [33, 145, 140], [94, 201, 98],
+                     [253, 231, 37]], dtype=np.float64)
+
+
+def plot_tensor(tensor) -> np.ndarray:
+    """A 2-D array as an (H, W, 3) uint8 image, its first axis upwards: a
+    12 x 3 inch matplotlib figure (Agg) with a colour bar, as the JAX
+    package draws it. Where matplotlib is not installed, the array itself,
+    one pixel per element, min-max scaled through viridis."""
+    data = np.asarray(tensor, dtype=np.float32)
+    try:
+        import matplotlib
+    except ImportError:
+        lo, hi = float(data.min()), float(data.max())
+        x = (data - lo) / (hi - lo) if hi > lo else np.zeros_like(data)
+        pos = x[::-1] * (len(_VIRIDIS) - 1)
+        i = np.minimum(pos.astype(np.int64), len(_VIRIDIS) - 2)
+        frac = (pos - i)[..., None]
+        return np.round(_VIRIDIS[i] * (1 - frac) + _VIRIDIS[i + 1] * frac).astype(np.uint8)
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(12, 3))
+    im = ax.imshow(data, aspect="auto", origin="lower", interpolation="none")
+    plt.colorbar(im, ax=ax)
+    plt.tight_layout()
+    fig.canvas.draw()
+    image = np.asarray(fig.canvas.buffer_rgba())[..., :3].copy()
+    plt.close(fig)
+    return image

@@ -661,3 +661,96 @@ def test_conformer_decode_builds_no_relative_embedding_tensor(cuda_f32):
         del model, est, out
         torch.cuda.empty_cache()
     assert peaks["conformer"] - peaks["transformer"] < 256 * 2**20, peaks
+
+
+# the tiny vocoder of the CPU tests (tests/test_deploy_and_vocoder.py's TINY_HIFI)
+VOC_TINY = dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4), upsample_initial_channel=16,
+                resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 2),), hop_size=8,
+                n_fft=32, win_size=32, fmax=4000.0, segment_size=128)
+
+
+@pytest.mark.cuda
+def test_vocoder_gan_step_on_cuda_matches_cpu(cuda_f32):
+    """One GAN step of the tiny vocoder on the card and on the CPU from the
+    same state and batch: the losses to rtol 1e-4; the weights within 1e-5
+    but for at most 1e-4 of them, which Adam's first update (about +-lr
+    where a gradient is near zero) may move by up to 2 lr (scale 0's u
+    among them). K1 is never launched: the training generator runs plain convs."""
+    from matcha_tpu_torch.training import vocoder_trainer as vt
+
+    h = HiFiGANConfig(**VOC_TINY)
+    cpu = vt.init_vocoder_state(h, "cpu", steps_per_epoch=1)
+    gpu = vt.init_vocoder_state(h, cuda_f32, steps_per_epoch=1)
+    for name in ("gen", "mpd", "msd"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    g = torch.Generator().manual_seed(3)
+    batch = {"mel": torch.randn(2, 80, 16, generator=g),
+             "mel_loss": torch.randn(2, 80, 16, generator=g),
+             "audio": torch.rand(2, 1, 128, generator=g) - 0.5}
+    before = mrf.LAUNCHES["mrf_stage"]
+    m_gpu = vt.vocoder_train_step(gpu, {k: v.to(cuda_f32) for k, v in batch.items()})
+    m_cpu = vt.vocoder_train_step(cpu, batch)
+    torch.cuda.synchronize()
+    assert mrf.LAUNCHES["mrf_stage"] == before
+    for k in m_cpu:
+        assert abs(float(m_gpu[k]) - float(m_cpu[k])) <= 1e-4 * abs(float(m_cpu[k])), k
+    beyond = total = 0
+    for name in ("gen", "mpd", "msd"):
+        want = getattr(cpu, name).state_dict()
+        for k, v in getattr(gpu, name).state_dict().items():
+            d = (v.cpu() - want[k]).abs()
+            assert float(d.max()) <= 2 * h.learning_rate + 1e-6, k
+            beyond += int((d > 1e-5).sum())
+            total += d.numel()
+    assert beyond <= 1e-4 * total
+
+
+@pytest.mark.cuda
+def test_device_mel_on_cuda_matches_cpu_with_gradient(cuda_f32):
+    """The differentiable log-mel on the card against the CPU: values to
+    2e-5, the gradient of a weighted sum to 1e-5 of its largest element."""
+    from matcha_tpu_torch.audio.mel import mel_spectrogram
+
+    g = torch.Generator().manual_seed(4)
+    y = torch.rand(3, 8192, generator=g) * 1.6 - 0.8
+    w = torch.randn(3, 80, 32, generator=g)
+    out = {}
+    for dev in ("cpu", cuda_f32):
+        yd = y.detach().to(dev).requires_grad_()
+        mel = mel_spectrogram(yd)
+        (mel * w.to(dev)).sum().backward()
+        out[str(dev)] = (mel.detach().cpu(), yd.grad.cpu())
+    (m_c, g_c), (m_g, g_g) = out["cpu"], out["cuda"]
+    assert (m_g - m_c).abs().max().item() < 2e-5
+    assert (g_g - g_c).abs().max().item() < 1e-5 * g_c.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_remat_gradients_on_cuda_equal_those_without(cuda_f32):
+    """``MatchaTTS(remat=True)``: one loss + backward at a small width
+    gives the same gradients as without (atol 1e-6; bit-equal so far)."""
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    kw = dict(n_feats=16, enc_n_channels=16, enc_filter_channels=32, enc_filter_channels_dp=16,
+              enc_n_layers=1, dec_channels=(16, 16), dec_num_mid_blocks=1, dec_num_heads=1,
+              dec_attention_head_dim=16, dec_dropout=0.3)
+    torch.manual_seed(0)
+    plain = MatchaTTS(**kw).to(cuda_f32)
+    remat = MatchaTTS(**kw, remat=True).to(cuda_f32)
+    remat.load_state_dict(plain.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randint(1, 100, (2, 12), generator=g).to(cuda_f32)
+    x_lengths = torch.tensor([12, 9], device=cuda_f32)
+    y = torch.randn(2, 40, 16, generator=g).to(cuda_f32)
+    y_lengths = torch.tensor([40, 31], device=cuda_f32)
+    grads = []
+    for model in (plain, remat):
+        model.train()
+        torch.manual_seed(2)
+        loss = sum(model.losses(x, x_lengths, y, y_lengths,
+                                generator=torch.Generator(cuda_f32).manual_seed(3))[:3])
+        loss.backward()
+        grads.append({n: p.grad for n, p in model.named_parameters() if p.grad is not None})
+    assert grads[0].keys() == grads[1].keys()
+    for n in grads[0]:
+        assert (grads[0][n] - grads[1][n]).abs().max().item() <= 1e-6, n

@@ -1,4 +1,4 @@
-"""The port's numpy mel frontend against the JAX package's.
+"""The port's numpy mel frontend against the JAX package's, and the choice of frontend.
 
 ``matcha_tpu_torch/audio/mel.py`` is a copy of the numpy pipeline of
 ``matcha_tpu/audio/mel.py``; on the same audio the filterbank, the window
@@ -31,9 +31,13 @@ def test_mel_equals_jax_package(n_samples, n_mels, fmax):
 
 
 def test_mel_frontends():
+    from matcha_tpu_torch.audio.native import mel_spectrogram_native
+
     assert port_mel.resolve_mel_frontend("numpy") is port_mel.mel_spectrogram_np
-    assert port_mel.resolve_mel_frontend("auto") is port_mel.mel_spectrogram_np
-    with pytest.raises(NotImplementedError, match="native"):
-        port_mel.resolve_mel_frontend("native")
+    # as the JAX package: "auto" takes the native frontend when it builds
+    assert port_mel.resolve_mel_frontend("auto") is mel_spectrogram_native
+    assert port_mel.resolve_mel_frontend("native") is mel_spectrogram_native
+    with pytest.raises(ValueError, match="unknown mel frontend"):
+        port_mel.resolve_mel_frontend("librosa")
     with pytest.raises(ValueError, match="center"):
         port_mel.mel_spectrogram_np(np.zeros(2048, np.float32), center=True)
