@@ -122,6 +122,22 @@ Phases, one output line each (any failure exits non-zero):
    the saved one, K1 never launched; step ms, peak memory, the step's
    FLOPs and their share of the f32 peak), and one step of the tiny
    vocoder on the card against the CPU;
+   ``deploy_eval`` (LJSpeech Matcha + HiFi-GAN v1 from the seed): the CLI
+   through the model registry (``--model``/``--vocoder`` under a temporary
+   ``$MATCHA_HOME``; .wav, .npy and .png per sentence; K1 2 launches for
+   the denoiser's bias and 2 per sentence), on the training run's native
+   checkpoint and on the same weights as a ``.ckpt`` (equal mel lengths);
+   ``deploy/export.py`` at B = 1 x 256 x 1,024, 5 steps, with and without
+   the vocoder (export seconds, MB, the reloaded artifact against its
+   eager wrapper on one z within 1e-5, their times in turns);
+   ``deploy/infer.py`` on 6 lines through B = 4 artifacts in its three
+   output modes (RTF per batch); ``eval.main`` on the training run's
+   checkpoint (K2 once per validation batch, EQUAL to its plain version
+   on that batch's log-prior; finite losses and MCD); the app's
+   ``load_model`` + ``synthesise_mel`` (K1 2 launches a request) and its
+   ``main()`` without gradio; the sweep's ``run_sweep`` with its training
+   objective (2 trials of 2 steps at batch 8); K1 against its plain
+   version at every shape these ran;
 7. the ``kernels`` line (every TPU kernel of the repo: K1 in its two
    instances, K2 and K3, all ported; K1 with its launches on each path),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -491,29 +507,45 @@ def read_metrics(out_dir: str) -> list:
         return [{k: float(v) for k, v in row.items() if v} for row in csv.DictReader(f)]
 
 
+class CountMas:
+    """While active, counts the MAS calls of ``MatchaTTS.losses`` and K2's
+    launches from 0, and keeps the first call's log-prior and mask."""
+
+    def __enter__(self):
+        from matcha_tpu_torch.models import matcha as matcha_module
+        from matcha_tpu_torch.ops import mas
+
+        self.calls, self.first = 0, None
+        self._search = search = matcha_module.maximum_path
+
+        def counted(value, mask):
+            self.calls += 1
+            if self.first is None:
+                self.first = (value.detach().clone(), mask.detach().clone())
+            return search(value, mask)
+
+        matcha_module.maximum_path = counted
+        mas.LAUNCHES["maximum_path"] = 0
+        return self
+
+    def __exit__(self, *exc):
+        from matcha_tpu_torch.models import matcha as matcha_module
+        from matcha_tpu_torch.ops import mas
+
+        matcha_module.maximum_path = self._search
+        self.launches = mas.LAUNCHES["maximum_path"]
+
+
 def run_train(argv) -> dict:
     """``train.main(argv)`` with K2's launches and the MAS calls counted
     from 0 over it."""
     from matcha_tpu_torch import train
-    from matcha_tpu_torch.models import matcha as matcha_module
-    from matcha_tpu_torch.ops import mas
 
-    calls = [0]
-    search = matcha_module.maximum_path
-
-    def counted(value, mask):
-        calls[0] += 1
-        return search(value, mask)
-
-    matcha_module.maximum_path = counted
-    mas.LAUNCHES["maximum_path"] = 0
     t0 = time.perf_counter()
-    try:
+    with CountMas() as counted:
         train.main(argv)
-    finally:
-        matcha_module.maximum_path = search
-    return {"seconds": time.perf_counter() - t0, "mas_calls": calls[0],
-            "k2_launches": mas.LAUNCHES["maximum_path"]}
+    return {"seconds": time.perf_counter() - t0, "mas_calls": counted.calls,
+            "k2_launches": counted.launches}
 
 
 def train_path(root: str) -> dict:
@@ -2565,6 +2597,306 @@ def train_extras(dev, corpus: dict, root: str, cfg) -> dict:
                     "pairs after a warm-up; host clock, synchronised"}
 
 
+# deploy_eval: the exported artifact's buckets (B, T_x, T_y) and ODE steps
+# (deploy/export.py's defaults), the infer batch and its lines, timed calls
+# per side, the artifact against its eager wrapper (the same kernels; cuDNN
+# may pick other algorithms in the exported graph), the sweep's trials,
+# steps and batch, and the CLI's two sentences
+DEPLOY_B, DEPLOY_TX, DEPLOY_TY, DEPLOY_STEPS = 1, 256, 1024, 5
+INFER_B, INFER_LINES, ARTIFACT_REPS = 4, 6, 5
+ARTIFACT_TOL = 1e-5
+SWEEP_TRIALS, SWEEP_STEPS, SWEEP_BATCH = 2, 2, 8
+CLI_SENTENCES = ("The birch canoe slid on the smooth planks.",
+                 "Glue the sheet to the dark blue background.")
+
+
+def counted_k1(fn):
+    """(fn(), K1's launches over it, from 0)."""
+    import torch
+
+    from matcha_tpu_torch.ops import mrf
+
+    mrf.LAUNCHES["mrf_stage"] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, mrf.LAUNCHES["mrf_stage"]
+
+
+def deploy_cli(root: str, native: str) -> dict:
+    """The CLI through the model registry (``--model matcha_ljspeech
+    --vocoder hifigan_T2_v1``, files under ``$MATCHA_HOME``) on two
+    sentences, then on the training run's native checkpoint and on the
+    same weights as a ``.ckpt``. Every run writes .wav, .npy and .png per
+    sentence; K1 launches 2 for the denoiser's bias at load and 2 per
+    sentence; the native and ``.ckpt`` routes give equal mel lengths."""
+    import numpy as np
+    import torch
+
+    from matcha_tpu_torch import cli
+
+    lines = os.path.join(root, "cli_lines.txt")
+    with open(lines, "w", encoding="utf-8") as f:
+        f.write("\n".join(CLI_SENTENCES) + "\n")
+    common = ["--file", lines, "--cleaner", CLEANER, "--seed", str(SEED)]
+    payload = torch.load(native, map_location="cpu", weights_only=True)
+    as_ckpt = os.path.join(root, "native_as.ckpt")
+    torch.save({"state_dict": payload["model"], "hyper_parameters": {}}, as_ckpt)
+    runs = {"registry": ["--model", "matcha_ljspeech", "--vocoder", "hifigan_T2_v1"],
+            "native": ["--checkpoint_path", native, "--vocoder", "hifigan_T2_v1"],
+            "native_as_ckpt": ["--checkpoint_path", as_ckpt, "--vocoder", "hifigan_T2_v1"]}
+    rows = {}
+    for name, flags in runs.items():
+        out = os.path.join(root, f"cli_{name}")
+        t0 = time.perf_counter()
+        _, launches = counted_k1(lambda: cli.cli([*flags, *common, "--output_folder", out]))
+        files = sorted(os.listdir(out))
+        want = sorted(f"utterance_{i:03d}.{e}" for i in (1, 2) for e in ("npy", "png", "wav"))
+        mels = [np.load(os.path.join(out, f"utterance_{i:03d}.npy")) for i in (1, 2)]
+        rows[name] = {"seconds": time.perf_counter() - t0, "k1_launches": launches,
+                      "files": len(files), "mel_frames": [int(m.shape[1]) for m in mels]}
+        if files != want or launches != 2 + 2 * len(CLI_SENTENCES) or not all(
+                np.isfinite(m).all() for m in mels):
+            raise AssertionError(f"deploy_eval, CLI {name}: {files}, {rows[name]}")
+    if rows["native"]["mel_frames"] != rows["native_as_ckpt"]["mel_frames"]:
+        raise AssertionError(f"native and .ckpt mel lengths differ: {rows}")
+    rows["native_equals_ckpt_mels"] = all(
+        np.array_equal(np.load(os.path.join(root, "cli_native", f"utterance_{i:03d}.npy")),
+                       np.load(os.path.join(root, "cli_native_as_ckpt",
+                                            f"utterance_{i:03d}.npy"))) for i in (1, 2))
+    return rows
+
+
+def deploy_export(dev, root: str, model, vocoder, ids) -> dict:
+    """``deploy/export.py`` at B = 1 x 256 ids x 1,024 frames, 5 steps,
+    without and with the vocoder: export seconds and artifact MB; the
+    reloaded artifact on the card against the un-exported wrapper on the
+    same z (lengths equal, within ARTIFACT_TOL, and whether bit-equal);
+    then their times, 5 calls each in turns (synchronised host clock)."""
+    import numpy as np
+    import torch
+
+    from matcha_tpu_torch.deploy.export import export_graph, get_exportable_fn
+
+    x = torch.zeros((DEPLOY_B, DEPLOY_TX), dtype=torch.long, device=dev)
+    x[0, :len(ids)] = torch.from_numpy(np.asarray(ids[:DEPLOY_TX])).to(dev)
+    xl = torch.tensor([min(len(ids), DEPLOY_TX)], device=dev)
+    scales = torch.tensor([0.667, 1.0], device=dev)
+    z = torch.randn((DEPLOY_B, DEPLOY_TY, model.n_feats), device=dev,
+                    generator=torch.Generator(dev).manual_seed(SEED))
+    rows = {}
+    for name, voc in (("mel", None), ("wav", vocoder)):
+        path = os.path.join(root, f"artifact_{name}.pt2")
+        t0 = time.perf_counter()
+        export_graph(model, path, DEPLOY_B, DEPLOY_TX, DEPLOY_TY, DEPLOY_STEPS, voc)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        artifact = torch.export.load(path).module()
+        load_s = time.perf_counter() - t0
+        eager = get_exportable_fn(model, voc, DEPLOY_STEPS, DEPLOY_TY)
+        with torch.no_grad():
+            got, got_len = artifact(x, xl, scales, z)
+            want, want_len = eager(x, xl, scales, z)
+        err = (got - want).abs().max().item()
+        times = {"artifact": [], "eager": []}
+        for _ in range(ARTIFACT_REPS):
+            for side, fn in (("artifact", artifact), ("eager", eager)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    fn(x, xl, scales, z)
+                torch.cuda.synchronize()
+                times[side].append((time.perf_counter() - t0) * 1e3)
+        rows[name] = {"export_s": export_s, "load_s": load_s,
+                      "artifact_mb": os.path.getsize(path) / 1e6,
+                      "shape": list(got.shape), "lengths": got_len.tolist(),
+                      "max_abs_err": err, "bit_equal": bool(torch.equal(got, want)),
+                      "artifact_p50_ms": statistics.median(times["artifact"]),
+                      "eager_p50_ms": statistics.median(times["eager"]),
+                      "artifact_ms": times["artifact"], "eager_ms": times["eager"]}
+        if not (torch.equal(got_len, want_len) and err <= ARTIFACT_TOL
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"deploy_eval, artifact {name} against eager: {rows[name]}")
+        del artifact, eager, got, want
+    return rows
+
+
+def deploy_infer(root: str) -> dict:
+    """``deploy/infer.py`` on INFER_LINES lines through B = 4 artifacts
+    (``deploy.export.main`` on the registry's checkpoint, with and without
+    the vocoder) in its three output modes: output_1..6 as .npy + .png,
+    as .wav embedded, as .wav from the external vocoder; the RTF of each
+    batch."""
+    from matcha_tpu_torch import cli
+    from matcha_tpu_torch.deploy import export, infer
+
+    home = cli.get_user_data_dir()
+    ckpt = str(home / "matcha_ljspeech.ckpt")
+    lines = os.path.join(root, "infer_lines.txt")
+    with open(lines, "w", encoding="utf-8") as f:
+        f.write("\n".join([*CLI_SENTENCES, *CORPUS_TEXT.split(". ")[2:2 + INFER_LINES - 2]]) + "\n")
+    shape = ["--batch", str(INFER_B), "--t-x", str(DEPLOY_TX), "--t-y", str(DEPLOY_TY)]
+    arts, export_s = {"mel": os.path.join(root, "infer_mel.pt2"),
+                      "wav": os.path.join(root, "infer_wav.pt2")}, {}
+    for name, extra in (("mel", []), ("wav", ["--vocoder-name", "hifigan_T2_v1"])):
+        t0 = time.perf_counter()
+        export.main([ckpt, arts[name], *shape, *extra])
+        export_s[name] = time.perf_counter() - t0
+    modes = {"mel": (arts["mel"], [], ("npy", "png")),
+             "embedded_vocoder": (arts["wav"], [], ("wav",)),
+             "external_vocoder": (arts["mel"], ["--vocoder-name", "hifigan_T2_v1"], ("wav",))}
+    rows = {}
+    for name, (art, extra, exts) in modes.items():
+        out = os.path.join(root, f"infer_{name}")
+        t0 = time.perf_counter()
+        rtfs = infer.main([art, ckpt, "--file", lines, "--cleaner", CLEANER, "--output-dir", out,
+                           *extra])
+        files = sorted(os.listdir(out))
+        want = sorted(f"output_{i + 1}.{e}" for i in range(INFER_LINES) for e in exts)
+        rows[name] = {"seconds": time.perf_counter() - t0, "rtf_per_batch": rtfs,
+                      "files": len(files)}
+        if files != want or len(rtfs) != -(-INFER_LINES // INFER_B):
+            raise AssertionError(f"deploy_eval, infer {name}: {files}")
+    return {"export_s_b4": export_s, "modes": rows}
+
+
+def deploy_eval_run(dev, corpus: dict, native: str) -> dict:
+    """``eval.main`` on the training run's native checkpoint and corpus:
+    finite means and MCD, K2 launched once per MAS call (one per
+    validation batch), and K2 EQUAL to its plain version on the first
+    batch's log-prior."""
+    import torch
+
+    from matcha_tpu_torch import eval as eval_module
+    from matcha_tpu_torch.ops import mas
+
+    argv = [f"ckpt_path={native}", "experiment=ljspeech",
+            f"data.train_filelist_path={corpus['train']}",
+            f"data.valid_filelist_path={corpus['val']}", f"data.cleaners=[{CLEANER}]",
+            "data.frontend=numpy"]
+    t0 = time.perf_counter()
+    with CountMas() as counted:
+        means = eval_module.main(argv)
+    seconds = time.perf_counter() - t0
+    value, mask = counted.first
+    with torch.inference_mode():
+        equal = torch.equal(mas.maximum_path(value, mask), mas.maximum_path_reference(value, mask))
+    row = {"seconds": seconds, "means": means, "mas_calls": counted.calls,
+           "k2_launches": counted.launches, "k2_shape": list(value.shape), "k2_equal": equal}
+    if not (all(math.isfinite(v) for v in means.values()) and "mcd_vs_target" in means
+            and counted.launches == counted.calls >= 1 and equal):
+        raise AssertionError(f"deploy_eval, eval: {row}")
+    return row
+
+
+def deploy_app(dev) -> dict:
+    """The app's backend: ``load_model`` + ``synthesise_mel`` on one
+    sentence (K1 2 launches for the denoiser's bias at load, 2 for the
+    request; the wav is mel_length x 256 samples); ``main()`` raises its
+    message where gradio is absent."""
+    import importlib.util
+
+    import torch
+
+    from matcha_tpu_torch import app, cli
+
+    app._pipelines.clear()
+    pipe, load_launches = counted_k1(lambda: app.load_model("matcha_ljspeech", "hifigan_T2_v1"))
+    tp = cli.process_text(1, CLI_SENTENCES[0], CLEANER)
+    t0 = time.perf_counter()
+    (plot, (sr, wav)), launches = counted_k1(
+        lambda: app.synthesise_mel(tp["x"], tp["x_lengths"], 10, 0.667, 0.95))
+    seconds = time.perf_counter() - t0
+    ml = int(pipe.synthesise_batch(tp["x"], tp["x_lengths"], n_timesteps=1, length_scale=0.95,
+                                   generator=torch.Generator(dev).manual_seed(0))["mel_lengths"][0])
+    row = {"load_k1_launches": load_launches, "k1_launches": launches, "seconds": seconds,
+           "mel_frames": ml, "samples": int(wav.size), "png": os.path.getsize(plot) > 0}
+    os.remove(plot)
+    if importlib.util.find_spec("gradio") is None:
+        try:
+            app.main()
+            raise AssertionError("app.main() ran without gradio")
+        except RuntimeError as e:
+            row["main_without_gradio"] = str(e)[:60]
+    if not (launches == 2 and load_launches == 2 and wav.size == ml * HOP and sr == SR):
+        raise AssertionError(f"deploy_eval, app: {row}")
+    app._pipelines.clear()
+    return row
+
+
+def deploy_sweep(corpus: dict, root: str) -> dict:
+    """``training/sweep.py::run_sweep`` with its default objective (the
+    port's ``train.train`` on the card): SWEEP_TRIALS trials of
+    SWEEP_STEPS steps at batch SWEEP_BATCH, sweeping the learning rate and
+    the encoder's dropout; a finite best value, K2 launched once per MAS
+    call."""
+    from matcha_tpu_torch.training.sweep import run_sweep
+
+    space = {"model.optimizer.lr": "loguniform(1e-5, 1e-3)",
+             "model.encoder.encoder_params.p_dropout": "uniform(0.0, 0.3)"}
+    overrides = train_overrides(corpus, os.path.join(root, "sweep")) + [
+        "hparams_search=matcha_optuna", f"hparams_search.sweeper.n_trials={SWEEP_TRIALS}",
+        f"hparams_search.sweeper.params={space!r}", f"trainer.max_steps={SWEEP_STEPS}",
+        f"data.batch_size={SWEEP_BATCH}"]
+    t0 = time.perf_counter()
+    with CountMas() as counted:
+        best = run_sweep(overrides)
+    row = {"seconds": time.perf_counter() - t0, "best": best["metric"],
+           "best_params": best["params"], "history": best["history"],
+           "mas_calls": counted.calls, "k2_launches": counted.launches}
+    if not (math.isfinite(best["metric"]) and len(best["history"]) == SWEEP_TRIALS
+            and counted.launches == counted.calls >= SWEEP_TRIALS * SWEEP_STEPS):
+        raise AssertionError(f"deploy_eval, sweep: {row}")
+    return row
+
+
+def deploy_eval_phase(dev, corpus: dict, root: str, native: str) -> dict:
+    """Deployment and evaluation at full width (LJSpeech Matcha + HiFi-GAN
+    v1 from the seed, f32, TF32 off): the CLI through the registry and on
+    a native checkpoint, export + load, infer, eval, the app's backend,
+    the sweep; then K1 against its plain version at every shape these ran
+    it at."""
+    import torch
+
+    from matcha_tpu_torch import cli
+    from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    set_tf32(False)
+    torch.manual_seed(SEED)
+    model = MatchaTTS().to(dev).eval()
+    vocoder = Generator(HiFiGANConfig()).to(dev).eval()
+    home, saved = os.path.join(root, "deploy_home"), os.environ.get("MATCHA_HOME")
+    os.makedirs(os.path.join(home, "matcha_tpu"))
+    torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                "hyper_parameters": {}}, os.path.join(home, "matcha_tpu", "matcha_ljspeech.ckpt"))
+    torch.save({"generator": {k: v.cpu() for k, v in vocoder.state_dict().items()}},
+               os.path.join(home, "matcha_tpu", "hifigan_T2_v1"))
+    os.environ["MATCHA_HOME"] = home
+    out = {}
+    try:
+        with K1Shapes() as shapes:
+            shapes.tag = "deploy"
+            t0 = time.perf_counter()
+            out["cli"] = deploy_cli(root, native)
+            out["cli"]["seconds_all"] = time.perf_counter() - t0
+            ids = cli.process_text(0, CLI_SENTENCES[0], CLEANER)["x"][0]
+            out["export"] = deploy_export(dev, root, model, vocoder, ids)
+            t0 = time.perf_counter()
+            out["infer"] = deploy_infer(root)
+            out["infer"]["seconds"] = time.perf_counter() - t0
+            out["eval"] = deploy_eval_run(dev, corpus, native)
+            out["app"] = deploy_app(dev)
+            out["sweep"] = deploy_sweep(corpus, root)
+        gen = torch.Generator().manual_seed(SEED)
+        out["k1_shapes"] = shapes.check(dev, gen, ("deploy",))
+    finally:
+        if saved is None:
+            os.environ.pop("MATCHA_HOME", None)
+        else:
+            os.environ["MATCHA_HOME"] = saved
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2798,6 +3130,12 @@ def main() -> int:
         voc_train["gpu_vs_cpu"] = vocoder_gpu_vs_cpu(dev, trained["corpus"]["train"])
         emit({"phase": "vocoder_train", "nvidia_smi": smi, **voc_train,
               "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        deploy = deploy_eval_phase(dev, trained["corpus"], root,
+                                   os.path.join(trained["out_dir"], "checkpoints", "last"))
+        emit({"phase": "deploy_eval", "nvidia_smi": smi, **deploy,
+              "seconds": time.perf_counter() - t0})
 
     # 7. kernels: K1's and K3's ms, plain_ms, bound_ms, library_ms summed
     # over the two narrow stages of one vocoder call at the serving path's
@@ -2816,11 +3154,17 @@ def main() -> int:
          "serve_launches": served["k1_launches"],
          "multispeaker_launches": ms_serving["k1_launches"],
          "conformer_launches": {m: r["k1_launches"] for m, r in conf_serving["modes"].items()},
+         "deploy_eval_launches": {
+             **{f"cli_{m}": deploy["cli"][m]["k1_launches"]
+                for m in ("registry", "native", "native_as_ckpt")},
+             "app_request": deploy["app"]["k1_launches"],
+             "app_load": deploy["app"]["load_k1_launches"]},
          "max_abs_err": max([worst] + [s["max_abs_err"] for s in stages]
                             + [r["max_abs_err"]
                                for r in corpus["k1_shapes"] + served["k1_shapes"]
                                + precision["k1_shapes"] + ms_serving["k1_shapes"]
-                               + conf_serving["k1_shapes"] if r["compute_dtype"] == "float32"]),
+                               + conf_serving["k1_shapes"] + deploy["k1_shapes"]
+                               if r["compute_dtype"] == "float32"]),
          "ms": sum(s["ms"] for s in path),
          "plain_ms": sum(s["plain_ms"] for s in path),
          "bound_ms": sum(s["bound_ms"] for s in path),
@@ -2856,6 +3200,8 @@ def main() -> int:
                                    for p in ("f32", "bf16-mixed")},
          "conformer_launches": {m: r["k2_launches"] for m, r in conf_train.items()},
          "train_extras_launches": extras["run"]["k2_launches"],
+         "eval_launches": deploy["eval"]["k2_launches"],
+         "sweep_launches": deploy["sweep"]["k2_launches"],
          "bf16_log_prior": {k: bf16["k2"][k] for k in ("shape", "adjacent_ties", "equal", "ms")},
          "max_abs_err": 0.0, "ms": k2["ms"],
          "kernel_ms": k2["kernel_ms"], "wrapper_ms": k2["wrapper_ms"], "layout": k2["layout"],

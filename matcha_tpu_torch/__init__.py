@@ -1,8 +1,11 @@
 """Matcha-TTS in PyTorch for NVIDIA Hopper (H100).
 
 A port of the ``matcha_tpu`` serving path (phoneme ids -> wav), its
-training path (``python -m matcha_tpu_torch.train``) and its vocoder GAN
-training (``python -m matcha_tpu_torch.training.vocoder_train``) that keeps the
+training path (``python -m matcha_tpu_torch.train``), its vocoder GAN
+training (``python -m matcha_tpu_torch.training.vocoder_train``), its
+deployment (``deploy/export.py``, ``deploy/infer.py``: ``torch.export``
+artifacts), evaluation (``eval.py``), the app's backend (``app.py``) and
+tools (``text/phonemize.py``, ``training/sweep.py``) that keeps the
 reference torch parameter names, so a reference checkpoint or a bridged
 JAX param tree (``matcha_tpu_torch.convert``) loads as-is. Three
 hand-written CUDA kernels: the fused HiFi-GAN MRF stage (``ops/mrf.py``,

@@ -26,9 +26,15 @@ path (``spks``, CLI ``--spk``), checked on the host against the model's
 ``n_spks`` before it reaches the card. The CLI synthesises one utterance
 at a time, in length-sorted batches (``--batched``, ``--staged``) or
 sentence by sentence (``--long-form``).
-Checkpoints are the reference formats (a Lightning ``.ckpt`` for Matcha,
-``{"generator": state_dict}`` for HiFi-GAN), read from
-``$MATCHA_HOME/matcha_tpu/`` or a given path; nothing is downloaded.
+Models are named as in JAX's registry (``--model matcha_ljspeech |
+matcha_vctk``, ``--vocoder hifigan_T2_v1 | hifigan_univ_v1``, with each
+model's default vocoder, speaking rate and speaker: ``validate_args``) and
+read from ``$MATCHA_HOME/matcha_tpu/<name>[.ckpt]``; nothing is
+downloaded (the published URLs are named when a file is missing).
+``--checkpoint_path`` takes a reference Lightning ``.ckpt`` or the port's
+own native checkpoint (``checkpoint_<step>`` or ``last`` with its
+``.hparams.json`` beside it); a vocoder file is ``{"generator":
+state_dict}``. Every path writes ``<name>.wav``, ``.npy`` and ``.png``.
 
     python -m matcha_tpu_torch.cli --text "..." --cleaner english_cleaners_no_espeak
 """
@@ -59,7 +65,24 @@ from matcha_tpu_torch.models.hifigan_fused import (
 from matcha_tpu_torch.models.matcha import MatchaTTS, check_speakers, decoder_cast
 from matcha_tpu_torch.text import intersperse, sequence_to_text, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
-from matcha_tpu_torch.utils.utils import PCM24_SCALE, write_wav
+from matcha_tpu_torch.utils.checkpoints import load_native_checkpoint
+from matcha_tpu_torch.utils.utils import PCM24_SCALE, save_plot, write_wav
+
+MATCHA_URLS = {
+    "matcha_ljspeech": "https://github.com/shivammehta25/Matcha-TTS-checkpoints/releases/download/v1.0/matcha_ljspeech.ckpt",
+    "matcha_vctk": "https://github.com/shivammehta25/Matcha-TTS-checkpoints/releases/download/v1.0/matcha_vctk.ckpt",
+}
+
+VOCODER_URLS = {
+    "hifigan_T2_v1": "https://github.com/shivammehta25/Matcha-TTS-checkpoints/releases/download/v1.0/generator_v1",
+    "hifigan_univ_v1": "https://github.com/shivammehta25/Matcha-TTS-checkpoints/releases/download/v1.0/g_02500000",
+}
+
+MULTISPEAKER_MODEL = {
+    "matcha_vctk": {"vocoder": "hifigan_univ_v1", "speaking_rate": 0.85, "spk": 0, "spk_range": (0, 107)}
+}
+
+SINGLESPEAKER_MODEL = {"matcha_ljspeech": {"vocoder": "hifigan_T2_v1", "speaking_rate": 0.95, "spk": None}}
 
 X_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 Y_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -541,10 +564,11 @@ def get_user_data_dir(appname: str = "matcha_tpu") -> Path:
     return base / appname
 
 
-def _checked(path) -> Path:
+def _checked(path, url: Optional[str] = None) -> Path:
     path = Path(path)
     if not path.exists():
-        raise FileNotFoundError(f"checkpoint not found: {path} (nothing is downloaded)")
+        published = f"; the published file is {url}" if url else ""
+        raise FileNotFoundError(f"checkpoint not found: {path} (nothing is downloaded){published}")
     return path
 
 
@@ -593,10 +617,24 @@ def matcha_kwargs(hp) -> dict:
 
 
 def load_matcha(checkpoint_path, device=None) -> MatchaTTS:
-    """A reference Lightning ``.ckpt`` (a trusted file: it is unpickled in
-    full, for its hyper-parameters) -> MatchaTTS on ``device``."""
+    """A Matcha checkpoint -> MatchaTTS on ``device``. Either the port's
+    native checkpoint (a ``checkpoint_<step>`` or ``last`` file with its
+    ``.hparams.json`` beside it): ``MatchaTTS(**hparams["model_kwargs"])``,
+    as JAX builds its native ones, so the default (LJSpeech) widths when
+    the json names none, which is what the trainers write; a checkpoint of
+    other widths then fails the strict load, naming the keys. Or a
+    reference Lightning ``.ckpt`` (a trusted file: it is unpickled in
+    full, for its hyper-parameters)."""
     path = _checked(checkpoint_path)
     print(f"[!] Loading {path.name}!")
+    if Path(f"{path}.hparams.json").exists():
+        payload = load_native_checkpoint(str(path))
+        kwargs = payload["hparams"].get("model_kwargs", {})
+        model = MatchaTTS(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in kwargs.items()})
+        model.load_state_dict(payload["model"])
+        print(f"[+] {path.name} loaded!")
+        return model.to(resolve_device(device)).eval()
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = dict(ckpt["state_dict"])
     hp = ckpt.get("hyper_parameters", {})
@@ -609,9 +647,13 @@ def load_matcha(checkpoint_path, device=None) -> MatchaTTS:
     return model.to(resolve_device(device)).eval()
 
 
-def load_vocoder(checkpoint_path, device=None):
-    """A reference HiFi-GAN v1 generator file -> (Generator with weight
-    norm folded, denoiser bias spectrum from its output on a zero mel)."""
+def load_vocoder(checkpoint_path, device=None, name: str = "hifigan_T2_v1"):
+    """A reference HiFi-GAN v1 generator file of the vocoder ``name`` (one
+    of ``VOCODER_URLS``; both are v1) -> (Generator with weight norm
+    folded, denoiser bias spectrum from its output on a zero mel)."""
+    if name not in VOCODER_URLS:
+        raise NotImplementedError(
+            f"Vocoder {name} not implemented! define a load_<<vocoder_name>> method for it")
     path = _checked(checkpoint_path)
     print(f"[!] Loading {path.name}!")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
@@ -642,8 +684,10 @@ def _rtf(seconds: float, n_samples: int) -> float:
 
 
 def _save(folder: Path, name: str, mel: np.ndarray, wav: np.ndarray) -> Path:
-    """``<name>.npy`` (the mel, (n_feats, frames)) and ``<name>.wav``."""
+    """``<name>.png`` (the mel's plot), ``<name>.npy`` (the mel,
+    (n_feats, frames)) and ``<name>.wav``, as JAX's ``save_to_folder``."""
     base = folder / name
+    save_plot(mel, base.with_suffix(".png"))
     np.save(base.with_suffix(".npy"), mel)
     write_wav(base.with_suffix(".wav"), wav)
     return base.with_suffix(".wav").resolve()
@@ -654,11 +698,12 @@ def _print_rtf_summary(rtfs) -> None:
 
 
 def resolve_speaker(model: MatchaTTS, spk: Optional[int]) -> Optional[int]:
-    """The speaker the CLI and the daemon run, as JAX's argument checks
-    have it: a multi-speaker model without ``--spk`` warns and takes
-    speaker 0 (the ``matcha_vctk`` default); an id outside [0, n_spks)
-    exits with the range; a single-speaker model warns and ignores
-    ``--spk``."""
+    """The speaker the CLI and the daemon run, checked against the loaded
+    model (``validate_args`` knows only the named models; a custom
+    checkpoint may have any ``n_spks``): a multi-speaker model without
+    ``--spk`` warns and takes speaker 0 (the ``matcha_vctk`` default); an
+    id outside [0, n_spks) exits with the range; a single-speaker model
+    warns and ignores ``--spk``."""
     if model.n_spks <= 1:
         if spk is not None:
             warnings.warn(f"[-] Ignoring speaker id {spk} for a single-speaker model", UserWarning)
@@ -791,13 +836,22 @@ def long_form_synthesis(args, pipeline: TTSPipeline, text: str, folder: Path) ->
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="🍵 Matcha-TTS (PyTorch port): text to speech with conditional flow matching")
+    parser.add_argument("--model", type=str, default="matcha_ljspeech",
+                        choices=list(MATCHA_URLS.keys()),
+                        help="Model, read from $MATCHA_HOME/matcha_tpu/<model>.ckpt "
+                             "(default: matcha_ljspeech)")
     parser.add_argument("--checkpoint_path", type=str, default=None,
-                        help="Matcha .ckpt (default: $MATCHA_HOME/matcha_tpu/matcha_ljspeech.ckpt)")
+                        help="A custom Matcha checkpoint: a Lightning .ckpt or the port's native "
+                             "checkpoint_<step> (its .hparams.json beside it)")
+    parser.add_argument("--vocoder", type=str, default=None, choices=list(VOCODER_URLS.keys()),
+                        help="Vocoder, read from $MATCHA_HOME/matcha_tpu/<vocoder> (default: the "
+                             "model's own; hifigan_univ_v1 for a custom checkpoint)")
     parser.add_argument("--text", type=str, default=None, help="Text to synthesize")
     parser.add_argument("--file", type=str, default=None, help="Text file to synthesize, one utterance per line")
     parser.add_argument("--temperature", type=float, default=0.667, help="Variance of the x0 noise (default: 0.667)")
     parser.add_argument("--speaking_rate", type=float, default=None,
-                        help="Higher is slower (default: 0.95 for LJSpeech, 1.0 for a custom checkpoint)")
+                        help="Higher is slower (default: 0.95 for LJSpeech, 0.85 for VCTK, 1.0 "
+                             "for a custom checkpoint)")
     parser.add_argument("--steps", type=int, default=10, help="Number of ODE steps (default: 10)")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU (default: CUDA)")
     parser.add_argument("--denoiser_strength", type=float, default=0.00025,
@@ -853,40 +907,121 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def default_checkpoints(checkpoint_path=None) -> tuple:
-    """(Matcha checkpoint, vocoder file, default speaking rate): the
-    LJSpeech pair under ``$MATCHA_HOME/matcha_tpu/`` (rate 0.95), or a
-    given Matcha checkpoint with the universal vocoder beside the default
-    ones (rate 1.0), as the JAX CLI pairs them."""
+def assert_required_models_available(args) -> dict:
+    """The local files of ``args.model`` (or ``args.checkpoint_path``) and
+    ``args.vocoder`` under ``$MATCHA_HOME/matcha_tpu/``: {"matcha": path,
+    "vocoder": path}. A missing file raises FileNotFoundError naming its
+    published URL; nothing is downloaded."""
     home = get_user_data_dir()
-    if checkpoint_path is None:
-        return home / "matcha_ljspeech.ckpt", home / "hifigan_T2_v1", 0.95
-    return Path(checkpoint_path), home / "hifigan_univ_v1", 1.0
+    if args.checkpoint_path is not None:
+        model_path = _checked(args.checkpoint_path)
+    else:
+        model_path = _checked(home / f"{args.model}.ckpt", MATCHA_URLS[args.model])
+    vocoder_path = _checked(home / f"{args.vocoder}", VOCODER_URLS[args.vocoder])
+    return {"matcha": model_path, "vocoder": vocoder_path}
+
+
+def _require(ok: bool, message: str) -> None:
+    if not ok:
+        raise SystemExit(message)
+
+
+def validate_args(args):
+    """JAX's argument checks: each model's default vocoder, speaking rate
+    and speaker, the "I would suggest passing --vocoder" warnings, the
+    VCTK speaker range, and ``--spk`` ignored for LJSpeech; a custom
+    checkpoint takes ``hifigan_univ_v1`` and rate 1.0 by default. An
+    invalid argument exits with JAX's message."""
+    _require(bool(args.text or args.file), "Either text or file must be provided Matcha-T(ea)TTS "
+             "need sometext to whisk the waveforms.")
+    _require(args.temperature >= 0, "Sampling temperature cannot be negative")
+    _require(args.steps > 0, "Number of ODE steps must be greater than 0")
+
+    if args.checkpoint_path is None:
+        if args.model in SINGLESPEAKER_MODEL:
+            args = _validate_single_speaker(args)
+        if args.model in MULTISPEAKER_MODEL:
+            args = _validate_multispeaker(args)
+    else:
+        if args.vocoder != "hifigan_univ_v1":
+            warnings.warn(
+                "[-] Using custom model checkpoint! I would suggest passing --vocoder "
+                "hifigan_univ_v1, unless the custom model is trained on LJ Speech.", UserWarning)
+        if args.speaking_rate is None:
+            args.speaking_rate = 1.0
+        if args.vocoder is None:
+            args.vocoder = "hifigan_univ_v1"
+
+    if args.batched:
+        _require(args.batch_size > 0, "Batch size must be greater than 0")
+    _require(args.speaking_rate > 0, "Speaking rate must be greater than 0")
+    return args
+
+
+def _validate_multispeaker(args):
+    info = MULTISPEAKER_MODEL[args.model]
+    if args.vocoder is not None:
+        if args.vocoder != info["vocoder"]:
+            warnings.warn(f"[-] Using {args.model} model! I would suggest passing --vocoder "
+                          f"{info['vocoder']}", UserWarning)
+    else:
+        args.vocoder = info["vocoder"]
+    if args.speaking_rate is None:
+        args.speaking_rate = info["speaking_rate"]
+    spk_range = info["spk_range"]
+    if args.spk is not None:
+        _require(spk_range[0] <= args.spk <= spk_range[-1],
+                 f"Speaker ID must be between {spk_range} for this model.")
+    else:
+        warnings.warn(f"[!] Speaker ID not provided! Using speaker ID {info['spk']}", UserWarning)
+        args.spk = info["spk"]
+    return args
+
+
+def _validate_single_speaker(args):
+    info = SINGLESPEAKER_MODEL[args.model]
+    if args.vocoder is not None:
+        if args.vocoder != info["vocoder"]:
+            warnings.warn(f"[-] Using {args.model} model! I would suggest passing --vocoder "
+                          f"{info['vocoder']}", UserWarning)
+    else:
+        args.vocoder = info["vocoder"]
+    if args.speaking_rate is None:
+        args.speaking_rate = info["speaking_rate"]
+    if args.spk != info["spk"]:
+        warnings.warn(f"[-] Ignoring speaker id {args.spk} for {args.model}", UserWarning)
+        args.spk = info["spk"]
+    return args
+
+
+def print_config(args) -> None:
+    print("[!] Configurations: ")
+    print(f"\t- Model: {args.model}")
+    print(f"\t- Vocoder: {args.vocoder}")
+    print(f"\t- Temperature: {args.temperature}")
+    print(f"\t- Speaking rate: {args.speaking_rate}")
+    print(f"\t- Number of ODE steps: {args.steps}")
+    print(f"\t- Speaker: {args.spk}")
 
 
 def cli(argv=None):
-    args = build_parser().parse_args(argv)
-    if not (args.text or args.file):
-        raise SystemExit("Either --text or --file must be given")
-    if args.temperature < 0 or args.steps <= 0:
-        raise SystemExit("--temperature must be >= 0 and --steps > 0")
-    if args.batched and args.batch_size <= 0:
-        raise SystemExit("--batch_size must be > 0")
+    args = validate_args(build_parser().parse_args(argv))
     if args.vocoder_chunk < 0:
         raise SystemExit("--vocoder-chunk must be >= 0")
     device = resolve_device("cpu" if args.cpu else None)
-    matcha_path, vocoder_path, rate = default_checkpoints(args.checkpoint_path)
-    args.speaking_rate = rate if args.speaking_rate is None else args.speaking_rate
-    if args.speaking_rate <= 0:
-        raise SystemExit("--speaking_rate must be > 0")
     if args.full_precision:  # JAX's jax_default_matmul_precision = "highest"
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[+] Device: {device}")
+    print_config(args)
+    paths = assert_required_models_available(args)
+    if args.checkpoint_path is not None:
+        print(f"[🍵] Loading custom model from {args.checkpoint_path}")
+        args.model = "custom_model"
 
-    model = load_matcha(matcha_path, device)
+    model = load_matcha(paths["matcha"], device)
     args.spk = resolve_speaker(model, args.spk)
-    vocoder, bias = load_vocoder(vocoder_path, device)
+    vocoder, bias = load_vocoder(paths["vocoder"], device, name=args.vocoder)
     pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
                            denoiser_strength=args.denoiser_strength,
                            pcm24_transfer=not args.no_pcm24_transfer,

@@ -5,7 +5,7 @@ mel gives its bias spectrum; synthesis magnitudes lose ``strength *
 bias`` and are resynthesised with their own phases.
 """
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -16,11 +16,18 @@ from matcha_tpu_torch.audio.stft import istft, stft_magnitude_phase
 def compute_bias_spec(vocoder_apply: Callable[[torch.Tensor], torch.Tensor],
                       n_feats: int = 80, n_frames: int = 88, filter_length: int = 1024,
                       n_overlap: int = 4, win_length: int = 1024,
-                      device=None) -> torch.Tensor:
-    """Bias magnitude (n_freq, 1) of ``vocoder_apply`` on a zero mel
-    (1, n_frames, n_feats): the first STFT frame."""
+                      device=None, mode: str = "zeros",
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Bias magnitude (n_freq, 1) of ``vocoder_apply`` on a mel (1,
+    n_frames, n_feats) of zeros (``mode="zeros"``) or of unit normal noise
+    drawn from ``generator`` (``mode="normal"``): the first STFT frame."""
     hop_length = filter_length // n_overlap
-    mel = torch.zeros((1, n_frames, n_feats), device=device)
+    if mode == "zeros":
+        mel = torch.zeros((1, n_frames, n_feats), device=device)
+    elif mode == "normal":
+        mel = torch.randn((1, n_frames, n_feats), generator=generator, device=device)
+    else:
+        raise ValueError(f"Mode {mode} is not supported")
     bias_audio = vocoder_apply(mel).reshape(-1)
     bias_spec, _ = stft_magnitude_phase(bias_audio, filter_length, hop_length, win_length)
     return bias_spec[:, 0:1]

@@ -126,7 +126,19 @@ class MatchaTTS(nn.Module):
                generator: Optional[torch.Generator] = None,
                compute_dtype: Optional[torch.dtype] = None,
                spks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """Expand durations to ``y_max_length`` frames and sample the flow.
+        """:meth:`decode_body` under ``torch.inference_mode``."""
+        return self.decode_body(mu_x, w_ceil, x_lengths, y_lengths, n_timesteps, temperature,
+                                y_max_length, z, generator, compute_dtype, spks)
+
+    def decode_body(self, mu_x: torch.Tensor, w_ceil: torch.Tensor, x_lengths: torch.Tensor,
+                    y_lengths: torch.Tensor, n_timesteps: int = 10, temperature=1.0,
+                    y_max_length: int = 1024, z: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    spks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Expand durations to ``y_max_length`` frames and sample the flow,
+        under the caller's autograd mode (``torch.export`` traces it so).
+        ``temperature``: a float or a 0-d tensor.
         ``z``: unit-normal noise (B, y_max_length, n_feats), else drawn
         from ``generator``. ``spks``: speaker ids (B,) of a multi-speaker
         model.

@@ -30,7 +30,9 @@ serves every speaker: ``--spk`` is the default of requests that omit
 ``"spk"``, requests group by (rate, spk), and one warmed graph per
 (x bucket, rate, has_spk) serves every speaker (its speaker id is a
 static input). A speaker id outside the model's range is answered with
-400 before it is queued.
+400 before it is queued. ``--model`` and ``--vocoder`` name the files
+as the CLI does, through its ``validate_args`` (each model's default
+vocoder, speaking rate and speaker).
 
     python -m matcha_tpu_torch.serve --port 8080 --warmup 128:512 [--cpu]
 """
@@ -51,10 +53,11 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch import resolve_device
-from matcha_tpu_torch.cli import (HOP, SAMPLE_RATE, VOC_BUCKETS, X_BUCKETS, Y_BUCKETS,
-                                  TTSPipeline, default_checkpoints, fetch_fused_host,
+from matcha_tpu_torch.cli import (HOP, MATCHA_URLS, SAMPLE_RATE, VOC_BUCKETS, VOCODER_URLS,
+                                  X_BUCKETS, Y_BUCKETS, TTSPipeline,
+                                  assert_required_models_available, fetch_fused_host,
                                   load_matcha, load_vocoder, pick_bucket, resolve_speaker,
-                                  speaker_batch)
+                                  speaker_batch, validate_args)
 from matcha_tpu_torch.fused import _pack_pcm24
 from matcha_tpu_torch.models.matcha import check_speakers
 from matcha_tpu_torch.text import intersperse, text_to_sequence
@@ -700,8 +703,11 @@ NOT_PORTED = {
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="🍵 Matcha-TTS (PyTorch port) serving daemon")
+    p.add_argument("--model", type=str, default="matcha_ljspeech", choices=list(MATCHA_URLS))
     p.add_argument("--checkpoint_path", type=str, default=None,
-                   help="Matcha .ckpt (default: $MATCHA_HOME/matcha_tpu/matcha_ljspeech.ckpt)")
+                   help="a custom Matcha checkpoint: a Lightning .ckpt or the port's native "
+                        "checkpoint_<step>")
+    p.add_argument("--vocoder", type=str, default=None, choices=list(VOCODER_URLS))
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--max-batch", type=int, default=8)
@@ -734,18 +740,21 @@ def main(argv=None):
     for name, message in NOT_PORTED.items():
         if getattr(args, name) is not None and getattr(args, name) is not False:
             raise SystemExit(message)
+    # the CLI's model-registry checks (they fill the vocoder, rate and spk)
+    args.text, args.file, args.batched = "x", None, False
+    args = validate_args(args)
     device = resolve_device("cpu" if args.cpu else None)
-    matcha_path, vocoder_path, rate = default_checkpoints(args.checkpoint_path)
-    model = load_matcha(matcha_path, device)
+    paths = assert_required_models_available(args)
+    model = load_matcha(paths["matcha"], device)
     default_spk = resolve_speaker(model, args.spk)
-    vocoder, bias = load_vocoder(vocoder_path, device)
+    vocoder, bias = load_vocoder(paths["vocoder"], device, name=args.vocoder)
     pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
                            vocoder_chunk=args.vocoder_chunk, vocoder_bf16=args.bf16_vocoder,
                            vocoder_pallas=not args.no_pallas_vocoder)
     batcher = BatchingServer(pipeline, max_batch=args.max_batch,
                              batch_window_ms=args.batch_window_ms, n_timesteps=args.steps,
                              temperature=args.temperature,
-                             default_rate=args.speaking_rate or rate,
+                             default_rate=args.speaking_rate,
                              default_spk=default_spk,
                              fused_single=not args.no_fused_single)
     pairs = _parse_warmup(args.warmup)

@@ -5,7 +5,9 @@ tree with the same override syntax
 (``experiment=ljspeech trainer.max_steps=100 data.batch_size=16``),
 builds the model and the data module, and trains on the card, or on the
 CPU with ``trainer.accelerator=cpu``. Without a card and without that
-override it raises.
+override it raises. Before training it applies the config's ``extras``
+(``extras.print_config`` writes ``config_tree.log``,
+``extras.enforce_tags`` ``tags.log`` into the output directory).
 """
 
 import logging
@@ -15,9 +17,10 @@ from typing import Optional, Tuple
 
 from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.utils.config import compose, save_config
-from matcha_tpu_torch.utils.utils import get_metric_value
+from matcha_tpu_torch.utils.pylogger import get_pylogger
+from matcha_tpu_torch.utils.utils import extras, get_metric_value, task_wrapper
 
-log = logging.getLogger(__name__)
+log = get_pylogger(__name__)
 
 
 def build_model_from_cfg(cfg):
@@ -76,6 +79,7 @@ def train_device(cfg):
     return resolve_device("cpu" if accelerator == "cpu" else None)
 
 
+@task_wrapper
 def train(cfg) -> Tuple[dict, dict]:
     import torch
 
@@ -133,7 +137,6 @@ def train(cfg) -> Tuple[dict, dict]:
     if cfg.get("train", True):
         log.info("Starting training!")
         metric_dict = trainer.fit(restore_from=cfg.get("ckpt_path"))
-    log.info(f"Output dir: {output_dir}")
     return metric_dict, {"cfg": cfg, "datamodule": datamodule, "model": model,
                          "trainer": trainer}
 
@@ -142,6 +145,7 @@ def main(argv=None) -> Optional[float]:
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s")
     cfg = compose("train", overrides=list(sys.argv[1:] if argv is None else argv))
+    extras(cfg)
     metric_dict, _ = train(cfg)
     return get_metric_value(metric_dict, cfg.get("optimized_metric"))
 

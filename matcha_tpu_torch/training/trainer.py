@@ -190,13 +190,14 @@ def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int
 
 
 @torch.no_grad()
-def eval_step(model: MatchaTTS, batch: dict, out_size: Optional[int] = None
-              ) -> Dict[str, torch.Tensor]:
-    """The losses of a batch with dropout off, noise from a fixed seed, in
-    f32 whatever the training precision (as JAX's ``make_eval_step``)."""
+def eval_step(model: MatchaTTS, batch: dict, out_size: Optional[int] = None,
+              noise: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """The losses of a batch with dropout off, noise from a fixed seed (or
+    ``noise``: ``t``, ``z``, ``offsets`` for ``MatchaTTS.losses``), in f32
+    whatever the training precision (as JAX's ``make_eval_step``)."""
     model.eval()
     gen = torch.Generator(device=batch["y"].device).manual_seed(0)
-    dur, prior, diff = batch_losses(model, batch, out_size, gen)
+    dur, prior, diff = batch_losses(model, batch, out_size, gen, noise)
     return {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff, "loss": dur + prior + diff}
 
 

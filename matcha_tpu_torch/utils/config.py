@@ -10,7 +10,10 @@ its helpers, reading the repo's ``configs/`` tree:
 * dotted overrides (``model.decoder.channels=[256,256]``,
   ``trainer.max_steps=10``);
 * ``${a.b}`` interpolation across the composed tree;
-* ``# @package _global_`` files that override at the root.
+* ``# @package _global_`` files that override at the root;
+
+and its ``format_config_tree`` / ``print_config_tree``, the text the
+training entry point prints and writes to ``config_tree.log``.
 
 ``_target_`` keys name the JAX package's classes; the port ignores them.
 """
@@ -256,6 +259,49 @@ def _is_global(config_dir: str, group: str, name: str) -> bool:
     with open(path, encoding="utf-8") as f:
         first = f.readline()
     return "@package _global_" in first
+
+
+#: the reference's branch print order (rich_utils.print_config_tree)
+_PRINT_ORDER = ("data", "model", "callbacks", "logger", "trainer", "paths", "extras")
+
+
+def format_config_tree(cfg: dict, print_order=_PRINT_ORDER) -> str:
+    """The composed config as a guided tree with yaml branch bodies,
+    ``print_order``'s fields first and the rest after."""
+    queue = [f for f in print_order if f in cfg]
+    queue += [f for f in cfg if f not in queue]
+    lines = ["CONFIG"]
+    for n, field in enumerate(queue):
+        last = n == len(queue) - 1
+        lines.append(("└── " if last else "├── ") + str(field))
+        body = cfg[field]
+        body_str = (yaml.safe_dump(_plain(body), sort_keys=False).rstrip()
+                    if isinstance(body, dict) else str(body))
+        pad = "    " if last else "│   "
+        lines += [pad + ln for ln in body_str.splitlines()]
+    return "\n".join(lines)
+
+
+def print_config_tree(cfg: dict, save_to_file: bool = False) -> None:
+    """Print the config tree and, with ``save_to_file``, write it to
+    ``<paths.output_dir>/config_tree.log``."""
+    text = format_config_tree(cfg)
+    print(text)
+    out_dir = cfg.get("paths", {}).get("output_dir")
+    if save_to_file and out_dir:
+        # extras() runs before the task creates the run directory
+        os.makedirs(str(out_dir), exist_ok=True)
+        with open(os.path.join(str(out_dir), "config_tree.log"), "w",
+                  encoding="utf-8") as f:
+            f.write(text + "\n")
+
+
+def _plain(x):
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x if isinstance(x, (str, int, float, bool, type(None))) else str(x)
 
 
 def save_config(cfg: dict, path: str) -> None:

@@ -326,8 +326,8 @@ def _wav_samples(path):
 def test_cli_modes_on_the_cpu_load_no_jax(fabricated_ckpts, tmp_path):  # noqa: F811
     """(f) The CLI in one subprocess: ``--fixed-y-bucket auto`` over a
     3-line ``--file``, ``--batched --batch_size 2`` over it, and
-    ``--long-form``. Each wav holds mel frames x 256 samples, and no JAX
-    module is loaded."""
+    ``--long-form``. Each wav holds mel frames x 256 samples, a .png of the
+    mel is beside it, and no JAX module is loaded."""
     lines = tmp_path / "lines.txt"
     lines.write_text(f"{SHORT}\n{MEDIUM}\nhi there\n", encoding="utf-8")
     common_args = ["--cleaner", CLEANER, "--steps", "2", "--cpu"]
@@ -337,7 +337,10 @@ def test_cli_modes_on_the_cpu_load_no_jax(fabricated_ckpts, tmp_path):  # noqa: 
         "long": ["--text", f"{SHORT} {MEDIUM} Dr. Smith is here.", "--long-form",
                  "--fixed-y-bucket", "128"],
     }
-    code = ["import sys", "from matcha_tpu_torch.cli import cli"]
+    # torch on 2 threads, as the suite's other CPU-heavy files: it runs
+    # beside 5 other workers, where 8 threads each oversubscribe the cores
+    code = ["import sys", "import torch", "torch.set_num_threads(2)",
+            "from matcha_tpu_torch.cli import cli"]
     for name, argv in runs.items():
         code.append(f"cli({argv + common_args + ['--output_folder', str(tmp_path / name)]!r})")
     code += ["bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -356,5 +359,6 @@ def test_cli_modes_on_the_cpu_load_no_jax(fabricated_ckpts, tmp_path):  # noqa: 
             mel = np.load(tmp_path / name / f"{base}.npy")
             assert mel.shape[0] == 80 and np.isfinite(mel).all()
             assert _wav_samples(tmp_path / name / f"{base}.wav") == mel.shape[1] * 256
+            assert (tmp_path / name / f"{base}.png").stat().st_size > 0
     long_mel = np.load(tmp_path / "long" / "utterance_long_form.npy")
     assert long_mel.shape[1] > 85 + 59  # three sentences, concatenated

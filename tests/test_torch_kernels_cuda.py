@@ -754,3 +754,70 @@ def test_remat_gradients_on_cuda_equal_those_without(cuda_f32):
     assert grads[0].keys() == grads[1].keys()
     for n in grads[0]:
         assert (grads[0][n] - grads[1][n]).abs().max().item() <= 1e-6, n
+
+
+def _tiny_matcha_and_vocoder(device):
+    """A small Matcha and a two-stage HiFi-GAN (hop 8), seed weights."""
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    torch.manual_seed(11)
+    model = MatchaTTS(enc_n_channels=32, enc_filter_channels=64, enc_filter_channels_dp=32,
+                      enc_n_layers=2, dec_channels=(32, 32), dec_attention_head_dim=16,
+                      dec_num_heads=2).to(device).eval()
+    vocoder = Generator(HiFiGANConfig(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                                      upsample_initial_channel=32)).to(device).eval()
+    return model, vocoder
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_vocoder", [False, True], ids=["mel", "wav"])
+def test_exported_artifact_on_cuda_matches_eager_wrapper(cuda_f32, tmp_path, with_vocoder):
+    """``deploy/export.py`` on the card: the artifact, saved and reloaded,
+    against the un-exported wrapper on the same z: lengths EQUAL, the mel
+    or the wav within 1e-5 (the same kernels; cuDNN may pick another
+    algorithm in the exported graph)."""
+    from matcha_tpu_torch.deploy.export import export_graph, get_exportable_fn
+
+    model, vocoder = _tiny_matcha_and_vocoder(cuda_f32)
+    voc = vocoder if with_vocoder else None
+    path = str(tmp_path / "a.pt2")
+    export_graph(model, path, 2, 48, 128, 2, voc)
+    module = torch.export.load(path).module()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(1, 178, (2, 48), generator=g).to(cuda_f32)
+    xl = torch.tensor([48, 30]).to(cuda_f32)
+    scales = torch.tensor([0.667, 1.0]).to(cuda_f32)
+    z = torch.randn(2, 128, 80, generator=g).to(cuda_f32)
+    got, got_len = module(x, xl, scales, z)
+    with torch.no_grad():
+        want, want_len = get_exportable_fn(model, voc, 2, 128)(x, xl, scales, z)
+    assert got.device.type == "cuda" and torch.equal(got_len, want_len)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_eval_step_mas_kernel_equals_plain(cuda_f32, monkeypatch):
+    """``trainer.eval_step`` on the card launches K2 once, and its path on
+    the step's own log-prior is EQUAL to the plain version's."""
+    from matcha_tpu_torch.models import matcha as matcha_mod
+    from matcha_tpu_torch.training.trainer import eval_step
+
+    model, _ = _tiny_matcha_and_vocoder(cuda_f32)
+    seen = []
+    real = matcha_mod.maximum_path
+    monkeypatch.setattr(matcha_mod, "maximum_path",
+                        lambda v, m: seen.append((v, m, real(v, m))) or seen[-1][2])
+    g = torch.Generator().manual_seed(4)
+    B, T_x, T_y = 3, 40, 150
+    batch = {"x": torch.randint(1, 178, (B, T_x), generator=g),
+             "x_lengths": torch.tensor([40, 33, 12]),
+             "y": torch.randn(B, T_y, 80, generator=g),
+             "y_lengths": torch.tensor([150, 120, 61])}
+    batch = {k: v.to(cuda_f32) for k, v in batch.items()}
+    before = mas.LAUNCHES["maximum_path"]
+    metrics = eval_step(model, batch)
+    torch.cuda.synchronize()
+    assert mas.LAUNCHES["maximum_path"] == before + 1 and len(seen) == 1
+    value, mask, path = seen[0]
+    assert torch.equal(path, mas.maximum_path_reference(value, mask))
+    assert all(torch.isfinite(v) for v in metrics.values())
