@@ -138,6 +138,18 @@ Phases, one output line each (any failure exits non-zero):
    ``main()`` without gradio; the sweep's ``run_sweep`` with its training
    objective (2 trials of 2 steps at batch 8); K1 against its plain
    version at every shape these ran;
+   ``data_parallel``: serving replicas ``TTSPipeline(devices=[cuda:0,
+   cuda:0])`` against one device on the same seed (B = 8 on the dynamic
+   path and at mel bucket 576, one graph per replica; ``--fused-stage``
+   over 16 of bench.py's utterances; lengths equal, the largest
+   differences, bit-equality; K1 twice per replica chunk; p50 in turns,
+   an overhead figure), the daemon as ``--data-parallel`` builds it on
+   one card and over the two replicas (4 concurrent requests each);
+   training through ``DistributedDataParallel``: NCCL at world size 1
+   against the plain step (3 steps at batch 32), and two gloo ranks
+   sharing cuda:0 (spawned) against the one-process step on the same 32
+   rows, a 2-step fit with a validation, one checkpoint and a resume; K2
+   per step and rank;
 7. the ``kernels`` line (every TPU kernel of the repo: K1 in its two
    instances, K2 and K3, all ported; K1 with its launches on each path),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -255,6 +267,16 @@ VCTK = {"n_spks": 109, "spk_emb_dim": 64, "mel_mean": -6.630575, "mel_std": 2.48
 MS_SPEAKERS, MS_BUCKET, MS_CORPUS_UTTS, MS_WARMUP, MS_REPS = (7, 100), 576, 32, (128, 256), 10
 EXTRA_STEPS = 3
 CONFORMER_MODES = {"groupnorm": False, "batchnorm": True}
+# data parallelism on the one card: the serving replicas' batch of bench.py's
+# utterances, fixed mel bucket, corpus cut, timed reps and daemon requests;
+# their bound against one device on mel and waveform (a part runs cuDNN at
+# half the rows, which may pick other algorithms); the training steps at
+# NCCL world 1, the gloo ranks sharing cuda:0, their bounds against one
+# process (losses and gradient norm relative; each gradient tensor's
+# largest difference over its largest value) and the spawn's time limit
+DP_BATCH, DP_BUCKET, DP_CORPUS_UTTS, DP_REPS, DP_REQUESTS = 8, 576, 16, 5, 4
+DP_TOL = 1e-4
+DP_STEPS, DP_RANKS, DP_RTOL, DP_GRAD_TOL, DP_TIMEOUT_S = 3, 2, 1e-4, 1e-3, 600
 # public-domain sentences (the Harvard sentences); the corpus cuts runs of
 # their words to each clip's length
 CORPUS_TEXT = (
@@ -2897,6 +2919,446 @@ def deploy_eval_phase(dev, corpus: dict, root: str, native: str) -> dict:
     return out
 
 
+def _pad_ids(utts) -> tuple:
+    import numpy as np
+
+    x = np.zeros((len(utts), max(len(u) for u in utts)), np.int32)
+    for i, u in enumerate(utts):
+        x[i, :len(u)] = u
+    return x, np.asarray([len(u) for u in utts], np.int32)
+
+
+def _dp_compare(label: str, got: dict, want: dict, keys=("mel", "waveform")) -> dict:
+    """A replica run against the one-device run: mel lengths equal (a
+    duration flipped by the other batch split would show here, and is
+    reported, not hidden), each output within DP_TOL; the largest
+    difference and bit-equality of each."""
+    import torch
+
+    row = {"mel_lengths_equal": torch.equal(got["mel_lengths"].cpu(), want["mel_lengths"].cpu())}
+    for k in keys:
+        row[f"{k}_max_abs_err"] = (got[k].float() - want[k].float()).abs().max().item()
+        row[f"{k}_bit_equal"] = torch.equal(got[k], want[k])
+    if not row["mel_lengths_equal"] or any(row[f"{k}_max_abs_err"] > DP_TOL for k in keys):
+        raise AssertionError(f"data_parallel, {label}: replicas against one device {row}")
+    return row
+
+
+def _k1_events(run) -> int:
+    """K1's device events (by kernel name) over one ``run()`` under
+    ``torch.profiler``: its launches inside graph replays too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tpu_torch.scripts.trace_settle import TRACE_SETTLE_S
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+    return device_counts(prof)["k1"]
+
+
+def dp_serving(dev, model, vocoder, bias) -> dict:
+    """Data-parallel serving with two replicas on the one card
+    (``TTSPipeline(devices=[cuda:0, cuda:0])``, the serving model and
+    HiFi-GAN v1 from the seed, f32, TF32 off) against the one-device
+    pipeline on the same generator seed: ``synthesise_batch`` at B =
+    DP_BATCH of bench.py's utterances on the dynamic path and at mel
+    bucket DP_BUCKET (one CUDA graph per replica), ``synthesise_corpus``
+    with the fused stage over DP_CORPUS_UTTS of them; K1's launches (2
+    per replica chunk: the wrapper's count on the dynamic path, the
+    profiler's kernel events in the graph replays); p50 of DP_REPS in
+    turns against one device (one card runs both halves: an overhead
+    figure, not a speed-up); the daemon as ``--data-parallel`` builds it
+    on one card (a no-op) and a daemon over the two replicas (no fast
+    path), DP_REQUESTS concurrent requests each."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from matcha_tpu_torch import serve
+    from matcha_tpu_torch.cli import TTSPipeline, data_parallel_devices
+    from matcha_tpu_torch.ops import mrf
+    from matcha_tpu_torch.scripts.trace_settle import corpus_utterances
+
+    set_tf32(False)
+    d0 = torch.device("cuda", 0)
+    one = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, device=d0)
+    two = TTSPipeline(model, vocoder, bias, cleaner=CLEANER, devices=[d0, d0])
+    utts = corpus_utterances(DP_CORPUS_UTTS, SEED)
+    x, xl = _pad_ids(utts[:DP_BATCH])
+
+    def gen():
+        return torch.Generator(d0).manual_seed(SEED)
+
+    out = {}
+    with K1Shapes() as shapes:
+        shapes.tag = "data_parallel"
+        mrf.LAUNCHES["mrf_stage"] = 0
+        got = two.synthesise_batch(x, xl, generator=gen())
+        torch.cuda.synchronize()
+        launches = mrf.LAUNCHES["mrf_stage"]
+        want = one.synthesise_batch(x, xl, generator=gen())
+        out["dynamic"] = {"B": DP_BATCH, "T_y": got["mel"].shape[-1],
+                          "k1_launches": launches, "chunks": 2,
+                          **_dp_compare("dynamic", got, want)}
+        if launches != 2 * 2:
+            raise AssertionError(f"data_parallel: K1 launched {launches} times for 2 chunks")
+        fixed = {}
+        for name, p in (("two", two), ("one", one)):
+            p.synthesise_batch(x, xl, fixed_y_bucket=DP_BUCKET, generator=gen())  # captures
+            fixed[name] = p.synthesise_batch(x, xl, fixed_y_bucket=DP_BUCKET, generator=gen())
+        replay_k1 = _k1_events(lambda: two.synthesise_batch(x, xl, fixed_y_bucket=DP_BUCKET,
+                                                            generator=gen()))
+        out["fixed_bucket"] = {"bucket": DP_BUCKET, "k1_launches_in_replays": replay_k1,
+                               "captures": [len(r._graphs) for r in two.replicas],
+                               **_dp_compare("fixed bucket", fixed["two"], fixed["one"])}
+        if replay_k1 != 2 * 2:
+            raise AssertionError(f"data_parallel: K1 ran {replay_k1} times in 2 replays")
+
+        def corpus(p):
+            return list(p.synthesise_corpus(utts, batch_size=DP_BATCH, fuse_stages=True,
+                                            generator=gen(), length_scale=CORPUS_RATE))
+
+        corpus(two)  # captures every replica's stage graphs
+        pairs = list(zip(corpus(two), corpus(one)))
+        rows = []
+        for (ca, a), (cb, b) in pairs:
+            if ca != cb or not np.array_equal(a["mel_lengths_host"], b["mel_lengths_host"]):
+                raise AssertionError("data_parallel: the corpus batches differ")
+            rows.append(_dp_compare("corpus", a, b))
+        corpus_k1 = _k1_events(lambda: corpus(two))
+        out["corpus_fused_stage"] = {
+            "utterances": DP_CORPUS_UTTS, "batches": len(pairs), "k1_launches_in_replays": corpus_k1,
+            "mel_max_abs_err": max(r["mel_max_abs_err"] for r in rows),
+            "waveform_max_abs_err": max(r["waveform_max_abs_err"] for r in rows),
+            "bit_equal": all(r["mel_bit_equal"] and r["waveform_bit_equal"] for r in rows)}
+        if corpus_k1 != 2 * 2 * len(pairs):
+            raise AssertionError(f"data_parallel: K1 ran {corpus_k1} times in the corpus")
+
+        runs = {"one": [], "two": []}
+        for _ in range(DP_REPS + 1):
+            for name, p in (("one", one), ("two", two)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p.synthesise_batch(x, xl, generator=gen())
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t0) * 1e3)
+        out["latency_dynamic_B8"] = {f"{n}_p50_ms": statistics.median(r[1:])
+                                     for n, r in runs.items()}
+
+        daemons = {}
+        args = serve.build_parser().parse_args(["--data-parallel"])
+        devices = data_parallel_devices(args.data_parallel, dev)
+        flag_pipe = TTSPipeline(model, vocoder, bias, cleaner=CLEANER,
+                                device=devices[0] if devices else dev, devices=devices)
+        for name, p in (("flag_one_card", flag_pipe), ("two_replicas", two)):
+            server = serve.BatchingServer(p, max_batch=DP_REQUESTS, n_timesteps=10, seed=SEED)
+            httpd = None
+            try:
+                server.warmup(serve._parse_warmup("128:256"))
+                httpd = serve.make_http_server(server, "127.0.0.1", 0)
+                threading.Thread(target=httpd.serve_forever, daemon=True).start()
+                url = f"http://127.0.0.1:{httpd.server_address[1]}/synthesise"
+                bodies = [None] * DP_REQUESTS
+
+                def post(i):
+                    req = urllib.request.Request(
+                        url, data=json.dumps({"text": SHORT_SENTENCE}).encode(),
+                        headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=300) as resp:
+                        bodies[i] = (resp.status, resp.read())
+
+                threads = [threading.Thread(target=post, args=(i,)) for i in range(DP_REQUESTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+                ok = [b is not None and b[0] == 200 and np.isfinite(_wav_samples(b[1])[0]).all()
+                      and _wav_samples(b[1])[0].size > 0 for b in bodies]
+                daemons[name] = {"replicas": len(p.replicas), "requests": DP_REQUESTS,
+                                 "answered": sum(ok), "batches": server.n_batches,
+                                 "fast_path": server.n_fast}
+                if not all(ok) or (len(p.replicas) > 1 and server.n_fast):
+                    raise AssertionError(f"data_parallel, daemon {name}: {daemons[name]}")
+            finally:
+                if httpd is not None:
+                    httpd.shutdown()
+                    httpd.server_close()
+                server.shutdown()
+        if devices is not None and torch.cuda.device_count() == 1:
+            raise AssertionError("--data-parallel made replicas on one card")
+        out["daemon"] = daemons
+        out["k1_launches"] = launches
+    torch.cuda.empty_cache()
+    out["k1_shapes"] = shapes.check(dev, torch.Generator().manual_seed(SEED),
+                                    ("data_parallel", "graph"))
+    out["note"] = (f"two replicas on one card; latency: host clock around synthesise_batch, "
+                   f"synchronised, median of {DP_REPS} after 1 warm-up, one device and two "
+                   f"replicas in turns: an overhead figure, not a speed-up; K1 in replays from "
+                   f"torch.profiler kernel events")
+    return out
+
+
+def _dp_overrides(corpus: dict, out_dir: str, dropout: bool) -> list:
+    extra = [] if dropout else ["model.encoder.encoder_params.p_dropout=0.0",
+                                "model.encoder.encoder_params.prenet=false",
+                                "model.decoder.dropout=0.0"]
+    return train_overrides(corpus, out_dir) + extra
+
+
+def dp_worker(local_rank: int, workdir: str) -> None:
+    """One of DP_RANKS gloo ranks on ``cuda:0`` (``dp_training``): one
+    data-parallel step on the first batch of 32 (16 rows each, dropout
+    and the prenet off) with its all-reduced gradients, 2 more timed
+    steps; then a 2-step ``Trainer.fit`` with one validation (the real
+    config), a resume from its checkpoint to step 3, and an uninterrupted
+    3-step fit that also saves its step-2 state. Writes
+    ``<workdir>/rank<i>.pt``."""
+    import torch
+
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.ops import mas
+    from matcha_tpu_torch.parallel import dist
+    from matcha_tpu_torch.training import trainer as T
+    from matcha_tpu_torch.utils.config import compose
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    spec = torch.load(os.path.join(workdir, "in.pt"), weights_only=False)
+    out = {"rank": dist.rank(), "world": dist.world_size()}
+    cfg = compose("train", _dp_overrides(spec["corpus"], os.path.join(workdir, "x"), False))
+    raw = next(iter(train.build_datamodule_from_cfg(cfg).train_batches(0)))
+    torch.manual_seed(SEED)
+    model = train.build_model_from_cfg(cfg).to(dev)
+    wrapped = T.make_ddp(model, dev, cfg.model.get("out_size"))
+    opt, sched = T.make_optimizer(model, lr=float(cfg.model.optimizer.lr))
+    grads = {}
+
+    def keep(phase):
+        if phase == "backward" and not grads:
+            grads.update({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+
+    with CountMas() as counted:
+        host, share = T.share_batch(raw, cfg.model.get("out_size"))
+        batch = T.to_device(host, dev)
+        m = T.train_step(model, opt, sched, batch, 0, SEED, cfg.model.get("out_size"),
+                         on_phase=keep, ddp=wrapped, share=share)
+        out["step"] = {k: float(v) for k, v in m.items()}
+        out["rows"] = [share.lo, share.n_rows, share.n_global]
+        ms = []
+        for step in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.train_step(model, opt, sched, batch, step, SEED, cfg.model.get("out_size"),
+                         ddp=wrapped, share=share)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out["grads"], out["step_ms"] = grads, ms
+    out["params"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out["k2"] = {"mas_calls": counted.calls, "launches": counted.launches}
+    del model, wrapped, opt, grads
+    torch.cuda.empty_cache()
+
+    cfg = compose("train", _dp_overrides(spec["corpus"], os.path.join(workdir, "x"), True))
+
+    def fit(name, max_steps, restore=None, every=0):
+        torch.manual_seed(SEED)
+        trainer = T.Trainer(train.build_model_from_cfg(cfg), train.build_datamodule_from_cfg(cfg),
+                            dev, out_size=cfg.model.get("out_size"),
+                            lr=float(cfg.model.optimizer.lr), max_steps=max_steps,
+                            log_every_n_steps=1, output_dir=os.path.join(workdir, name),
+                            seed=SEED, save_every_n_epochs=every, loggers={"csv": {}})
+        val, validate = {}, trainer.validate
+
+        def record(epoch):
+            val[trainer.step] = validate(epoch)
+            return val[trainer.step]
+
+        trainer.validate = record
+        with CountMas() as c:
+            result = trainer.fit(restore_from=restore)
+        return {"result": result, "val": val, "step": trainer.step,
+                "k2": {"mas_calls": c.calls, "launches": c.launches},
+                "params": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
+
+    out["fit"] = fit("fit", 2)
+    out["resumed"] = fit("resumed", 3, os.path.join(workdir, "fit", "checkpoints", "last"))
+    out["straight"] = fit("straight", 3, every=1)  # also keeps its step-2 state
+    torch.save(out, os.path.join(workdir, f"rank{local_rank}.pt"))
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def dp_training(dev, corpus: dict, root: str) -> dict:
+    """Data-parallel training at the LJSpeech config's full width, batch
+    32, on the synthetic corpus:
+
+    * NCCL at world size 1 (a file store): DP_STEPS steps through
+      ``DistributedDataParallel`` against the plain step on the same
+      batches and seed (losses and weights after each step: bit-equal or
+      the largest difference), step ms of each (median of steps 2-3,
+      preloaded), K2's launches against the MAS calls;
+    * DP_RANKS gloo ranks sharing ``cuda:0`` (spawned; NCCL refuses two
+      ranks on one GPU), the batch of 32 split 16 + 16 (``dp_worker``):
+      one step's global losses, gradient norm and all-reduced gradients
+      against the one-process step on the 32 rows with the same noise
+      (dropout and the prenet off), the ranks' weights bit-equal; a
+      2-step fit with one validation (the same means on both ranks, one
+      checkpoint, rank 0's), its resume to step 3 against an uninterrupted
+      3-step fit: step 3's training loss and validation means within
+      DP_RTOL, beside the step-2 weights of the two runs (cuDNN's backward
+      is not deterministic from run to run on the card, so two runs of the
+      same two steps already differ by that much); K2 per rank. gloo moves the gradients through the host:
+      its step ms is not a multi-card figure."""
+    import copy
+
+    import torch
+
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.parallel import dist
+    from matcha_tpu_torch.training import trainer as T
+    from matcha_tpu_torch.utils.config import compose
+
+    set_tf32(False)
+    out = {}
+    cfg = compose("train", _dp_overrides(corpus, os.path.join(root, "dp_nccl"), True))
+    out_size = cfg.model.get("out_size")
+    torch.cuda.set_device(0)
+    dist.initialize("nccl", f"file://{os.path.join(root, 'dp_nccl_store')}", 0, 1)
+    try:
+        dm = train.build_datamodule_from_cfg(cfg)
+        batches = [b for epoch in range(2) for b in dm.train_batches(epoch)][:DP_STEPS]
+        torch.manual_seed(SEED)
+        plain = train.build_model_from_cfg(cfg).to(dev)
+        ddp_model = copy.deepcopy(plain)
+        wrapped = T.make_ddp(ddp_model, dev, out_size)
+        lr = float(cfg.model.optimizer.lr)
+        opts = [T.make_optimizer(m, lr=lr) for m in (plain, ddp_model)]
+        steps, ms, calls, launches = [], {"plain": [], "ddp": []}, 0, 0
+        for i, raw in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = T.train_step(plain, *opts[0], T.to_device(
+                {k: v for k, v in raw.items() if k != "rows"}, dev), i, SEED, out_size)
+            torch.cuda.synchronize()
+            ms["plain"].append((time.perf_counter() - t0) * 1e3)
+            with CountMas() as counted:
+                t0 = time.perf_counter()
+                host, share = T.share_batch(raw, out_size)
+                b = T.train_step(ddp_model, *opts[1], T.to_device(host, dev), i, SEED, out_size,
+                                 ddp=wrapped, share=share)
+                torch.cuda.synchronize()
+                ms["ddp"].append((time.perf_counter() - t0) * 1e3)
+            calls, launches = calls + counted.calls, launches + counted.launches
+            la, lb = ({k: float(v) for k, v in m.items()} for m in (a, b))
+            steps.append({"losses_plain": la, "losses_ddp": lb,
+                          "losses_bit_equal": la == lb,
+                          "losses_max_rel_diff": max(abs(la[k] - lb[k]) / abs(la[k]) for k in la),
+                          "weights_bit_equal": all(torch.equal(p, q) for p, q in zip(
+                              plain.parameters(), ddp_model.parameters())),
+                          "weights_max_abs_diff": max((p - q).abs().max().item() for p, q in zip(
+                              plain.parameters(), ddp_model.parameters()))})
+            if steps[-1]["losses_max_rel_diff"] > DP_RTOL:
+                raise AssertionError(f"data_parallel: NCCL world 1 against plain {steps[-1]}")
+        if launches != calls or calls != DP_STEPS:
+            raise AssertionError(f"data_parallel: K2 {launches} launches for {calls} MAS calls")
+        out["nccl_world1"] = {"batch": int(batches[0]["x"].shape[0]), "steps": steps,
+                              "step_ms": ms, "plain_step_ms_p50_steps_2_3":
+                                  statistics.median(ms["plain"][1:]),
+                              "ddp_step_ms_p50_steps_2_3": statistics.median(ms["ddp"][1:]),
+                              "k2_launches": launches, "mas_calls": calls}
+        del plain, ddp_model, wrapped, opts
+    finally:
+        dist.destroy()
+    torch.cuda.empty_cache()
+
+    # the one-process step on the batch of 32 the ranks split
+    cfg = compose("train", _dp_overrides(corpus, os.path.join(root, "dp_one"), False))
+    raw = next(iter(train.build_datamodule_from_cfg(cfg).train_batches(0)))
+    torch.manual_seed(SEED)
+    model = train.build_model_from_cfg(cfg).to(dev)
+    opt, sched = T.make_optimizer(model, lr=float(cfg.model.optimizer.lr))
+    want_grads = {}
+
+    def keep(phase):
+        if phase == "backward":
+            want_grads.update({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+
+    want = {k: float(v) for k, v in T.train_step(model, opt, sched, T.to_device(raw, dev), 0,
+                                                 SEED, out_size, on_phase=keep).items()}
+    del model, opt
+    torch.cuda.empty_cache()
+
+    workdir = os.path.join(root, "dp_gloo")
+    os.makedirs(workdir)
+    torch.save({"corpus": corpus}, os.path.join(workdir, "in.pt"))
+    t0 = time.perf_counter()
+    dist.launch_local(dp_worker, (workdir,), DP_RANKS, "gloo", workdir, timeout_s=DP_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"rank{i}.pt"), weights_only=False)
+             for i in range(DP_RANKS)]
+    r0, r1 = ranks
+    rel = {k: max(abs(r["step"][k] - want[k]) / abs(want[k]) for r in ranks) for k in want}
+    grad_err = max(((r0["grads"][k] - g).abs().max() / (g.abs().max() + 1e-12)).item()
+                   for k, g in want_grads.items())
+    ckpts = sorted(os.listdir(os.path.join(workdir, "fit", "checkpoints")))
+    gloo = {
+        "ranks": DP_RANKS, "rows": [r["rows"] for r in ranks], "losses_one_process": want,
+        "losses_ranks": [r["step"] for r in ranks], "max_rel_diff": rel,
+        "grads_max_err_of_tensor_max": grad_err,
+        "grads_ranks_bit_equal": all(torch.equal(r0["grads"][k], r1["grads"][k])
+                                     for k in r0["grads"]),
+        "weights_ranks_bit_equal": all(torch.equal(r0["params"][k], r1["params"][k])
+                                       for k in r0["params"]),
+        "step_ms": [r["step_ms"] for r in ranks],
+        "fit_val": [r["fit"]["val"] for r in ranks], "fit_checkpoints": ckpts,
+        "resumed_step3": [r["resumed"]["result"] for r in ranks],
+        "straight_step3": [r["straight"]["result"] for r in ranks],
+        "resumed_val_step3": [r["resumed"]["val"][3] for r in ranks],
+        "straight_val_step3": [r["straight"]["val"][3] for r in ranks],
+        "resume_weights_max_abs_diff": max(_max_diff(r["resumed"]["params"],
+                                                     r["straight"]["params"]) for r in ranks),
+        "two_runs_step2_weights_max_abs_diff": _max_diff(*(torch.load(
+            os.path.join(workdir, run, "checkpoints", name), map_location="cpu",
+            weights_only=True)["model"] for run, name in (("fit", "last"),
+                                                          ("straight", "checkpoint_000002")))),
+        "k2_per_rank": [{"step": r["k2"], **{n: r[n]["k2"] for n in ("fit", "resumed",
+                                                                      "straight")}}
+                        for r in ranks],
+        "seconds": launch_s}
+    if not (all(v <= DP_RTOL for v in rel.values()) and grad_err <= DP_GRAD_TOL
+            and gloo["grads_ranks_bit_equal"] and gloo["weights_ranks_bit_equal"]):
+        raise AssertionError(f"data_parallel: 2 gloo ranks against one process {gloo}")
+    if not (r0["fit"]["val"] and r0["fit"]["val"] == r1["fit"]["val"]
+            and ckpts == ["last", "last.hparams.json"]
+            and all(abs(r["resumed"]["result"][k] - r["straight"]["result"][k])
+                    <= DP_RTOL * abs(r["straight"]["result"][k])
+                    for r in ranks for k in ("loss/train", "loss/val"))):
+        raise AssertionError(f"data_parallel: fit, checkpoint or resume on 2 ranks {gloo}")
+    for r in ranks:
+        for k2 in (r["k2"], *(r[n]["k2"] for n in ("fit", "resumed", "straight"))):
+            if k2["launches"] != k2["mas_calls"] or not k2["launches"]:
+                raise AssertionError(f"data_parallel: K2 on rank {r['rank']}: {k2}")
+    out["gloo_two_ranks_cuda0"] = gloo
+    out["k2_launches"] = out["nccl_world1"]["k2_launches"] + sum(
+        k["step"]["launches"] + k["fit"]["launches"] + k["resumed"]["launches"]
+        + k["straight"]["launches"] for k in gloo["k2_per_rank"])
+    out["note"] = ("host clock, synchronised; NCCL world 1: step ms of the plain and the DDP "
+                   "step on preloaded batches in turns, median of steps 2-3 (the DDP step "
+                   "includes share_batch's host exchange); gloo: 2 ranks share cuda:0 and "
+                   "move every gradient through the host, so its step ms is not a multi-card "
+                   "figure")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3047,6 +3509,11 @@ def main() -> int:
     conf_serving = conformer_serving(dev, vocoder, bias, texts[1])
     conf_serving_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    # data-parallel serving (its training half runs with the training phases)
+    t0 = time.perf_counter()
+    dp_serve = dp_serving(dev, model, vocoder, bias)
+    dp_serve_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
     # K1 at the dynamic path's shape, at 512 frames, and at every mel bucket
     # the fixed-bucket graphs ran (their replays are held only against the
@@ -3136,6 +3603,11 @@ def main() -> int:
                                    os.path.join(trained["out_dir"], "checkpoints", "last"))
         emit({"phase": "deploy_eval", "nvidia_smi": smi, **deploy,
               "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dp_train = dp_training(dev, trained["corpus"], root)
+        emit({"phase": "data_parallel", "nvidia_smi": smi, "serving": dp_serve,
+              "training": dp_train, "seconds": dp_serve_s + time.perf_counter() - t0})
 
     # 7. kernels: K1's and K3's ms, plain_ms, bound_ms, library_ms summed
     # over the two narrow stages of one vocoder call at the serving path's
@@ -3159,11 +3631,17 @@ def main() -> int:
                 for m in ("registry", "native", "native_as_ckpt")},
              "app_request": deploy["app"]["k1_launches"],
              "app_load": deploy["app"]["load_k1_launches"]},
+         "data_parallel_launches": {
+             "dynamic_two_replicas": dp_serve["dynamic"]["k1_launches"],
+             "fixed_bucket_replays": dp_serve["fixed_bucket"]["k1_launches_in_replays"],
+             "corpus_fused_stage_replays":
+                 dp_serve["corpus_fused_stage"]["k1_launches_in_replays"]},
          "max_abs_err": max([worst] + [s["max_abs_err"] for s in stages]
                             + [r["max_abs_err"]
                                for r in corpus["k1_shapes"] + served["k1_shapes"]
                                + precision["k1_shapes"] + ms_serving["k1_shapes"]
                                + conf_serving["k1_shapes"] + deploy["k1_shapes"]
+                               + dp_serve["k1_shapes"]
                                if r["compute_dtype"] == "float32"]),
          "ms": sum(s["ms"] for s in path),
          "plain_ms": sum(s["plain_ms"] for s in path),
@@ -3202,6 +3680,9 @@ def main() -> int:
          "train_extras_launches": extras["run"]["k2_launches"],
          "eval_launches": deploy["eval"]["k2_launches"],
          "sweep_launches": deploy["sweep"]["k2_launches"],
+         "ddp_launches": {
+             "nccl_world1": dp_train["nccl_world1"]["k2_launches"],
+             "gloo_per_rank": dp_train["gloo_two_ranks_cuda0"]["k2_per_rank"]},
          "bf16_log_prior": {k: bf16["k2"][k] for k in ("shape", "adjacent_ties", "equal", "ms")},
          "max_abs_err": 0.0, "ms": k2["ms"],
          "kernel_ms": k2["kernel_ms"], "wrapper_ms": k2["wrapper_ms"], "layout": k2["layout"],

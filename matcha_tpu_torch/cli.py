@@ -21,6 +21,12 @@ generator; ``bf16_latency`` (``--bf16-latency``) runs the fixed-bucket
 body's Euler loop on a bf16 copy of the decoder and its vocoder in bf16;
 ``vocoder_pallas=False`` (``--no-pallas-vocoder``) runs the generator
 all on cuDNN, no fused MRF kernel; ``--full-precision`` turns TF32 off.
+Data-parallel serving (``TTSPipeline(devices=)``, CLI ``--data-parallel``):
+one replica of the models per device; a batch whose size divides by the
+replica count is split into contiguous rows, one part per replica (JAX's
+``data`` axis), and the results are gathered on the first device in input
+order. The noise is drawn at the whole batch's shape on the first device
+and each replica gets its rows, so the output equals one device's.
 A multi-speaker model (the VCTK Matcha) takes a speaker id on every
 path (``spks``, CLI ``--spk``), checked on the host against the model's
 ``n_spks`` before it reaches the card. The CLI synthesises one utterance
@@ -63,6 +69,7 @@ from matcha_tpu_torch.models.hifigan_fused import (
     generator_apply_fused,
 )
 from matcha_tpu_torch.models.matcha import MatchaTTS, check_speakers, decoder_cast
+from matcha_tpu_torch.parallel.mesh import replica_rows
 from matcha_tpu_torch.text import intersperse, sequence_to_text, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
 from matcha_tpu_torch.utils.checkpoints import load_native_checkpoint
@@ -199,7 +206,18 @@ CorpusNoise = Optional[Callable[[int, int, int], torch.Tensor]]
 
 class TTSPipeline:
     """Bucketed synthesis: MatchaTTS + fused-MRF HiFi-GAN + denoiser, on
-    the dynamic path or as one CUDA graph per fixed mel bucket."""
+    the dynamic path or as one CUDA graph per fixed mel bucket.
+
+    ``devices``: a list of devices, one replica each (``replicas``; the
+    pipeline itself is the first, on ``devices[0]``, and each other is a
+    single-device ``TTSPipeline`` over deep copies of the models). Every
+    path splits a batch of B rows over the n replicas when n divides B;
+    otherwise, by rule, the whole batch runs on the first replica (JAX
+    replicates such a batch: the result is the same). Each part runs the
+    whole batch's buckets (T_x, the mel bucket, the vocoder bucket) on its
+    own device, the fixed-bucket and staged bodies as one graph per
+    (device, shape) over its rows. A list of one device is ``device=``.
+    Nothing falls back: a replica that fails to build or launch raises."""
 
     #: candidate mel buckets of the fixed-bucket path under "auto" (finer
     #: than Y_BUCKETS: the tightest bucket is the least decode and vocoder
@@ -217,8 +235,18 @@ class TTSPipeline:
                  cleaner: str = "english_cleaners2", device=None,
                  denoiser_strength: float = 0.00025, pcm24_transfer: bool = True,
                  vocoder_chunk: int = 0, vocoder_bf16: bool = False,
-                 vocoder_pallas: bool = True, bf16_latency: bool = False):
+                 vocoder_pallas: bool = True, bf16_latency: bool = False, devices=None):
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if not devices:
+                raise ValueError("devices=[]: give at least one device")
+            if device is not None and _indexed(resolve_device(device)) != _indexed(devices[0]):
+                raise ValueError(f"device={device} is not devices[0]={devices[0]}")
+            device = devices[0]
         self.device = resolve_device(device)
+        # the other replicas, each a single-device pipeline (set before the
+        # properties below, which reach them)
+        self._children = []
         self.model = model.to(self.device).eval()
         # the fused MRF kernel on the narrow stages, or (False) every stage
         # on cuDNN, on every path
@@ -245,7 +273,7 @@ class TTSPipeline:
         # the denoiser's bias spectrum stays the f32 generator's
         self.denoiser_bias = None if denoiser_bias is None else denoiser_bias.to(self.device)
         self.cleaner = cleaner
-        self.denoiser_strength = denoiser_strength
+        self._denoiser_strength = denoiser_strength
         # the fixed-bucket path's wire format: 24-bit PCM with the lengths as
         # a last sample (the written-WAV encoding, 3 bytes a sample), else
         # the f32 rows with the lengths as a last column
@@ -257,11 +285,74 @@ class TTSPipeline:
         self._graph_pool = None
         # False refuses any new CUDA graph capture (the serving daemon after
         # its warmup: a capture while its other threads launch work breaks)
-        self.capture_allowed = True
+        self._capture_allowed = True
         # "auto" calibration: the p90 of the recent mel frames per (id x
         # length_scale); None until a call returns real mel lengths
         self._dur_ratio = None
         self._dur_obs = collections.deque(maxlen=64)
+        for d in (devices or [])[1:]:
+            self._children.append(TTSPipeline(
+                copy.deepcopy(self.model), None if vocoder is None else copy.deepcopy(vocoder),
+                self.denoiser_bias, cleaner, device=d, denoiser_strength=denoiser_strength,
+                pcm24_transfer=pcm24_transfer, vocoder_chunk=vocoder_chunk,
+                vocoder_bf16=vocoder_bf16, vocoder_pallas=vocoder_pallas,
+                bf16_latency=bf16_latency))
+
+    @property
+    def replicas(self) -> list:
+        """The pipelines that hold the models, one per device; this one
+        first."""
+        return [self] + self._children
+
+    @property
+    def denoiser_strength(self) -> float:
+        return self._denoiser_strength
+
+    @denoiser_strength.setter
+    def denoiser_strength(self, value: float) -> None:
+        for r in self.replicas:
+            r._denoiser_strength = value
+
+    @property
+    def capture_allowed(self) -> bool:
+        return self._capture_allowed
+
+    @capture_allowed.setter
+    def capture_allowed(self, value: bool) -> None:
+        for r in self.replicas:
+            r._capture_allowed = value
+
+    def _parts(self, B: int) -> list:
+        """[(replica, rows)] of a batch of B: contiguous rows per replica
+        when B divides by their count, else the whole batch on the first."""
+        rows = replica_rows(B, len(self.replicas)) if self._children else None
+        if rows is None:
+            return [(self, slice(0, B))]
+        return list(zip(self.replicas, rows))
+
+    def _noise_parts(self, z, shape: tuple, generator: Optional[torch.Generator], parts: list,
+                     graph: bool = False) -> list:
+        """Each part's unit noise: ``z`` itself for one part (None: drawn
+        where it is used, as on one device); for several, the rows of ``z``
+        or of one draw at the whole batch's (B, T_y, n_feats) on the first
+        device from ``generator`` (``normal_`` into a buffer as a graph
+        stages it, else ``randn`` as ``decode`` draws it: the same values
+        one device would draw)."""
+        if len(parts) == 1:
+            return [z]
+        if z is None:
+            shape = shape + (self.model.n_feats,)
+            z = (torch.empty(shape, device=self.device).normal_(generator=generator) if graph
+                 else torch.randn(shape, generator=generator, device=self.device))
+        return [z[rows].to(rep.device) for rep, rows in parts]
+
+    def _gather(self, outs: list) -> dict:
+        """The parts' outputs as one batch on the first device, in input
+        order (0-d values from the first part)."""
+        if len(outs) == 1:
+            return outs[0]
+        return {k: (torch.cat([o[k].to(self.device) for o in outs]) if outs[0][k].dim()
+                    else outs[0][k]) for k in outs[0]}
 
     def _packed(self, vocoder: Generator) -> tuple:
         """(generator, its fused stages' packed weights under this
@@ -413,11 +504,16 @@ class TTSPipeline:
             auto = fixed_y_bucket == "auto"
             T_y = (self._auto_y_bucket(int(x_lengths_host.max()), length_scale)
                    if auto else int(fixed_y_bucket))
+            parts = self._parts(x.shape[0])
             while True:
-                graph = self.fused_graph(x.shape[0], T_x, T_y, n_timesteps, temperature,
-                                         length_scale, cuda_graph, spk_ids is not None)
-                out = graph(x_pad, x_lengths_host, z(T_y) if callable(z) else z, generator,
-                            spk_ids)
+                zs = self._noise_parts(z(T_y) if callable(z) else z, (x.shape[0], T_y), generator,
+                                       parts, graph=True)
+                out = self._gather([
+                    rep.fused_graph(rows.stop - rows.start, T_x, T_y, n_timesteps, temperature,
+                                    length_scale, cuda_graph, spk_ids is not None)(
+                        x_pad[rows], x_lengths_host[rows], zr, generator,
+                        None if spk_ids is None else spk_ids[rows])
+                    for (rep, rows), zr in zip(parts, zs)])
                 if not auto:
                     return out
                 ml = _fetch_auto_host(out, raw_pcm24)
@@ -445,23 +541,30 @@ class TTSPipeline:
                 T_y = next((b for b in self.FUSED_Y_BUCKETS if b >= 2 * T_y),
                            self.FUSED_Y_BUCKETS[-1])
 
-        x_t = torch.from_numpy(x_pad).to(self.device)
-        xl = torch.from_numpy(x_lengths_host).to(self.device)
-        spks_t = None if spk_ids is None else torch.from_numpy(spk_ids).to(self.device)
-        mu_x, w_ceil, y_lengths = self.model.encode(x_t, xl, length_scale, spks_t)
-        max_y = int(y_lengths.max())  # the one host sync of the path
+        parts = self._parts(x.shape[0])
+        encoded = []
+        for rep, rows in parts:
+            x_t = torch.from_numpy(x_pad[rows]).to(rep.device)
+            xl = torch.from_numpy(x_lengths_host[rows]).to(rep.device)
+            spks_t = None if spk_ids is None else torch.from_numpy(spk_ids[rows]).to(rep.device)
+            encoded.append((xl, spks_t, *rep.model.encode(x_t, xl, length_scale, spks_t)))
+        # the one host sync of the path (one per replica)
+        max_y = max(int(e[-1].max()) for e in encoded)
         T_y = pick_bucket(max_y, Y_BUCKETS)
-        out = self.model.decode(mu_x, w_ceil, xl, y_lengths, n_timesteps, temperature,
-                                y_max_length=T_y, z=z(T_y) if callable(z) else z,
-                                generator=generator, spks=spks_t)
-        if self.vocoder is not None:
-            T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
-            wav = self.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
-            if pack_wav:
-                out["wav_pcm24"] = _pack_pcm24(wav, out["mel_lengths"])
-            else:
-                out["waveform"] = wav
-        return out
+        T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
+        zs = self._noise_parts(z(T_y) if callable(z) else z, (x.shape[0], T_y), generator, parts)
+        outs = []
+        for (rep, _), (xl, spks_t, mu_x, w_ceil, y_lengths), zr in zip(parts, encoded, zs):
+            out = rep.model.decode(mu_x, w_ceil, xl, y_lengths, n_timesteps, temperature,
+                                   y_max_length=T_y, z=zr, generator=generator, spks=spks_t)
+            if rep.vocoder is not None:
+                wav = rep.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
+                if pack_wav:
+                    out["wav_pcm24"] = _pack_pcm24(wav, out["mel_lengths"])
+                else:
+                    out["waveform"] = wav
+            outs.append(out)
+        return self._gather(outs)
 
     @torch.inference_mode()
     def synthesise_corpus(self, utterances, n_timesteps: int = 10, temperature: float = 0.667,
@@ -503,7 +606,7 @@ class TTSPipeline:
         for w0 in range(0, len(batches), step):
             window = batches[w0:w0 + step]
 
-            # 1. the window's encoder passes; nothing blocks
+            # 1. the window's encoder passes, per replica part; nothing blocks
             encoded = []
             for chunk in window:
                 T_x = pick_bucket(max(len(utterances[i]) for i in chunk), X_BUCKETS)
@@ -513,35 +616,71 @@ class TTSPipeline:
                     x[row, :len(utterances[idx])] = torch.as_tensor(np.asarray(utterances[idx]))
                     x_lengths[row] = len(utterances[idx])
                 spks = None if spk_id is None else np.full((len(chunk),), spk_id[0], np.int32)
-                x, x_lengths = (_to_device(t, self.device) for t in (x, x_lengths))
-                spks_t = None if spks is None else _to_device(torch.from_numpy(spks), self.device)
-                encoded.append((chunk, T_x, x_lengths, spks, spks_t,
-                                *self.model.encode(x, x_lengths, length_scale, spks_t)))
+                parts = []
+                for rep, rows in self._parts(len(chunk)):
+                    xr, xlr = (_to_device(t[rows], rep.device) for t in (x, x_lengths))
+                    spks_t = (None if spks is None
+                              else _to_device(torch.from_numpy(spks[rows]), rep.device))
+                    parts.append((rep, rows, xlr, spks_t,
+                                  *rep.model.encode(xr, xlr, length_scale, spks_t)))
+                encoded.append((chunk, T_x, spks, parts))
 
-            # 2. one host copy of the window's predicted lengths
-            y_host = np.split(torch.cat([e[-1] for e in encoded]).cpu().numpy(),
-                              np.cumsum([len(e[0]) for e in encoded])[:-1])
+            # 2. one host copy of the window's predicted lengths per replica
+            y_host = self._lengths_host([e[3] for e in encoded])
 
             # 3. decode + vocode per batch, the buckets known on the host
-            for bi, (chunk, T_x, x_lengths, spks, spks_t, mu_x, w_ceil,
-                     y_lengths) in enumerate(encoded):
+            fused = self.vocoder is not None and fuse_stages
+            for bi, (chunk, T_x, spks, parts) in enumerate(encoded):
                 B, max_y = len(chunk), int(y_host[bi].max())
                 T_y = pick_bucket(max_y, Y_BUCKETS)
                 T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
-                zb = None if z is None else z(w0 + bi, B, T_y)
-                if self.vocoder is not None and fuse_stages:
-                    stage = self.stage_graph(B, T_x, T_y, T_voc, n_timesteps, temperature,
-                                             cuda_graph, spks is not None)
-                    out = stage(mu_x, w_ceil, x_lengths, y_lengths, zb, generator, spks)
-                else:
-                    out = self.model.decode(mu_x, w_ceil, x_lengths, y_lengths, n_timesteps,
-                                            temperature, y_max_length=T_y, z=zb,
-                                            generator=generator, spks=spks_t)
-                    if self.vocoder is not None:
-                        out["waveform"] = self.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
+                zs = self._noise_parts(None if z is None else z(w0 + bi, B, T_y), (B, T_y),
+                                       generator, [p[:2] for p in parts], graph=fused)
+                outs = []
+                for (rep, rows, xlr, spks_t, mu_x, w_ceil, y_lengths), zr in zip(parts, zs):
+                    if fused:
+                        stage = rep.stage_graph(rows.stop - rows.start, T_x, T_y, T_voc,
+                                                n_timesteps, temperature, cuda_graph,
+                                                spks is not None)
+                        out = stage(mu_x, w_ceil, xlr, y_lengths, zr, generator,
+                                    None if spks is None else spks[rows])
+                    else:
+                        out = rep.model.decode(mu_x, w_ceil, xlr, y_lengths, n_timesteps,
+                                               temperature, y_max_length=T_y, z=zr,
+                                               generator=generator, spks=spks_t)
+                        if rep.vocoder is not None:
+                            out["waveform"] = rep.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
+                    outs.append(out)
+                out = self._gather(outs)
                 # decode clips the lengths to the bucket
                 out["mel_lengths_host"] = np.minimum(y_host[bi], T_y).astype(np.int32)
                 yield chunk, out
+
+    @staticmethod
+    def _lengths_host(batches: list) -> list:
+        """Each batch's predicted lengths on the host, from its parts'
+        ``(replica, rows, ..., y_lengths)``: one copy per replica of all
+        its parts, in order."""
+        flat = [p for parts in batches for p in parts]
+        host = [None] * len(flat)
+        for rep in {id(p[0]): p[0] for p in flat}.values():
+            mine = [i for i, p in enumerate(flat) if p[0] is rep]
+            vals = torch.cat([flat[i][-1] for i in mine]).cpu().numpy()
+            cuts = np.cumsum([flat[i][-1].shape[0] for i in mine])[:-1]
+            for i, v in zip(mine, np.split(vals, cuts)):
+                host[i] = v
+        out, k = [], 0
+        for parts in batches:
+            out.append(np.concatenate(host[k:k + len(parts)]))
+            k += len(parts)
+        return out
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current device>``; any other device as it is."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -885,6 +1024,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fused-stage", action="store_true",
                         help="With --staged: run decode + vocode + denoise as one CUDA graph "
                              "per (mel bucket, vocoder bucket) triple instead of separate calls")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="Shard batches over ALL visible GPUs (data-parallel serving: the "
+                             "models replicate once per GPU, each batch's rows split over the "
+                             "replicas). Pick --batch_size a multiple of the GPU count. A no-op "
+                             "with one GPU")
     parser.add_argument("--vocoder-chunk", type=int, default=0,
                         help="Run the vocoder on N-frame mel windows (with a receptive-field "
                              "halo, one after another) to bound its activation memory. 0 = the "
@@ -1004,6 +1148,16 @@ def print_config(args) -> None:
     print(f"\t- Speaker: {args.spk}")
 
 
+def data_parallel_devices(data_parallel: bool, device: torch.device) -> Optional[list]:
+    """``--data-parallel``: every visible GPU, one replica each, or None
+    (one device: the flag is a no-op, as JAX's with a 1-device mesh)."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if not data_parallel or n < 2:
+        return None
+    print(f"[+] Data-parallel serving over {n} devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def cli(argv=None):
     args = validate_args(build_parser().parse_args(argv))
     if args.vocoder_chunk < 0:
@@ -1022,12 +1176,14 @@ def cli(argv=None):
     model = load_matcha(paths["matcha"], device)
     args.spk = resolve_speaker(model, args.spk)
     vocoder, bias = load_vocoder(paths["vocoder"], device, name=args.vocoder)
-    pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
+    devices = data_parallel_devices(args.data_parallel, device)
+    pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner,
+                           device=devices[0] if devices else device,
                            denoiser_strength=args.denoiser_strength,
                            pcm24_transfer=not args.no_pcm24_transfer,
                            vocoder_chunk=args.vocoder_chunk, vocoder_bf16=args.bf16_vocoder,
                            vocoder_pallas=not args.no_pallas_vocoder,
-                           bf16_latency=args.bf16_latency)
+                           bf16_latency=args.bf16_latency, devices=devices)
 
     texts = _texts(args)
     folder = Path(args.output_folder)

@@ -35,6 +35,15 @@ from matcha_tpu_torch.ops.seq import denormalize, duration_loss, generate_path, 
 LOG_2PI = math.log(2 * math.pi)
 
 
+def segment_offsets(u: torch.Tensor, y_lengths: torch.Tensor, out_size: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Segment starts from uniform draws ``u`` (B,): floor(u * high), at
+    most high - 1, with high = max(y_length - out_size, 1) in ``dtype``
+    (the mel's type)."""
+    high = torch.clamp(y_lengths - out_size, min=1).to(dtype)
+    return torch.minimum(torch.floor(u * high), high - 1)
+
+
 def check_speakers(n_spks: int, spks) -> Optional[np.ndarray]:
     """Host speaker ids (anything ``np.asarray`` takes, or None) checked
     for a model of ``n_spks`` speakers: int32 ids in [0, n_spks) for a
@@ -234,9 +243,8 @@ class MatchaTTS(nn.Module):
 
         if out_size is not None and out_size < T_y:
             if offsets is None:
-                high = torch.clamp(y_lengths - out_size, min=1).to(y.dtype)
                 u = torch.rand(y.shape[0], generator=generator, device=y.device)
-                offsets = torch.minimum(torch.floor(u * high), high - 1)
+                offsets = segment_offsets(u, y_lengths, out_size, y.dtype)
             offsets = torch.clamp(offsets.to(device=y.device, dtype=torch.long),
                                   0, T_y - out_size)
             frames = offsets[:, None] + torch.arange(out_size, device=y.device)[None, :]

@@ -14,6 +14,11 @@ The counterpart of ``matcha_tpu/serve.py``, on a GPU (or the CPU with
   ``--batch-window-ms`` while the card is idle), pads them into one
   bucketed batch (B a power of two) and runs the dynamic path once. A
   lone request takes the fast path: one replay of a warmed graph.
+* **Data-parallel** (``--data-parallel``): one replica of the models per
+  visible GPU (``TTSPipeline(devices=)``); a batch whose size divides by
+  the replica count splits its rows over them. The fast path is off then
+  (JAX gates it on a pipeline without a mesh) and warmup runs every
+  replica's shapes. A no-op with one GPU.
 * **Stdlib only:** ``http.server.ThreadingHTTPServer``. JSON in, WAV
   (24-bit PCM) or JSON out.
 
@@ -56,8 +61,8 @@ from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.cli import (HOP, MATCHA_URLS, SAMPLE_RATE, VOC_BUCKETS, VOCODER_URLS,
                                   X_BUCKETS, Y_BUCKETS, TTSPipeline,
                                   assert_required_models_available, fetch_fused_host,
-                                  load_matcha, load_vocoder, pick_bucket, resolve_speaker,
-                                  speaker_batch, validate_args)
+                                  data_parallel_devices, load_matcha, load_vocoder,
+                                  pick_bucket, resolve_speaker, speaker_batch, validate_args)
 from matcha_tpu_torch.fused import _pack_pcm24
 from matcha_tpu_torch.models.matcha import check_speakers
 from matcha_tpu_torch.text import intersperse, text_to_sequence
@@ -386,7 +391,7 @@ class BatchingServer:
                 self._busy = False
 
     def _run(self, reqs, rate, spk):
-        if len(reqs) == 1 and self._fused_warm:
+        if len(reqs) == 1 and self._fused_warm and len(self.pipeline.replicas) == 1:
             # the fast path: one replay of a graph warmup captured
             r = reqs[0]
             T_x = self._route_x(len(r.seq))
@@ -525,7 +530,7 @@ class BatchingServer:
             with torch.inference_mode():
                 for T_x, T_y in pairs:
                     self._warm_dynamic(T_x, T_y, sorted(sizes))
-                    if self.fused_single and p.vocoder is not None:
+                    if self.fused_single and p.vocoder is not None and len(p.replicas) == 1:
                         key = (T_x, self.default_rate, self.default_spk is not None)
                         for T_f in sorted({max(64, T_y // 2), T_y}):
                             p.synthesise_batch(
@@ -536,8 +541,9 @@ class BatchingServer:
                                 spks=speaker_batch(self.default_spk, 1))
                             self._fused_warm[key] = sorted(set(self._fused_warm.get(key, []))
                                                            | {T_f})
-            if p.device.type == "cuda":
-                torch.cuda.synchronize(p.device)
+            for r in p.replicas:
+                if r.device.type == "cuda":
+                    torch.cuda.synchronize(r.device)
         finally:
             p.capture_allowed = False
         if pairs:
@@ -545,28 +551,32 @@ class BatchingServer:
             self._warm_x = sorted(set(self._warm_x) | {T_x for T_x, _ in pairs})
 
     def _warm_dynamic(self, T_x: int, T_y: int, sizes) -> None:
+        """Every replica at the rows a batch of each size gives it."""
         p = self.pipeline
         y_buckets = [y for y in Y_BUCKETS if y <= T_y] or [T_y]
-        gen = self.call_generator(0)
         for B in sizes:
-            x = torch.ones((B, T_x), dtype=torch.int64, device=p.device)
-            xl = torch.full((B,), T_x, dtype=torch.int32, device=p.device)
-            spks = None if self.default_spk is None else torch.full(
-                (B,), self.default_spk, dtype=torch.int64, device=p.device)
-            mu_x, w_ceil, y_lengths = p.model.encode(x, xl, self.default_rate, spks)
-            for T_yb in y_buckets:
-                prev_y = max([y for y in Y_BUCKETS if y < T_yb], default=0)
-                voc_lens = [v for v in VOC_BUCKETS if prev_y < v <= T_yb] or [T_yb]
-                out = p.model.decode(mu_x, w_ceil, xl, y_lengths, self.n_timesteps,
-                                     self.temperature, y_max_length=T_yb, generator=gen,
-                                     spks=spks)
-                if p.vocoder is None:
-                    continue
-                mel_btc = out["mel"].transpose(1, 2)
-                for T_voc in voc_lens:
-                    wav = p.vocode(mel_btc[:, :T_voc])
-                    if p.pcm24_transfer:
-                        _pack_pcm24(wav, out["mel_lengths"])
+            for r, rows in p._parts(B):
+                self._warm_replica(r, rows.stop - rows.start, T_x, y_buckets)
+
+    def _warm_replica(self, r, B: int, T_x: int, y_buckets) -> None:
+        gen = torch.Generator(r.device).manual_seed(call_seed(self.seed, 0))
+        x = torch.ones((B, T_x), dtype=torch.int64, device=r.device)
+        xl = torch.full((B,), T_x, dtype=torch.int32, device=r.device)
+        spks = None if self.default_spk is None else torch.full(
+            (B,), self.default_spk, dtype=torch.int64, device=r.device)
+        mu_x, w_ceil, y_lengths = r.model.encode(x, xl, self.default_rate, spks)
+        for T_yb in y_buckets:
+            prev_y = max([y for y in Y_BUCKETS if y < T_yb], default=0)
+            voc_lens = [v for v in VOC_BUCKETS if prev_y < v <= T_yb] or [T_yb]
+            out = r.model.decode(mu_x, w_ceil, xl, y_lengths, self.n_timesteps,
+                                 self.temperature, y_max_length=T_yb, generator=gen, spks=spks)
+            if r.vocoder is None:
+                continue
+            mel_btc = out["mel"].transpose(1, 2)
+            for T_voc in voc_lens:
+                wav = r.vocode(mel_btc[:, :T_voc])
+                if r.pcm24_transfer:
+                    _pack_pcm24(wav, out["mel_lengths"])
 
 
 def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1", port: int = 8080):
@@ -693,14 +703,6 @@ def _parse_warmup(spec: str):
     return pairs
 
 
-#: flags of the JAX daemon whose features the port does not have
-NOT_PORTED = {
-    "data_parallel": "--data-parallel: multi-GPU serving is not ported (ROADMAP.md queue 1, "
-                     "item 9)",
-}
-
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="🍵 Matcha-TTS (PyTorch port) serving daemon")
     p.add_argument("--model", type=str, default="matcha_ljspeech", choices=list(MATCHA_URLS))
@@ -729,7 +731,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "PCM packing stay f32); the warmed graphs are captured so")
     p.add_argument("--no-pallas-vocoder", action="store_true",
                    help="every vocoder stage as cuDNN convs, no fused MRF kernel")
-    p.add_argument("--data-parallel", action="store_true")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one replica of the models per visible GPU, each batch's rows split "
+                        "over them (the single-request fast path is then off); a no-op with "
+                        "one GPU")
     p.add_argument("--vocoder-chunk", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: CUDA)")
     return p
@@ -737,9 +742,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for name, message in NOT_PORTED.items():
-        if getattr(args, name) is not None and getattr(args, name) is not False:
-            raise SystemExit(message)
     # the CLI's model-registry checks (they fill the vocoder, rate and spk)
     args.text, args.file, args.batched = "x", None, False
     args = validate_args(args)
@@ -748,9 +750,11 @@ def main(argv=None):
     model = load_matcha(paths["matcha"], device)
     default_spk = resolve_speaker(model, args.spk)
     vocoder, bias = load_vocoder(paths["vocoder"], device, name=args.vocoder)
-    pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner, device=device,
+    devices = data_parallel_devices(args.data_parallel, device)
+    pipeline = TTSPipeline(model, vocoder, bias, cleaner=args.cleaner,
+                           device=devices[0] if devices else device,
                            vocoder_chunk=args.vocoder_chunk, vocoder_bf16=args.bf16_vocoder,
-                           vocoder_pallas=not args.no_pallas_vocoder)
+                           vocoder_pallas=not args.no_pallas_vocoder, devices=devices)
     batcher = BatchingServer(pipeline, max_batch=args.max_batch,
                              batch_window_ms=args.batch_window_ms, n_timesteps=args.steps,
                              temperature=args.temperature,

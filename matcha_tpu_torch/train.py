@@ -8,14 +8,26 @@ CPU with ``trainer.accelerator=cpu``. Without a card and without that
 override it raises. Before training it applies the config's ``extras``
 (``extras.print_config`` writes ``config_tree.log``,
 ``extras.enforce_tags`` ``tags.log`` into the output directory).
+
+Several GPUs (``parallel/dist.py``): under ``torchrun --nproc_per_node N``
+(or the ``MATCHA_*`` env contract) each process joins the NCCL group and
+trains on ``cuda:<LOCAL_RANK>`` of the GPUs ``trainer.devices`` selects.
+Started without a launcher, ``main`` with ``trainer.devices`` selecting
+more than one GPU starts one worker per selected GPU itself (one node, a
+file store in a temporary directory), as one JAX process uses all the
+devices it is given. ``trainer.accelerator=cpu`` under ``torchrun`` trains
+on the CPU over gloo.
 """
 
+import json
 import logging
 import os
 import sys
+import tempfile
 from typing import Optional, Tuple
 
 from matcha_tpu_torch import resolve_device
+from matcha_tpu_torch.parallel import dist
 from matcha_tpu_torch.utils.config import compose, save_config
 from matcha_tpu_torch.utils.pylogger import get_pylogger
 from matcha_tpu_torch.utils.utils import extras, get_metric_value, task_wrapper
@@ -72,11 +84,25 @@ def build_datamodule_from_cfg(cfg):
     return TextMelDataModule(**d)
 
 
+def _on_cpu(cfg) -> bool:
+    return str(cfg.trainer.get("accelerator", "auto")) == "cpu"
+
+
+def _selected_gpus(cfg):
+    """The local GPUs ``trainer.devices`` selects (raises without one)."""
+    from matcha_tpu_torch.parallel.mesh import local_devices
+
+    resolve_device(None)
+    return local_devices(cfg.trainer.get("devices", "all"))
+
+
 def train_device(cfg):
     """``trainer.accelerator=cpu`` -> the CPU; anything else -> the card
-    (raises without one)."""
-    accelerator = str(cfg.trainer.get("accelerator", "auto"))
-    return resolve_device("cpu" if accelerator == "cpu" else None)
+    (raises without one): in a process group the selected GPU of this
+    rank's local rank, else the first selected GPU."""
+    if _on_cpu(cfg):
+        return resolve_device("cpu")
+    return _selected_gpus(cfg)[dist.local_rank()]
 
 
 @task_wrapper
@@ -94,7 +120,8 @@ def train(cfg) -> Tuple[dict, dict]:
     t = cfg.trainer
     output_dir = cfg.paths.output_dir
     os.makedirs(output_dir, exist_ok=True)
-    save_config(cfg, os.path.join(output_dir, "config.yaml"))
+    if dist.rank() == 0:
+        save_config(cfg, os.path.join(output_dir, "config.yaml"))
 
     cbs = cfg.get("callbacks") or {}
     cb = cbs.get("model_checkpoint") or {}
@@ -141,13 +168,52 @@ def train(cfg) -> Tuple[dict, dict]:
                          "trainer": trainer}
 
 
+def _launcher_env() -> bool:
+    env = os.environ
+    return bool(env.get("MATCHA_COORDINATOR_ADDRESS") or env.get("MATCHA_DIST") == "1"
+                or "TORCHELASTIC_RUN_ID" in env)
+
+
+def _run(cfg) -> Optional[float]:
+    extras(cfg)
+    metric_dict, _ = train(cfg)
+    return get_metric_value(metric_dict, cfg.get("optimized_metric"))
+
+
+def _worker(local_rank: int, cfg, result_path: str) -> None:
+    """One GPU's process of a run that ``main`` started itself."""
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s")
+    metric = _run(cfg)
+    if dist.rank() == 0:
+        with open(result_path, "w", encoding="utf-8") as f:
+            json.dump({"metric": metric}, f)
+
+
 def main(argv=None) -> Optional[float]:
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s")
     cfg = compose("train", overrides=list(sys.argv[1:] if argv is None else argv))
-    extras(cfg)
-    metric_dict, _ = train(cfg)
-    return get_metric_value(metric_dict, cfg.get("optimized_metric"))
+    joined = False
+    if _launcher_env() and not dist.is_initialized():
+        cpu = _on_cpu(cfg)
+        device = None if cpu else _selected_gpus(cfg)[int(os.environ.get("LOCAL_RANK", 0))]
+        dist.maybe_initialize_distributed(backend="gloo" if cpu else "nccl", device=device)
+        joined = True
+    elif not _on_cpu(cfg) and len(_selected_gpus(cfg)) > 1:
+        gpus = _selected_gpus(cfg)
+        log.info(f"Training on {len(gpus)} GPUs: one process each")
+        with tempfile.TemporaryDirectory(prefix="matcha-ddp-") as tmp:
+            result = os.path.join(tmp, "result.json")
+            dist.launch_local(_worker, (cfg, result), len(gpus), "nccl", tmp, timeout_s=None,
+                              cuda_devices=[d.index for d in gpus])
+            with open(result, encoding="utf-8") as f:
+                return json.load(f)["metric"]
+    try:
+        return _run(cfg)
+    finally:
+        if joined:
+            dist.destroy()
 
 
 if __name__ == "__main__":

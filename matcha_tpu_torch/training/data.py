@@ -1,6 +1,6 @@
 """Text + mel training data on the host: filelists -> bucketed numpy batches.
 
-The port of ``matcha_tpu/training/data.py`` for one process: it parses
+The port of ``matcha_tpu/training/data.py``: it parses
 ``path|text`` (or ``path|spk|text``) filelists, turns text into
 blank-interspersed ids with the port's own text frontend, extracts and
 normalises log-mels with the port's numpy mel, and pads each batch to the
@@ -11,6 +11,17 @@ is read (an id beyond the embedding table would fire a device-side assert
 on the card). Mels come out channels-last
 (B, T, n_feats). ``num_workers`` threads load items in order (numpy's FFT
 releases the interpreter lock).
+
+In a process group (``parallel/dist.py``) each node reads its shard of a
+filelist, ``n // n_nodes`` items with the remainder dropped (JAX's
+``_process_shard``, a node standing for a JAX process), and forms the
+same batches of ``batch_size`` from it as one process would. Each local
+rank loads only its contiguous rows of each node batch
+(``parallel/mesh.py``: ``n_data_local`` of the node's ranks hold rows, by
+JAX's gcd rule; a rank without rows loads the first rank's as a
+zero-weight copy) and the batch carries ``rows``: [start, stop, weight]
+of those rows in the node batch. The trainer pads them to the shapes of
+the whole batch.
 """
 
 import hashlib
@@ -24,6 +35,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from matcha_tpu_torch.audio.mel import resolve_mel_frontend
+from matcha_tpu_torch.parallel import dist
+from matcha_tpu_torch.parallel.mesh import rank_rows
 from matcha_tpu_torch.ops.seq import fix_len_compatibility, normalize, round_up
 from matcha_tpu_torch.text import text_to_sequence
 from matcha_tpu_torch.utils.utils import intersperse, read_wav
@@ -231,17 +244,26 @@ class TextMelDataModule:
             self.trainset = TextMelDataset(self._train_args[0], **self._train_args[1])
             self.validset = TextMelDataset(self._valid_args[0], **self._valid_args[1])
 
+    @staticmethod
+    def _process_shard(n: int) -> range:
+        """The items of this node: ``n // n_nodes`` of them, the remainder
+        dropped, so that every node runs the same number of steps (each
+        step is a collective)."""
+        per = n // dist.n_nodes()
+        return range(dist.node_rank() * per, (dist.node_rank() + 1) * per)
+
     def train_batches(self, epoch: int = 0, limit: Optional[float] = None) -> Iterator[dict]:
-        """One epoch of training batches, shuffled by ``seed + epoch``.
-        ``limit``: a fraction (< 1) or a count of items."""
+        """One epoch of training batches of this node's shard, shuffled by
+        ``seed + epoch``. ``limit``: a fraction (< 1) or a count of items."""
         self.setup()
-        idx = list(range(len(self.trainset)))
+        idx = list(self._process_shard(len(self.trainset)))
         random.Random(self.seed + epoch).shuffle(idx)
         yield from self._iterate(self.trainset, _limited(idx, limit))
 
     def val_batches(self, limit: Optional[float] = None) -> Iterator[dict]:
         self.setup()
-        yield from self._iterate(self.validset, _limited(list(range(len(self.validset))), limit))
+        idx = list(self._process_shard(len(self.validset)))
+        yield from self._iterate(self.validset, _limited(idx, limit))
 
     def _load_items(self, ds: TextMelDataset, idx: List[int]) -> Iterator[dict]:
         """Items of ``ds`` at ``idx``, in order, whatever the worker count.
@@ -269,12 +291,20 @@ class TextMelDataModule:
     def _iterate(self, ds: TextMelDataset, idx: List[int]) -> Iterator[dict]:
         n_full = (len(idx) // self.batch_size) * self.batch_size
         take = n_full if n_full else len(idx)  # a tiny split: one short batch
-        batch_items: List[dict] = []
-        for item in self._load_items(ds, idx[:take]):
-            batch_items.append(item)
-            if len(batch_items) == min(self.batch_size, take):
-                yield collate_batch(batch_items, self.n_feats, self.n_spks)
-                batch_items = []
+        if not take:
+            return
+        B = min(self.batch_size, take)
+        # this rank's rows of each batch: all of them without a process group
+        start, stop, weight = rank_rows(B, dist.local_rank(), dist.local_world_size(),
+                                        self.batch_size)
+        items = self._load_items(ds, [idx[b + j] for b in range(0, take, B)
+                                      for j in range(start, stop)])
+        for _ in range(take // B):
+            batch = collate_batch([next(items) for _ in range(stop - start)], self.n_feats,
+                                  self.n_spks)
+            if dist.is_initialized():
+                batch["rows"] = np.asarray([start, stop, weight], np.int64)
+            yield batch
 
 
 def _limited(idx: List[int], limit: Optional[float]) -> List[int]:

@@ -1,6 +1,7 @@
-"""Training loop on one device: Adam, global-norm clipping, checkpoints.
+"""Training loop: Adam, global-norm clipping, checkpoints, on one device
+or one rank of a data-parallel process group.
 
-The port of ``matcha_tpu/training/trainer.py`` for a single device:
+The port of ``matcha_tpu/training/trainer.py``:
 
 * ``make_optimizer``: ``torch.optim.Adam`` (or ``AdamW`` with weight
   decay) and, for the config's ``scheduler``, a ``LambdaLR`` with optax's
@@ -27,6 +28,29 @@ The port of ``matcha_tpu/training/trainer.py`` for a single device:
 * ``profiler="jax"`` (``configs/debug/profiler.yaml``): steps 1-3 of
   epoch 0 traced with ``torch.profiler`` into ``<output_dir>/profile``.
 
+Data parallelism (JAX's ``data`` axis; ``parallel/dist.py``): in a
+process group the ``Trainer`` wraps the loss (``BatchLoss``) in
+``DistributedDataParallel`` and each rank trains on its rows of the global
+batch (``training/data.py``). The step equals JAX's on the global batch:
+
+* ``share_batch`` pads the rank's rows to the global batch's padded T_x /
+  T_y (one exchange of integers on the host), so every row sees the shapes
+  it has in the whole batch;
+* the noise (flow time, source noise, segment offsets; ``share_noise``) is
+  drawn at the global batch's shape from the step's generator and each
+  rank keeps its rows, so N ranks draw what one process would;
+* each loss is a sum over rows divided by a denominator of the whole
+  batch (sum(x_lengths) for the duration loss, sum(y_mask) x n_feats for
+  the prior and the CFM losses), so each rank's loss is scaled by
+  world x its denominator / the global one: DDP's mean of the gradients
+  is then the gradient of the global loss, and clip + Adam run on the
+  same gradients on every rank. A rank that holds no rows (JAX's idle
+  devices under the gcd rule) runs a copy of the first rank's rows at
+  weight 0: DDP needs every rank in every all-reduce;
+* the logged losses are the global ones; validation means are the same
+  on every rank; only rank 0 logs and writes checkpoints, and every rank
+  restores from the same file.
+
 Precision, as JAX's ``make_train_step``: params, gradients and Adam
 moments are f32. Under ``"bf16"``, ``"bf16-mixed"`` and ``"16-mixed"``
 (the same bf16 policy: no fp16, no loss scaling) the forward and backward
@@ -42,24 +66,26 @@ Validation stays f32. Every other string (the config's ``"bf16-compute"``
 included) trains in f32.
 """
 
+import dataclasses
 import itertools
 import json
-import logging
 import math
 import os
 import queue
 import sys
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from matcha_tpu_torch.models.matcha import MatchaTTS
+from matcha_tpu_torch.models.matcha import MatchaTTS, segment_offsets
+from matcha_tpu_torch.parallel import dist
 from matcha_tpu_torch.utils.checkpoints import load_native_checkpoint, save_native_checkpoint
+from matcha_tpu_torch.utils.pylogger import get_pylogger
 
-log = logging.getLogger(__name__)
+log = get_pylogger(__name__)
 
 BF16_PRECISIONS = ("bf16", "bf16-mixed", "16-mixed")
 
@@ -154,24 +180,160 @@ def batch_losses(model: MatchaTTS, batch: dict, out_size: Optional[int] = None,
     return tuple(v.float() for v in losses)
 
 
+class BatchLoss(torch.nn.Module):
+    """``batch_losses`` as a module's ``forward``, the module that
+    ``DistributedDataParallel`` wraps: DDP averages the gradients of what
+    its module's ``forward`` ran, and a loss computed around it
+    (``functional_call`` on bf16-rounded copies included) would leave each
+    rank with its own gradients and raise nothing."""
+
+    def __init__(self, model: MatchaTTS, out_size: Optional[int] = None,
+                 precision: str = "f32"):
+        super().__init__()
+        self.model = model
+        self.out_size = out_size
+        self.precision = precision
+
+    def forward(self, batch: dict, generator: Optional[torch.Generator] = None,
+                noise: Optional[dict] = None):
+        return batch_losses(self.model, batch, self.out_size, generator, noise, self.precision)
+
+
+def make_ddp(model: MatchaTTS, device, out_size: Optional[int] = None,
+             precision: str = "f32"):
+    """``BatchLoss`` in ``DistributedDataParallel`` (the process group must
+    be initialised). Every parameter of a ``MatchaTTS`` reaches the loss
+    (single- and multi-speaker, transformer and conformer decoders;
+    ``tests/test_torch_ddp.py`` checks it), so ``find_unused_parameters``
+    is off: a parameter that the loss missed would make DDP raise at the
+    next step, not pass unnoticed."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    device = torch.device(device)
+    return DistributedDataParallel(
+        BatchLoss(model, out_size, precision),
+        device_ids=[device.index if device.index is not None else torch.cuda.current_device()]
+        if device.type == "cuda" else None,
+        find_unused_parameters=False)
+
+
+@dataclasses.dataclass
+class Share:
+    """A rank's part of the global batch of a data-parallel step."""
+
+    #: the global index of its first row (0 for a zero-weight copy)
+    lo: int
+    #: rows of the global batch and rows the rank holds
+    n_global: int
+    n_rows: int
+    #: world x its sum(x_lengths) / the global sum (0 at weight 0)
+    dur_scale: float
+    #: the same for sum(y_mask) after the segment cut
+    mel_scale: float
+    world: int
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    if t.shape[dim] == size:
+        return t
+    pad = [0, 0] * (t.dim() - dim - 1) + [0, size - t.shape[dim]]
+    return torch.nn.functional.pad(t, pad)
+
+
+def share_batch(batch: dict, out_size: Optional[int] = None) -> Tuple[dict, Share]:
+    """A rank's host batch (with the ``rows`` [start, stop, weight] that
+    ``training/data.py`` adds) -> (its tensors zero-padded to the global
+    batch's T_x and T_y, its ``Share``). One all-gather of a few integers
+    on the host: the shapes, row counts and loss denominators of every
+    rank."""
+    batch = {k: None if v is None else torch.as_tensor(v) for k, v in batch.items()}
+    start, stop, weight = (int(v) for v in batch.pop("rows"))
+    xl, yl = batch["x_lengths"].long(), batch["y_lengths"].long()
+    y_cut = torch.clamp(yl, max=out_size) if out_size is not None else yl
+    mine = [batch["x"].shape[1], batch["y"].shape[1], (stop - start) * weight,
+            int(xl.sum()) * weight, int(yl.sum()) * weight, int(y_cut.sum()) * weight]
+    every = dist.host_all_gather(mine)
+    T_x, T_y = int(every[:, 0].max()), int(every[:, 1].max())
+    for k in ("x", "durations"):
+        if batch.get(k) is not None:
+            batch[k] = _pad_to(batch[k], 1, T_x)
+    batch["y"] = _pad_to(batch["y"], 1, T_y)
+    col = 5 if out_size is not None and out_size < T_y else 4
+    world = every.shape[0]
+    share = Share(lo=int(every[:dist.rank(), 2].sum()) if weight else 0,
+                  n_global=int(every[:, 2].sum()), n_rows=stop - start,
+                  dur_scale=world * mine[3] / int(every[:, 3].sum()),
+                  mel_scale=world * mine[col] / int(every[:, col].sum()), world=world)
+    return batch, share
+
+
+def share_noise(share: Share, batch: dict, out_size: Optional[int],
+                generator: Optional[torch.Generator], noise: Optional[dict] = None,
+                precision: str = "f32") -> dict:
+    """The rank's rows of the step's noise. ``noise`` (``t``, ``z``,
+    ``offsets`` of the global batch) is sliced; otherwise the segment
+    draws, ``t`` and ``z`` are drawn from ``generator`` at the global
+    batch's shape, in ``MatchaTTS.losses``'s order and types (``z`` in the
+    mel's type: bf16 under a ``BF16_PRECISIONS`` name)."""
+    rows = slice(share.lo, share.lo + share.n_rows)
+    if noise is not None:
+        return {k: v[rows] for k, v in noise.items()}
+    y = batch["y"]
+    G, T_y, n_feats = share.n_global, y.shape[1], y.shape[2]
+    y_dtype = torch.bfloat16 if precision in BF16_PRECISIONS else y.dtype
+    out = {}
+    if out_size is not None and out_size < T_y:
+        u = torch.rand(G, generator=generator, device=y.device)[rows]
+        out["offsets"] = segment_offsets(u, batch["y_lengths"], out_size, y_dtype)
+        T_y = out_size
+    out["t"] = torch.rand(G, generator=generator, device=y.device)[rows]
+    out["z"] = torch.randn((G, T_y, n_feats), generator=generator, device=y.device,
+                           dtype=y_dtype)[rows]
+    return out
+
+
+def _global_losses(losses, share: Share):
+    """A rank's three losses scaled to its part of the global losses."""
+    dur, prior, diff = losses
+    return dur * share.dur_scale, prior * share.mel_scale, diff * share.mel_scale
+
+
+def _reduced(scaled, share: Optional[Share]) -> torch.Tensor:
+    """(dur, prior, diff) of the global batch from every rank's scaled
+    parts, on the device."""
+    v = torch.stack([t.detach() for t in scaled])
+    return v if share is None else dist.all_reduce_sum(v) / share.world
+
+
 def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int, seed: int,
                out_size: Optional[int] = None, gradient_clip_val: float = 5.0,
                noise: Optional[dict] = None,
                on_phase: Optional[Callable[[str], None]] = None,
-               precision: str = "f32") -> Dict[str, torch.Tensor]:
+               precision: str = "f32", ddp=None,
+               share: Optional[Share] = None) -> Dict[str, torch.Tensor]:
     """One update on a batch of tensors on the model's device. ``noise``:
     optional ``t``, ``z``, ``offsets`` for ``MatchaTTS.losses``, else
     drawn from the step's generator. ``precision``: a ``BF16_PRECISIONS``
     name runs the forward and backward in bf16 on f32 masters
     (``batch_losses``). ``on_phase(name)`` is called after "forward",
     "backward" and "optimizer" (for timing). Returns the metrics as 0-d
-    tensors on the device."""
+    tensors on the device.
+
+    Data-parallel: ``ddp`` (``make_ddp`` of this model) and the rank's
+    ``share`` (``share_batch``); ``batch`` holds the rank's rows and
+    ``noise``, when given, is the global batch's. The losses and the
+    gradient norm returned are the global batch's, the same on every
+    rank."""
     model.train()
     device = batch["y"].device
     gen = torch.Generator(device=device).manual_seed(step_seed(seed, step))
     torch.manual_seed(step_seed(seed + 1, step))  # dropout
-    dur, prior, diff = batch_losses(model, batch, out_size, gen, noise, precision)
-    loss = dur + prior + diff
+    if share is None:
+        losses = batch_losses(model, batch, out_size, gen, noise, precision)
+    else:
+        losses = _global_losses(
+            ddp(batch, None, share_noise(share, batch, out_size, gen, noise, precision)), share)
+    loss = losses[0] + losses[1] + losses[2]
     if on_phase:
         on_phase("forward")
     optimizer.zero_grad(set_to_none=True)
@@ -185,19 +347,29 @@ def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int
         lr_scheduler.step()
     if on_phase:
         on_phase("optimizer")
-    return {"dur_loss": dur.detach(), "prior_loss": prior.detach(), "diff_loss": diff.detach(),
-            "loss": loss.detach(), "grad_norm": grad_norm}
+    dur, prior, diff = _reduced(losses, share)
+    return {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff,
+            "loss": dur + prior + diff if share is not None else loss.detach(),
+            "grad_norm": grad_norm}
 
 
 @torch.no_grad()
 def eval_step(model: MatchaTTS, batch: dict, out_size: Optional[int] = None,
-              noise: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+              noise: Optional[dict] = None,
+              share: Optional[Share] = None) -> Dict[str, torch.Tensor]:
     """The losses of a batch with dropout off, noise from a fixed seed (or
     ``noise``: ``t``, ``z``, ``offsets`` for ``MatchaTTS.losses``), in f32
-    whatever the training precision (as JAX's ``make_eval_step``)."""
+    whatever the training precision (as JAX's ``make_eval_step``). With a
+    ``share``, the global batch's losses (every rank must call it)."""
     model.eval()
     gen = torch.Generator(device=batch["y"].device).manual_seed(0)
-    dur, prior, diff = batch_losses(model, batch, out_size, gen, noise)
+    if share is None:
+        losses = batch_losses(model, batch, out_size, gen, noise)
+    else:
+        losses = _global_losses(
+            batch_losses(model, batch, out_size, None,
+                         share_noise(share, batch, out_size, gen, noise)), share)
+    dur, prior, diff = _reduced(losses, share)
     return {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff, "loss": dur + prior + diff}
 
 
@@ -370,7 +542,11 @@ def prefetch_iterator(iterator, depth: int = 2, pin: bool = False):
 
 
 class Trainer:
-    """Epoch-driven training on one device (the Lightning Trainer analog)."""
+    """Epoch-driven training (the Lightning Trainer analog) on ``device``,
+    one rank of a data-parallel job when a process group is initialised
+    (``parallel/dist.py``): then the loss runs in ``make_ddp``'s wrapper,
+    each batch goes through ``share_batch``, and only rank 0 logs and
+    writes."""
 
     def __init__(
         self,
@@ -438,12 +614,16 @@ class Trainer:
         self.model_summary_depth = model_summary_depth
         self.enable_progress_bar = enable_progress_bar
         self.hparams = hparams or {}
+        self.ddp = (make_ddp(self.model, self.device, out_size, precision)
+                    if dist.is_initialized() else None)
         self.optimizer, self.lr_scheduler = make_optimizer(model, lr, weight_decay, scheduler)
         self.step = 0
         self._start_epoch = 0
         self._last_val: Dict[str, float] = {}
         self._last_val_epoch = -1
         loggers = loggers if loggers is not None else {"tensorboard": {}}
+        if dist.rank() != 0:
+            loggers = {}
         tb_dir = os.path.join(output_dir, "tensorboard") if "tensorboard" in loggers else None
         csv_path = os.path.join(output_dir, "csv", "metrics.csv") if "csv" in loggers else None
         self.logger = MetricLogger(tb_dir, csv_path, backends={
@@ -472,6 +652,8 @@ class Trainer:
                 self._ckpt_seq = max(self._ckpt_seq, int(seq) + 1)
 
     def _save_topk_ledger(self) -> None:
+        if dist.rank() != 0:
+            return
         entries = [(s, q, os.path.basename(p)) for s, q, p in self._ckpt_epochs]
         tmp = self._topk_ledger_path() + ".tmp"
         with open(tmp, "w") as f:
@@ -521,12 +703,15 @@ class Trainer:
                     batches = self.dm.train_batches(epoch, limit=self.limit_train_batches)
                 trace = None
                 for i, batch in enumerate(prefetch_iterator(batches, pin=pin)):
-                    if self.profiler == "jax" and i == 1 and epoch == 0:
+                    if self.profiler == "jax" and i == 1 and epoch == 0 and dist.rank() == 0:
                         trace = self._start_trace()
+                    share = None
+                    if self.ddp is not None:
+                        batch, share = share_batch(batch, self.out_size)
                     metrics = train_step(self.model, self.optimizer, self.lr_scheduler,
                                          to_device(batch, self.device), self.step, self.seed,
                                          self.out_size, self.gradient_clip_val,
-                                         precision=self.precision)
+                                         precision=self.precision, ddp=self.ddp, share=share)
                     self.step += 1
                     if trace is not None and i == 3:
                         self._stop_trace(trace)
@@ -546,7 +731,7 @@ class Trainer:
                                  f"(dur {host['dur_loss']:.4f} prior {host['prior_loss']:.4f} "
                                  f"diff {host['diff_loss']:.4f}) "
                                  f"grad_norm={host['grad_norm']:.3f}")
-                    if self.enable_progress_bar and sys.stdout.isatty():
+                    if self.enable_progress_bar and dist.rank() == 0 and sys.stdout.isatty():
                         print(f"\repoch {epoch} | step {self.step}", end="", flush=True)
                     if self.fast_dev_run or (self.max_steps > 0 and self.step >= self.max_steps):
                         stop = True
@@ -596,9 +781,12 @@ class Trainer:
         count = 0
         first_batch = None
         for batch in self.dm.val_batches(limit=self.limit_val_batches):
+            share = None
+            if self.ddp is not None:
+                batch, share = share_batch(batch, self.out_size)
             if first_batch is None:
                 first_batch = batch
-            m = eval_step(self.model, to_device(batch, self.device), self.out_size)
+            m = eval_step(self.model, to_device(batch, self.device), self.out_size, share=share)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + v
             count += 1
@@ -676,7 +864,7 @@ class Trainer:
             if len(self._ckpt_epochs) > self.save_top_k:
                 self._ckpt_epochs.sort()
                 _, _, old = self._ckpt_epochs.pop(0)  # the worst score
-                for stale in (old, old + ".hparams.json"):
+                for stale in (old, old + ".hparams.json") if dist.rank() == 0 else ():
                     try:
                         os.remove(stale)
                     except OSError:
@@ -684,7 +872,8 @@ class Trainer:
             self._save_topk_ledger()
 
     def _save(self, epochs_done: int, tag: Optional[str] = None) -> str:
-        """The full training state, so a resume continues bit for bit."""
+        """The full training state, so a resume continues bit for bit
+        (written by rank 0; every rank returns once it is on disk)."""
         return save_native_checkpoint(
             os.path.join(self.output_dir, "checkpoints"), self.model,
             {**self.hparams, "epoch": epochs_done}, step=self.step,

@@ -76,10 +76,11 @@ def extras(cfg) -> None:
         log.info("Disabling python warnings! <cfg.extras.ignore_warnings=True>")
         warnings.filterwarnings("ignore")
 
+    # in a process group every rank sets the tags; rank 0 writes the files
     if cfg.extras.get("enforce_tags"):
-        enforce_tags(cfg, save_to_file=True)
+        enforce_tags(cfg, save_to_file=process_rank() == 0)
 
-    if cfg.extras.get("print_config"):
+    if cfg.extras.get("print_config") and process_rank() == 0:
         from matcha_tpu_torch.utils.config import print_config_tree
 
         print_config_tree(cfg, save_to_file=True)

@@ -821,3 +821,84 @@ def test_eval_step_mas_kernel_equals_plain(cuda_f32, monkeypatch):
     value, mask, path = seen[0]
     assert torch.equal(path, mas.maximum_path_reference(value, mask))
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.cuda
+def test_ddp_nccl_world_one_step_equals_plain(cuda_f32, tmp_path):
+    """Three steps of a small Matcha through ``DistributedDataParallel`` over
+    NCCL at world size 1 (the global-batch scaling is exactly 1, the noise
+    drawn at the batch's own shape) against the plain step on the same
+    batches and seed: the losses within 1e-6 and the weights within 1e-6
+    after each step, but for at most 1e-4 of them, which Adam may move by
+    up to 2 lr where a gradient is near zero (cuDNN's backward may sum in
+    another order); K2 once per step and path."""
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tpu_torch.parallel import dist
+    from matcha_tpu_torch.training import trainer as T
+
+    torch.manual_seed(5)
+    kw = dict(enc_n_channels=32, enc_filter_channels=64, enc_filter_channels_dp=32,
+              enc_n_heads=2, enc_n_layers=2, dec_channels=(32, 32), dec_attention_head_dim=16,
+              dec_num_heads=2)
+    plain, ddp_model = MatchaTTS(**kw).to(cuda_f32), MatchaTTS(**kw).to(cuda_f32)
+    ddp_model.load_state_dict(plain.state_dict())
+    g = torch.Generator().manual_seed(6)
+    B, T_x, T_y = 4, 48, 192
+    xl = torch.tensor([48, 31, 40, 22], dtype=torch.int32)
+    yl = torch.tensor([192, 120, 160, 90], dtype=torch.int32)
+    batch = {"x": torch.randint(1, 178, (B, T_x), generator=g), "x_lengths": xl,
+             "y": torch.randn(B, T_y, 80, generator=g), "y_lengths": yl}
+    for i in range(B):
+        batch["x"][i, xl[i]:] = 0
+        batch["y"][i, yl[i]:] = 0
+    torch.cuda.set_device(0)
+    dist.initialize("nccl", f"file://{tmp_path / 'store'}", 0, 1)
+    try:
+        wrapped = T.make_ddp(ddp_model, cuda_f32)
+        opts = [T.make_optimizer(m, lr=1e-3) for m in (plain, ddp_model)]
+        before = mas.LAUNCHES["maximum_path"]
+        for step in range(3):
+            a = T.train_step(plain, *opts[0], T.to_device(batch, cuda_f32), step, 7)
+            host, share = T.share_batch({**batch, "rows": torch.tensor([0, B, 1])})
+            b = T.train_step(ddp_model, *opts[1], T.to_device(host, cuda_f32), step, 7,
+                             ddp=wrapped, share=share)
+            for k in a:
+                assert abs(float(a[k]) - float(b[k])) <= 1e-6 * abs(float(a[k])), k
+            n = far = 0
+            for (k, p), q in zip(plain.named_parameters(), ddp_model.parameters()):
+                d = (p - q).abs()
+                assert d.max().item() <= 2e-3 + 1e-6, k  # Adam: at most a flipped update
+                n, far = n + d.numel(), far + int((d > 1e-6).sum())
+            assert far <= 1e-4 * n, (far, n)
+        assert mas.LAUNCHES["maximum_path"] - before == 6
+    finally:
+        dist.destroy()
+
+
+@pytest.mark.cuda
+def test_replica_pipeline_k1_matches_plain(cuda_f32, monkeypatch):
+    """``TTSPipeline(devices=[cuda:0, cuda:0])`` at B = 2: K1 launches twice
+    per replica chunk, and the waveform is the one the same replicas give
+    with each stage on K1's plain version (within 1e-5), and the
+    one-device pipeline's (lengths equal, within 1e-5)."""
+    from matcha_tpu_torch.models import hifigan_fused
+
+    d0 = torch.device("cuda", 0)
+    two = _tiny_pipeline(d0, devices=[d0, d0])
+    one = _tiny_pipeline(d0)
+    x = torch.randint(1, 178, (2, 40), generator=torch.Generator().manual_seed(1)).numpy()
+    xl = torch.tensor([40, 29], dtype=torch.int32).numpy()
+    x[1, 29:] = 0
+    before = mrf.LAUNCHES["mrf_stage"]
+    got = two.synthesise_batch(x, xl, n_timesteps=2, generator=torch.Generator(d0).manual_seed(2))
+    assert mrf.LAUNCHES["mrf_stage"] - before == 4
+    want = one.synthesise_batch(x, xl, n_timesteps=2, generator=torch.Generator(d0).manual_seed(2))
+    monkeypatch.setattr(hifigan_fused, "fused_mrf_stage",
+                        lambda x, w, ks, dils, t_tile=None, compute_dtype=torch.float32:
+                        mrf.fused_mrf_stage_reference(x, w, ks, dils, compute_dtype))
+    plain = two.synthesise_batch(x, xl, n_timesteps=2,
+                                 generator=torch.Generator(d0).manual_seed(2))
+    assert torch.equal(got["mel_lengths"], want["mel_lengths"])
+    assert torch.equal(got["mel_lengths"], plain["mel_lengths"])
+    assert (got["waveform"] - plain["waveform"]).abs().max().item() <= 1e-5
+    assert (got["waveform"] - want["waveform"]).abs().max().item() <= 1e-5

@@ -421,9 +421,35 @@ def test_cli_precision_flags(fabricated_ckpts, tmp_path, monkeypatch, tf32_resto
 
 
 def test_not_ported_holds_only_data_parallel_and_spk():
-    """``--spk`` is ported (multi-speaker models); only
-    ``--data-parallel`` stays refused."""
-    assert set(serve.NOT_PORTED) == {"data_parallel"}
+    """``--spk`` and ``--data-parallel`` are both ported: the daemon has
+    no list of refused flags left, and the single-request fast path is
+    off for a pipeline of more than one replica (JAX gates it on
+    ``mesh is None``)."""
+    assert not hasattr(serve, "NOT_PORTED")
+    for flag in ("--spk", "--data-parallel"):
+        assert flag in serve.build_parser().format_help()
+
+    calls = []
+
+    class Pipeline:
+        pcm24_transfer, _dur_ratio = False, None
+
+        def __init__(self, n):
+            self.replicas = [None] * n
+
+        def synthesise_batch(self, x, x_lengths, **kw):
+            calls.append(kw.get("fixed_y_bucket", 0))
+            raise RuntimeError("stop here")
+
+    for n in (1, 2):
+        b = serve.BatchingServer.__new__(serve.BatchingServer)
+        b.pipeline, b._fused_warm, b._warm_x = Pipeline(n), {(128, 1.0, False): [512]}, [128]
+        b.n_timesteps, b.temperature, b._next_generator = 1, 0.667, lambda: None
+        req = serve._Request(seq=np.arange(1, 9, dtype=np.int32), speaking_rate=1.0, spk=None)
+        with pytest.raises(RuntimeError, match="stop here"):
+            b._run([req], 1.0, None)
+    # one replica: a replay of the warmed 512 graph; two: the dynamic path
+    assert calls == [512, 0]
 
 
 @pytest.mark.parametrize("flag,bf16,pallas", [("--bf16-vocoder", True, True),

@@ -599,12 +599,33 @@ def test_main_without_cpu_needs_a_gpu():
         serve.main(["--warmup", ""])
 
 
-@pytest.mark.parametrize("flag,item", [(["--data-parallel"], "item 9")])
-def test_flags_not_ported_exit(flag, item):
-    """The JAX daemon's flags whose features the port lacks stop ``main``
-    with a message naming why (and the ROADMAP item), on any host."""
-    with pytest.raises(SystemExit, match=item):
-        serve.main(["--cpu", *flag])
+@pytest.mark.parametrize("flag", [[], ["--data-parallel"]])
+def test_flags_not_ported_exit(fabricated_ckpts, monkeypatch, flag):  # noqa: F811
+    """No flag of the JAX daemon stops ``main`` as not ported any more:
+    ``--data-parallel`` builds the pipeline over every visible device,
+    which on one device (the CPU here) is one replica, a no-op as in JAX;
+    the server starts and the flag is parsed."""
+    monkeypatch.setenv("MATCHA_HOME", fabricated_ckpts)
+    seen = {}
+
+    class Stop:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    def fake_server(batcher, host, port):
+        seen["pipeline"] = batcher.pipeline
+        return Stop()
+
+    monkeypatch.setattr(serve, "make_http_server", fake_server)
+    serve.main(["--cpu", "--warmup", "", "--cleaner", CLEANER, *flag])
+    assert not hasattr(serve, "NOT_PORTED")
+    assert serve.build_parser().parse_args(flag).data_parallel is bool(flag)
+    assert [r.device for r in seen["pipeline"].replicas] == [torch.device("cpu")]
 
 
 def test_main_spk_sets_the_default_speaker(ms_home, monkeypatch):
