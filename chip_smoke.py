@@ -148,8 +148,19 @@ Phases, one output line each (any failure exits non-zero):
    training through ``DistributedDataParallel``: NCCL at world size 1
    against the plain step (3 steps at batch 32), and two gloo ranks
    sharing cuda:0 (spawned) against the one-process step on the same 32
-   rows, a 2-step fit with a validation, one checkpoint and a resume; K2
-   per step and rank;
+   rows, a 2-step fit with a validation, one checkpoint and a resume,
+   every training process spawned in deterministic mode (the world-1
+   step and the resume bit-equal); K2 per step and rank;
+   ``tensor_parallel``: the LJSpeech config at batch 32 split over gloo
+   ranks sharing cuda:0 (spawned, deterministic mode): ``n_model = 2``
+   for 3 steps, a 2-step ``Trainer(n_model_axis=2)`` fit with a
+   validation, one full-width checkpoint that the CLI loads and a resume
+   bit-equal to the uninterrupted run; ``n_model = 4`` (half a head per
+   rank) for one step; each against the plain one-process steps on the
+   same batches and noise (losses, gathered gradients, the ranks'
+   replicated tensors bit-equal), the plain steps run twice for their
+   spread; K2 once per step and validation batch on every rank; step ms
+   beside the card's name and power limit;
 7. the ``kernels`` line (every TPU kernel of the repo: K1 in its two
    instances, K2 and K3, all ported; K1 with its launches on each path),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -273,10 +284,30 @@ CONFORMER_MODES = {"groupnorm": False, "batchnorm": True}
 # half the rows, which may pick other algorithms); the training steps at
 # NCCL world 1, the gloo ranks sharing cuda:0, their bounds against one
 # process (losses and gradient norm relative; each gradient tensor's
-# largest difference over its largest value) and the spawn's time limit
+# largest difference over its largest value: the two halves' sums in
+# another order; measured 8.7e-8 and 4.0e-6-4.2e-6 on an H100, so 1e-6 and
+# 1e-4, down from 1e-4 and 1e-3) and the spawn's time limit; in
+# deterministic mode the world-1 steps and the resume are held bit-equal
 DP_BATCH, DP_BUCKET, DP_CORPUS_UTTS, DP_REPS, DP_REQUESTS = 8, 576, 16, 5, 4
 DP_TOL = 1e-4
-DP_STEPS, DP_RANKS, DP_RTOL, DP_GRAD_TOL, DP_TIMEOUT_S = 3, 2, 1e-4, 1e-3, 600
+DP_STEPS, DP_RANKS, DP_RTOL, DP_GRAD_TOL, DP_TIMEOUT_S = 3, 2, 1e-6, 1e-4, 600
+# the training comparisons of data_parallel and tensor_parallel run in
+# spawned processes in this mode, its cuBLAS setting in their environment
+# before CUDA starts (``launch_deterministic``, ``deterministic``)
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# tensor parallelism on the one card: the n_model = 2 job's steps, the
+# bounds against the plain one-process steps (the CPU tests' own: losses
+# and gradient norm relative; each gathered gradient tensor's largest
+# difference within TP_GRAD_OF_MAX of its largest value plus TP_GRAD_ATOL),
+# loosened only to the measured spread of two plain runs (in deterministic
+# and in default mode, and with cuDNN's convolutions against torch's own:
+# on an H100 that last spread is 1.27e-4 of the largest, in the same
+# tensor as the split step's largest difference: the 5th encoder FFN's
+# conv_1 weight), and the spawn's time limit
+TP_STEPS, TP_RTOL, TP_GRAD_OF_MAX, TP_GRAD_ATOL, TP_TIMEOUT_S = 3, 1e-5, 1e-4, 1e-7, 600
+DETERMINISTIC_MODE = ("torch.use_deterministic_algorithms(True), "
+                      "torch.backends.cudnn.deterministic = True, CUBLAS_WORKSPACE_CONFIG=:4096:8, "
+                      "TF32 off")
 # public-domain sentences (the Harvard sentences); the corpus cuts runs of
 # their words to each clip's length
 CORPUS_TEXT = (
@@ -294,6 +325,36 @@ CORPUS_TEXT = (
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def deterministic() -> None:
+    """A spawned comparison's mode (DETERMINISTIC_MODE); its cuBLAS
+    workspace setting comes from the environment it was spawned with."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def launch_deterministic(fn, args: tuple, nprocs: int, backend: str, workdir: str,
+                         timeout_s: float) -> None:
+    """``dist.launch_local`` with DETERMINISTIC_ENV in the ranks'
+    environment (a spawned process copies it when it starts, before CUDA
+    does); ``fn`` calls ``deterministic`` first."""
+    from matcha_tpu_torch.parallel import dist
+
+    saved = {k: os.environ.get(k) for k in DETERMINISTIC_ENV}
+    os.environ.update(DETERMINISTIC_ENV)
+    try:
+        dist.launch_local(fn, args, nprocs, backend, workdir, timeout_s=timeout_s)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -422,7 +483,9 @@ def mas_problem(gen, dev, B, T_x, T_y, t_xs, t_ys, values, bool_mask):
 
 
 def k2_check(dev) -> list:
-    """K2 against its plain version on the card: the paths must be EQUAL."""
+    """K2 against its plain version on the card and against the host
+    search (``maximum_path_numpy``, ``native/mas/mas.cpp`` through g++):
+    the paths must be EQUAL."""
     import torch
 
     from matcha_tpu_torch.ops import mas
@@ -461,15 +524,27 @@ def k2_check(dev) -> list:
         got = mas.maximum_path(value, mask)
         want = mas.maximum_path_reference(value, mask)
         torch.cuda.synchronize()
+        # the host search (the reference's C++) holds only where every row
+        # has a path, 1 <= t_x <= t_y: it leaves the cells outside the band
+        # unscored where the kernel (as JAX's scan and Pallas paths) scores
+        # them -1e9, and with t_x = 0 it writes before its row
+        feasible = all(1 <= a <= b for a, b in zip(t_xs, t_ys))
+        equal_host = None
+        if feasible:
+            host = mas.maximum_path_numpy(value.cpu().numpy(), mask.cpu().numpy())
+            equal_host = torch.equal(got.float().cpu(), torch.from_numpy(host))
         layout = mas.mas_layout(T_x, T_y)
         cpl, _, rows, smem = layout
         equal = torch.equal(got, want) and got.dtype == mask.dtype
         out.append({"B": B, "T_x": T_x, "T_y": T_y, "values": values,
                     "mask": "bool" if bool_mask else "float32", "equal": equal,
+                    "equal_host": equal_host,
                     "cells_on_path": int(got.sum()), "layout": layout,
                     "kernel_smem_bytes": lib.mas_smem_bytes(cpl, rows)})
         if not equal:
             raise AssertionError(f"K2 differs from its plain version: {out[-1]}")
+        if equal_host is False:
+            raise AssertionError(f"K2 differs from the host search: {out[-1]}")
         if out[-1]["kernel_smem_bytes"] != smem:
             raise AssertionError(f"K2's shared memory differs from mas_layout's: {out[-1]}")
     return out
@@ -3127,7 +3202,7 @@ def dp_worker(local_rank: int, workdir: str) -> None:
     from matcha_tpu_torch.training import trainer as T
     from matcha_tpu_torch.utils.config import compose
 
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic()
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
     spec = torch.load(os.path.join(workdir, "in.pt"), weights_only=False)
@@ -3197,111 +3272,129 @@ def _max_diff(a: dict, b: dict) -> float:
     return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
 
 
-def dp_training(dev, corpus: dict, root: str) -> dict:
-    """Data-parallel training at the LJSpeech config's full width, batch
-    32, on the synthetic corpus:
-
-    * NCCL at world size 1 (a file store): DP_STEPS steps through
-      ``DistributedDataParallel`` against the plain step on the same
-      batches and seed (losses and weights after each step: bit-equal or
-      the largest difference), step ms of each (median of steps 2-3,
-      preloaded), K2's launches against the MAS calls;
-    * DP_RANKS gloo ranks sharing ``cuda:0`` (spawned; NCCL refuses two
-      ranks on one GPU), the batch of 32 split 16 + 16 (``dp_worker``):
-      one step's global losses, gradient norm and all-reduced gradients
-      against the one-process step on the 32 rows with the same noise
-      (dropout and the prenet off), the ranks' weights bit-equal; a
-      2-step fit with one validation (the same means on both ranks, one
-      checkpoint, rank 0's), its resume to step 3 against an uninterrupted
-      3-step fit: step 3's training loss and validation means within
-      DP_RTOL, beside the step-2 weights of the two runs (cuDNN's backward
-      is not deterministic from run to run on the card, so two runs of the
-      same two steps already differ by that much); K2 per rank. gloo moves the gradients through the host:
-      its step ms is not a multi-card figure."""
+def dp_world1_worker(local_rank: int, workdir: str) -> None:
+    """The one-process half of ``dp_training``, spawned in deterministic
+    mode: NCCL at world size 1 (``cuda:0``), DP_STEPS steps through
+    ``DistributedDataParallel`` against the plain step on the same batches
+    and seed (dropout on), in turns, timed; then the plain step on the
+    first batch of 32 with dropout and the prenet off, the one the gloo
+    ranks split, with its gradients. Writes ``<workdir>/world1.pt``."""
     import copy
 
     import torch
 
     from matcha_tpu_torch import train
-    from matcha_tpu_torch.parallel import dist
     from matcha_tpu_torch.training import trainer as T
     from matcha_tpu_torch.utils.config import compose
 
-    set_tf32(False)
-    out = {}
-    cfg = compose("train", _dp_overrides(corpus, os.path.join(root, "dp_nccl"), True))
+    deterministic()
+    dev = torch.device("cuda", 0)
+    spec = torch.load(os.path.join(workdir, "in.pt"), weights_only=False)
+    cfg = compose("train", _dp_overrides(spec["corpus"], os.path.join(workdir, "x"), True))
     out_size = cfg.model.get("out_size")
-    torch.cuda.set_device(0)
-    dist.initialize("nccl", f"file://{os.path.join(root, 'dp_nccl_store')}", 0, 1)
-    try:
-        dm = train.build_datamodule_from_cfg(cfg)
-        batches = [b for epoch in range(2) for b in dm.train_batches(epoch)][:DP_STEPS]
-        torch.manual_seed(SEED)
-        plain = train.build_model_from_cfg(cfg).to(dev)
-        ddp_model = copy.deepcopy(plain)
-        wrapped = T.make_ddp(ddp_model, dev, out_size)
-        lr = float(cfg.model.optimizer.lr)
-        opts = [T.make_optimizer(m, lr=lr) for m in (plain, ddp_model)]
-        steps, ms, calls, launches = [], {"plain": [], "ddp": []}, 0, 0
-        for i, raw in enumerate(batches):
-            torch.cuda.synchronize()
+    dm = train.build_datamodule_from_cfg(cfg)
+    batches = [b for epoch in range(2) for b in dm.train_batches(epoch)][:DP_STEPS]
+    torch.manual_seed(SEED)
+    plain = train.build_model_from_cfg(cfg).to(dev)
+    ddp_model = copy.deepcopy(plain)
+    wrapped = T.make_ddp(ddp_model, dev, out_size)
+    lr = float(cfg.model.optimizer.lr)
+    opts = [T.make_optimizer(m, lr=lr) for m in (plain, ddp_model)]
+    steps, ms, calls, launches = [], {"plain": [], "ddp": []}, 0, 0
+    for i, raw in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = T.train_step(plain, *opts[0], T.to_device(
+            {k: v for k, v in raw.items() if k != "rows"}, dev), i, SEED, out_size)
+        torch.cuda.synchronize()
+        ms["plain"].append((time.perf_counter() - t0) * 1e3)
+        with CountMas() as counted:
             t0 = time.perf_counter()
-            a = T.train_step(plain, *opts[0], T.to_device(
-                {k: v for k, v in raw.items() if k != "rows"}, dev), i, SEED, out_size)
+            host, share = T.share_batch(raw, out_size)
+            b = T.train_step(ddp_model, *opts[1], T.to_device(host, dev), i, SEED, out_size,
+                             ddp=wrapped, share=share)
             torch.cuda.synchronize()
-            ms["plain"].append((time.perf_counter() - t0) * 1e3)
-            with CountMas() as counted:
-                t0 = time.perf_counter()
-                host, share = T.share_batch(raw, out_size)
-                b = T.train_step(ddp_model, *opts[1], T.to_device(host, dev), i, SEED, out_size,
-                                 ddp=wrapped, share=share)
-                torch.cuda.synchronize()
-                ms["ddp"].append((time.perf_counter() - t0) * 1e3)
-            calls, launches = calls + counted.calls, launches + counted.launches
-            la, lb = ({k: float(v) for k, v in m.items()} for m in (a, b))
-            steps.append({"losses_plain": la, "losses_ddp": lb,
-                          "losses_bit_equal": la == lb,
-                          "losses_max_rel_diff": max(abs(la[k] - lb[k]) / abs(la[k]) for k in la),
-                          "weights_bit_equal": all(torch.equal(p, q) for p, q in zip(
-                              plain.parameters(), ddp_model.parameters())),
-                          "weights_max_abs_diff": max((p - q).abs().max().item() for p, q in zip(
-                              plain.parameters(), ddp_model.parameters()))})
-            if steps[-1]["losses_max_rel_diff"] > DP_RTOL:
-                raise AssertionError(f"data_parallel: NCCL world 1 against plain {steps[-1]}")
-        if launches != calls or calls != DP_STEPS:
-            raise AssertionError(f"data_parallel: K2 {launches} launches for {calls} MAS calls")
-        out["nccl_world1"] = {"batch": int(batches[0]["x"].shape[0]), "steps": steps,
-                              "step_ms": ms, "plain_step_ms_p50_steps_2_3":
-                                  statistics.median(ms["plain"][1:]),
-                              "ddp_step_ms_p50_steps_2_3": statistics.median(ms["ddp"][1:]),
-                              "k2_launches": launches, "mas_calls": calls}
-        del plain, ddp_model, wrapped, opts
-    finally:
-        dist.destroy()
+            ms["ddp"].append((time.perf_counter() - t0) * 1e3)
+        calls, launches = calls + counted.calls, launches + counted.launches
+        la, lb = ({k: float(v) for k, v in m.items()} for m in (a, b))
+        steps.append({"losses_plain": la, "losses_ddp": lb,
+                      "losses_bit_equal": la == lb,
+                      "losses_max_rel_diff": max(abs(la[k] - lb[k]) / abs(la[k]) for k in la),
+                      "weights_bit_equal": all(torch.equal(p, q) for p, q in zip(
+                          plain.parameters(), ddp_model.parameters())),
+                      "weights_max_abs_diff": max((p - q).abs().max().item() for p, q in zip(
+                          plain.parameters(), ddp_model.parameters()))})
+    out = {"batch": int(batches[0]["x"].shape[0]), "steps": steps, "step_ms": ms,
+           "calls": calls, "launches": launches}
+    del plain, ddp_model, wrapped, opts
     torch.cuda.empty_cache()
 
-    # the one-process step on the batch of 32 the ranks split
-    cfg = compose("train", _dp_overrides(corpus, os.path.join(root, "dp_one"), False))
+    cfg = compose("train", _dp_overrides(spec["corpus"], os.path.join(workdir, "y"), False))
     raw = next(iter(train.build_datamodule_from_cfg(cfg).train_batches(0)))
     torch.manual_seed(SEED)
     model = train.build_model_from_cfg(cfg).to(dev)
     opt, sched = T.make_optimizer(model, lr=float(cfg.model.optimizer.lr))
-    want_grads = {}
+    grads = {}
 
     def keep(phase):
         if phase == "backward":
-            want_grads.update({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+            grads.update({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
 
-    want = {k: float(v) for k, v in T.train_step(model, opt, sched, T.to_device(raw, dev), 0,
-                                                 SEED, out_size, on_phase=keep).items()}
-    del model, opt
-    torch.cuda.empty_cache()
+    out["one"] = {k: float(v) for k, v in T.train_step(
+        model, opt, sched, T.to_device({k: v for k, v in raw.items() if k != "rows"}, dev), 0,
+        SEED, out_size, on_phase=keep).items()}
+    out["one_grads"] = grads
+    torch.save(out, os.path.join(workdir, "world1.pt"))
+
+
+def dp_training(corpus: dict, root: str) -> dict:
+    """Data-parallel training at the LJSpeech config's full width, batch
+    32, on the synthetic corpus, every process spawned in deterministic
+    mode (``launch_deterministic``):
+
+    * NCCL at world size 1 (``dp_world1_worker``): DP_STEPS steps through
+      ``DistributedDataParallel`` against the plain step on the same
+      batches and seed: losses and weights bit-equal after each step;
+      step ms of each (median of steps 2-3, preloaded), K2's launches
+      against the MAS calls;
+    * DP_RANKS gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on
+      one GPU), the batch of 32 split 16 + 16 (``dp_worker``): one step's
+      global losses and gradient norm within DP_RTOL of the one-process
+      step on the 32 rows with the same noise (dropout and the prenet
+      off), the all-reduced gradients within DP_GRAD_TOL of each
+      tensor's largest, the ranks' weights and gradients bit-equal; a
+      2-step fit with one validation (the same means on both ranks, one
+      checkpoint, rank 0's), its resume to step 3 against an
+      uninterrupted 3-step fit: losses, validation means and weights
+      bit-equal, beside the step-2 weights of the two runs (their
+      run-to-run spread); K2 per rank. gloo moves the gradients through
+      the host: its step ms is not a multi-card figure."""
+    import torch
+
+    out = {"mode": DETERMINISTIC_MODE}
+    workdir = os.path.join(root, "dp_nccl")
+    os.makedirs(workdir)
+    torch.save({"corpus": corpus}, os.path.join(workdir, "in.pt"))
+    launch_deterministic(dp_world1_worker, (workdir,), 1, "nccl", workdir, DP_TIMEOUT_S)
+    w1 = torch.load(os.path.join(workdir, "world1.pt"), weights_only=False)
+    steps = w1["steps"]
+    if not all(s["losses_bit_equal"] and s["weights_bit_equal"] for s in steps):
+        raise AssertionError(f"data_parallel: NCCL world 1 against plain {steps}")
+    if w1["launches"] != w1["calls"] or w1["calls"] != DP_STEPS:
+        raise AssertionError(f"data_parallel: K2 {w1['launches']} launches for "
+                             f"{w1['calls']} MAS calls")
+    ms = w1["step_ms"]
+    out["nccl_world1"] = {"batch": w1["batch"], "steps": steps, "step_ms": ms,
+                          "plain_step_ms_p50_steps_2_3": statistics.median(ms["plain"][1:]),
+                          "ddp_step_ms_p50_steps_2_3": statistics.median(ms["ddp"][1:]),
+                          "k2_launches": w1["launches"], "mas_calls": w1["calls"]}
+    want, want_grads = w1["one"], w1["one_grads"]
 
     workdir = os.path.join(root, "dp_gloo")
     os.makedirs(workdir)
     torch.save({"corpus": corpus}, os.path.join(workdir, "in.pt"))
     t0 = time.perf_counter()
-    dist.launch_local(dp_worker, (workdir,), DP_RANKS, "gloo", workdir, timeout_s=DP_TIMEOUT_S)
+    launch_deterministic(dp_worker, (workdir,), DP_RANKS, "gloo", workdir, DP_TIMEOUT_S)
     launch_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(workdir, f"rank{i}.pt"), weights_only=False)
              for i in range(DP_RANKS)]
@@ -3312,8 +3405,8 @@ def dp_training(dev, corpus: dict, root: str) -> dict:
     ckpts = sorted(os.listdir(os.path.join(workdir, "fit", "checkpoints")))
     gloo = {
         "ranks": DP_RANKS, "rows": [r["rows"] for r in ranks], "losses_one_process": want,
-        "losses_ranks": [r["step"] for r in ranks], "max_rel_diff": rel,
-        "grads_max_err_of_tensor_max": grad_err,
+        "losses_ranks": [r["step"] for r in ranks], "max_rel_diff": rel, "rtol": DP_RTOL,
+        "grads_max_err_of_tensor_max": grad_err, "grad_tol": DP_GRAD_TOL,
         "grads_ranks_bit_equal": all(torch.equal(r0["grads"][k], r1["grads"][k])
                                      for k in r0["grads"]),
         "weights_ranks_bit_equal": all(torch.equal(r0["params"][k], r1["params"][k])
@@ -3324,6 +3417,11 @@ def dp_training(dev, corpus: dict, root: str) -> dict:
         "straight_step3": [r["straight"]["result"] for r in ranks],
         "resumed_val_step3": [r["resumed"]["val"][3] for r in ranks],
         "straight_val_step3": [r["straight"]["val"][3] for r in ranks],
+        "resume_bit_equal": all(
+            r["resumed"]["result"] == r["straight"]["result"]
+            and r["resumed"]["val"][3] == r["straight"]["val"][3]
+            and all(torch.equal(r["resumed"]["params"][k], r["straight"]["params"][k])
+                    for k in r["straight"]["params"]) for r in ranks),
         "resume_weights_max_abs_diff": max(_max_diff(r["resumed"]["params"],
                                                      r["straight"]["params"]) for r in ranks),
         "two_runs_step2_weights_max_abs_diff": _max_diff(*(torch.load(
@@ -3338,10 +3436,7 @@ def dp_training(dev, corpus: dict, root: str) -> dict:
             and gloo["grads_ranks_bit_equal"] and gloo["weights_ranks_bit_equal"]):
         raise AssertionError(f"data_parallel: 2 gloo ranks against one process {gloo}")
     if not (r0["fit"]["val"] and r0["fit"]["val"] == r1["fit"]["val"]
-            and ckpts == ["last", "last.hparams.json"]
-            and all(abs(r["resumed"]["result"][k] - r["straight"]["result"][k])
-                    <= DP_RTOL * abs(r["straight"]["result"][k])
-                    for r in ranks for k in ("loss/train", "loss/val"))):
+            and ckpts == ["last", "last.hparams.json"] and gloo["resume_bit_equal"]):
         raise AssertionError(f"data_parallel: fit, checkpoint or resume on 2 ranks {gloo}")
     for r in ranks:
         for k2 in (r["k2"], *(r[n]["k2"] for n in ("fit", "resumed", "straight"))):
@@ -3355,7 +3450,340 @@ def dp_training(dev, corpus: dict, root: str) -> dict:
                    "step on preloaded batches in turns, median of steps 2-3 (the DDP step "
                    "includes share_batch's host exchange); gloo: 2 ranks share cuda:0 and "
                    "move every gradient through the host, so its step ms is not a multi-card "
-                   "figure")
+                   "figure; every process in deterministic mode")
+    return out
+
+
+def tp_worker(local_rank: int, workdir: str) -> None:
+    """One of the gloo ranks sharing ``cuda:0`` of a ``tensor_parallel``
+    job, in deterministic mode, on the LJSpeech config (dropout on): the
+    model split over ``n_model`` ranks (all of them: the data axis has
+    one index, so every rank holds all 32 rows) for ``steps`` steps with
+    their losses, the gathered gradients of the first and the gathered
+    weights after the last, each rank's replicated gradients and weights,
+    step ms and K2's launches; before it, with ``plain``, the plain
+    one-process steps on the same batches (every rank runs them: two runs
+    give their run-to-run spread); with ``fit``, a 2-step
+    ``Trainer(n_model_axis=)`` fit with one validation, a resume from its
+    checkpoint to step 3 and an uninterrupted 3-step fit. Writes
+    ``<workdir>/tp<i>.pt``."""
+    import torch
+
+    from matcha_tpu_torch import train
+    from matcha_tpu_torch.parallel import dist, tensor
+    from matcha_tpu_torch.training import trainer as T
+    from matcha_tpu_torch.utils.config import compose
+
+    deterministic()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    spec = torch.load(os.path.join(workdir, "in.pt"), weights_only=False)
+    dist.set_model_axis(spec["n_model"])
+    cfg = compose("train", train_overrides(spec["corpus"], os.path.join(workdir, "x")))
+    out_size, lr = cfg.model.get("out_size"), float(cfg.model.optimizer.lr)
+    dm = train.build_datamodule_from_cfg(cfg)
+    raws = [b for epoch in range(2) for b in dm.train_batches(epoch)][:spec["steps"]]
+    out = {"rank": dist.rank(), "rows": [int(v) for v in raws[0]["rows"]]}
+
+    def run(split: bool, n_steps: int = len(raws)) -> dict:
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.manual_seed(SEED)
+        model = train.build_model_from_cfg(cfg).to(dev)
+        if split:
+            tensor.shard_model(model)
+        opt, sched = T.make_optimizer(model, lr=lr)
+        loss = T.BatchLoss(model, out_size) if split else None
+        grads, own, steps, ms, before = {}, {}, [], [], []
+        plan = tensor.plan_of(model)
+
+        def keep(phase):
+            if phase == "backward" and not grads:
+                for k, p in model.named_parameters():
+                    grads[k] = tensor.full_tensor(model, k, p.grad).cpu()
+                    if plan is not None and k not in plan.dims:
+                        own[k] = p.grad.detach().cpu()
+
+        with CountMas() as counted:
+            for i, raw in enumerate(raws[:n_steps]):
+                if split:  # the weights each step starts from, gathered (rank 0 keeps them)
+                    state = tensor.full_state_dict(model)
+                    before.append({k: v.clone() for k, v in state.items()}
+                                  if dist.rank() == 0 else None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if split:
+                    host, share = T.share_batch(raw, out_size)
+                    m = T.train_step(model, opt, sched, T.to_device(host, dev), i, SEED, out_size,
+                                     on_phase=keep, ddp=loss, share=share)
+                else:
+                    m = T.train_step(model, opt, sched, T.to_device(
+                        {k: v for k, v in raw.items() if k != "rows"}, dev), i, SEED, out_size,
+                        on_phase=keep)
+                steps.append({k: float(v) for k, v in m.items()})
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        res = {"steps": steps, "grads": grads, "step_ms": ms,
+               "params": {k: v.cpu() for k, v in tensor.full_state_dict(model).items()},
+               "k2": {"mas_calls": counted.calls, "launches": counted.launches}}
+        if split:
+            res["before"] = before
+            res["replicated_grads"] = own
+            res["replicated_params"] = {k: v.cpu() for k, v in model.state_dict().items()
+                                        if k not in plan.dims}
+            res["n_split"] = len(plan.dims)
+            res["memory_mb"] = torch.cuda.max_memory_allocated(dev) / 2**20
+        del model, opt, loss
+        torch.cuda.empty_cache()
+        return res
+
+    def plain_from(states) -> dict:
+        """The plain step i from the split run's weights before its step
+        i (same batch, noise and dropout draws): its metrics, and its
+        gradients at step 0."""
+        model = train.build_model_from_cfg(cfg).to(dev)
+        steps, grads = [], {}
+
+        def keep(phase):
+            if phase == "backward" and not grads:
+                grads.update({k: p.grad.cpu() for k, p in model.named_parameters()})
+
+        for i, (raw, state) in enumerate(zip(raws, states)):
+            model.load_state_dict(state)
+            opt, sched = T.make_optimizer(model, lr=lr)
+            m = T.train_step(model, opt, sched, T.to_device(
+                {k: v for k, v in raw.items() if k != "rows"}, dev), i, SEED, out_size,
+                on_phase=keep)
+            steps.append({k: float(v) for k, v in m.items()})
+        del model
+        torch.cuda.empty_cache()
+        return {"steps": steps, "grads": grads}
+
+    if spec["plain"]:
+        out["plain"] = run(False)
+        # the first step in torch's default mode (cuDNN may pick algorithms
+        # that sum in another order from run to run) and, on rank 0, with
+        # torch's own convolutions in place of cuDNN's: the spreads of
+        # plain runs
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        out["plain_default_mode"] = run(False, 1)
+        if dist.rank() == 0:
+            torch.backends.cudnn.enabled = False
+            out["plain_without_cudnn"] = run(False, 1)
+            torch.backends.cudnn.enabled = True
+        deterministic()
+    out["split"] = run(True)
+    states = out["split"].pop("before")
+    if dist.rank() == 0:
+        out["plain_from_split"] = plain_from(states)
+    del states
+
+    def fit(name, max_steps, restore=None):
+        torch.manual_seed(SEED)
+        trainer = T.Trainer(train.build_model_from_cfg(cfg), train.build_datamodule_from_cfg(cfg),
+                            dev, out_size=out_size, lr=lr, max_steps=max_steps,
+                            log_every_n_steps=1, output_dir=os.path.join(workdir, name),
+                            seed=SEED, save_every_n_epochs=0, loggers={"csv": {}},
+                            n_model_axis=spec["n_model"])
+        val, validate = {}, trainer.validate
+
+        def record(epoch):
+            val[trainer.step] = validate(epoch)
+            return val[trainer.step]
+
+        trainer.validate = record
+        with CountMas() as c:
+            result = trainer.fit(restore_from=restore)
+        return {"result": result, "val": val, "step": trainer.step,
+                "k2": {"mas_calls": c.calls, "launches": c.launches},
+                "params": {k: v.cpu() for k, v in tensor.full_state_dict(trainer.model).items()}}
+
+    if spec["fit"]:
+        out["fit"] = fit("fit", 2)
+        out["resumed"] = fit("resumed", 3, os.path.join(workdir, "fit", "checkpoints", "last"))
+        out["straight"] = fit("straight", 3)
+    torch.save(out, os.path.join(workdir, f"tp{local_rank}.pt"))
+
+
+def _rel(a: dict, b: dict) -> float:
+    return max(abs(a[k] - b[k]) / abs(b[k]) for k in b)
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    """Each gradient tensor's largest difference over its largest value,
+    and that value."""
+    return {k: (((got[k] - g).abs().max() / (g.abs().max() + 1e-12)).item(),
+                g.abs().max().item()) for k, g in want.items()}
+
+
+def _grad_err(got: dict, want: dict) -> float:
+    return max(e for e, _ in _grad_errs(got, want).values())
+
+
+def _grads_within(got: dict, want: dict, of_max: float) -> bool:
+    """Every gradient tensor within ``of_max`` of its largest value plus
+    TP_GRAD_ATOL (the CPU tests' bound)."""
+    return all(e * m <= of_max * m + TP_GRAD_ATOL for e, m in _grad_errs(got, want).values())
+
+
+def _worst(errs: dict, n: int = 5) -> list:
+    return sorted(([k, e, m] for k, (e, m) in errs.items()), key=lambda v: -v[1])[:n]
+
+
+def tensor_parallel(corpus: dict, root: str, smi: str) -> dict:
+    """Tensor parallelism at the LJSpeech config's full width, batch 32
+    (dropout on), on the synthetic corpus: gloo ranks sharing ``cuda:0``
+    (``tp_worker``, spawned in deterministic mode), each step against the
+    plain one-process step from the same weights (the split run's,
+    gathered before the step) on the same batch and noise:
+
+    * ``n_model = 2`` (2 ranks; the encoder's and the decoder's 2 heads one
+      per rank): TP_STEPS steps, their losses and gradient norm within
+      TP_RTOL, the first step's gathered gradients within TP_GRAD_OF_MAX
+      of each tensor's largest plus TP_GRAD_ATOL, the ranks' replicated
+      weights and gradients bit-equal; a 2-step fit with one validation
+      (one full-width checkpoint, which the CLI loads), its losses
+      against the plain run's, and its resume to step 3 against the
+      uninterrupted run, bit for bit;
+    * ``n_model = 4`` (4 ranks; half a head per rank, q, k and v
+      gathered): one step, likewise.
+
+    A plain run of the same steps from the seed's weights runs on both
+    ranks of the first job, in deterministic and in torch's default mode:
+    their differences are the run-to-run spreads printed beside the
+    bounds (which may be loosened to them, no further). K2 once per step
+    and validation batch on every rank. gloo moves every activation sum
+    through the host: the step ms is not a multi-card figure."""
+    import torch
+
+    from matcha_tpu_torch.cli import load_matcha
+
+    jobs = {}
+    t0 = time.perf_counter()
+    for n_model, steps, plain, fit in ((2, TP_STEPS, True, True), (4, 1, False, False)):
+        workdir = os.path.join(root, f"tp{n_model}")
+        os.makedirs(workdir)
+        torch.save({"corpus": corpus, "n_model": n_model, "steps": steps, "plain": plain,
+                    "fit": fit}, os.path.join(workdir, "in.pt"))
+        t1 = time.perf_counter()
+        launch_deterministic(tp_worker, (workdir,), n_model, "gloo", workdir, TP_TIMEOUT_S)
+        jobs[n_model] = {"seconds": time.perf_counter() - t1, "workdir": workdir, "ranks": [
+            torch.load(os.path.join(workdir, f"tp{i}.pt"), weights_only=False)
+            for i in range(n_model)]}
+    plain = jobs[2]["ranks"][0]["plain"]
+
+    def spread(a, b):
+        """Two plain runs' first steps (and their weights after the same
+        steps)."""
+        errs = _grad_errs(b["grads"], a["grads"])
+        out = {"losses_rel_diff_per_step": [_rel(x, y) for x, y in zip(b["steps"], a["steps"])],
+               "grads_max_err_of_tensor_max": max(e for e, _ in errs.values()),
+               "worst_grads": _worst(errs)}
+        if len(a["steps"]) == len(b["steps"]):
+            out["weights_max_abs_diff"] = _max_diff(b["params"], a["params"])
+        return out
+
+    r0, r1 = jobs[2]["ranks"]
+    spreads = {"deterministic": spread(r0["plain"], r1["plain"]),
+               "default": spread(r0["plain_default_mode"], r1["plain_default_mode"]),
+               "deterministic_vs_default": spread(r0["plain"], r0["plain_default_mode"]),
+               "cudnn_vs_without": spread(r0["plain"], r0["plain_without_cudnn"])}
+    # the runs start from the same weights: their first steps' difference
+    # is the spread the split steps (each from the same weights as its
+    # plain step) may be held to
+    rtol = max([TP_RTOL] + [v["losses_rel_diff_per_step"][0] for v in spreads.values()])
+    grad_tol = max([TP_GRAD_OF_MAX] + [v["grads_max_err_of_tensor_max"]
+                                       for v in spreads.values()])
+    out = {"mode": DETERMINISTIC_MODE, "nvidia_smi": smi, "rtol": rtol, "grad_of_max": grad_tol,
+           "plain_run_to_run_spread": spreads,
+           "plain_step_ms": plain["step_ms"], "k2_launches": 0}
+    for n_model, job in jobs.items():
+        ranks = job["ranks"]
+        r0, ref = ranks[0]["split"], ranks[0]["plain_from_split"]
+        n = len(r0["steps"])
+        row = {"ranks": n_model, "rows": [r["rows"] for r in ranks], "steps": n,
+               "split_tensors": r0["n_split"],
+               "losses_plain": ref["steps"], "losses_split": r0["steps"],
+               "losses_max_rel_diff": max(_rel(r["split"]["steps"][i], ref["steps"][i])
+                                          for r in ranks for i in range(n)),
+               "losses_rel_diff_per_step": [_rel(r0["steps"][i], ref["steps"][i])
+                                            for i in range(n)],
+               "losses_rel_diff_to_plain_run_per_step": [_rel(r0["steps"][i], plain["steps"][i])
+                                                         for i in range(n)],
+               "grads_max_err_of_tensor_max": max(_grad_err(r["split"]["grads"], ref["grads"])
+                                                  for r in ranks),
+               "grads_within_bound": all(_grads_within(r["split"]["grads"], ref["grads"],
+                                                       grad_tol) for r in ranks),
+               "worst_grads": _worst(_grad_errs(r0["grads"], ref["grads"])),
+               "replicas_bit_equal": all(
+                   torch.equal(r["split"][kind][k], r0[kind][k])
+                   for r in ranks[1:] for kind in ("replicated_grads", "replicated_params")
+                   for k in r0[kind]),
+               "gathered_weights_ranks_bit_equal": all(
+                   torch.equal(r["split"]["params"][k], r0["params"][k])
+                   for r in ranks[1:] for k in r0["params"]),
+               "step_ms": [r["split"]["step_ms"] for r in ranks],
+               "peak_memory_mb_rank0": r0["memory_mb"],
+               "k2_per_rank": [r["split"]["k2"] for r in ranks], "seconds": job["seconds"]}
+        if n > 1:
+            row["step_ms_p50_steps_2_on_rank0"] = statistics.median(r0["step_ms"][1:])
+            row["weights_max_abs_diff_to_plain_run_after"] = _max_diff(r0["params"],
+                                                                       plain["params"])
+        if not (row["losses_max_rel_diff"] <= rtol and row["grads_within_bound"]
+                and row["replicas_bit_equal"]
+                and row["gathered_weights_ranks_bit_equal"]):
+            raise AssertionError(f"tensor_parallel: n_model={n_model} against the plain step "
+                                 f"{ {k: v for k, v in row.items() if k[:7] != 'losses_'} } "
+                                 f"losses {row['losses_max_rel_diff']}, bounds {rtol} and "
+                                 f"{grad_tol}, spreads {spreads}")
+        for r in ranks:
+            k2 = r["split"]["k2"]
+            if k2["launches"] != k2["mas_calls"] or k2["launches"] != n:
+                raise AssertionError(f"tensor_parallel: K2 on rank {r['rank']}: {k2}")
+            out["k2_launches"] += k2["launches"]
+        out[f"model{n_model}"] = row
+
+    ranks = jobs[2]["ranks"]
+    ckpt_dir = os.path.join(jobs[2]["workdir"], "fit", "checkpoints")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    served = load_matcha(os.path.join(ckpt_dir, "last"), device="cpu")
+    fit_rows = read_metrics(os.path.join(jobs[2]["workdir"], "fit"))
+    train_rows = [r for r in fit_rows if "loss/train" in r]
+    fit = {"checkpoints": ckpts, "val": [r["fit"]["val"] for r in ranks],
+           "checkpoint_full_width": all(
+               torch.equal(v, ranks[0]["fit"]["params"][k])
+               for k, v in served.state_dict().items()),
+           "train_losses": [r["loss/train"] for r in train_rows],
+           "train_losses_max_rel_diff_to_plain": max(
+               abs(r["loss/train"] - plain["steps"][i]["loss"]) / abs(plain["steps"][i]["loss"])
+               for i, r in enumerate(train_rows)),
+           "resume_bit_equal": all(
+               r["resumed"]["result"] == r["straight"]["result"]
+               and r["resumed"]["val"][3] == r["straight"]["val"][3]
+               and all(torch.equal(r["resumed"]["params"][k], r["straight"]["params"][k])
+                       for k in r["straight"]["params"]) for r in ranks),
+           "resume_weights_max_abs_diff": max(_max_diff(r["resumed"]["params"],
+                                                        r["straight"]["params"]) for r in ranks),
+           "k2_per_rank": [{n: r[n]["k2"] for n in ("fit", "resumed", "straight")}
+                           for r in ranks]}
+    if not (ckpts == ["last", "last.hparams.json"] and fit["checkpoint_full_width"]
+            and len(train_rows) == 2 and fit["train_losses_max_rel_diff_to_plain"] <= rtol
+            and ranks[0]["fit"]["val"] and ranks[0]["fit"]["val"] == ranks[1]["fit"]["val"]
+            and fit["resume_bit_equal"]):
+        raise AssertionError(f"tensor_parallel: fit, checkpoint or resume {fit}")
+    for r in ranks:
+        for name, steps_run in (("fit", 2), ("resumed", 1), ("straight", 3)):
+            # one launch per step and per validation batch (one each)
+            k2 = r[name]["k2"]
+            if (k2["launches"] != k2["mas_calls"]
+                    or k2["launches"] != steps_run + len(r[name]["val"])):
+                raise AssertionError(f"tensor_parallel: K2 in {name} on rank {r['rank']}: {k2}")
+            out["k2_launches"] += k2["launches"]
+    out["fit_model2"] = fit
+    out["seconds"] = time.perf_counter() - t0
+    out["note"] = ("host clock, synchronised, per step on each rank; the ranks are gloo "
+                   "processes sharing one card, every activation sum goes through the host: "
+                   "not a multi-card figure")
     return out
 
 
@@ -3409,7 +3837,10 @@ def main() -> int:
     k3 = k3_check(dev, gen_cpu, ks, dils)
     emit({"phase": "k3_check", **k3})
     k2_cases = k2_check(dev)
-    emit({"phase": "k2_check", "rule": "torch.equal", "cases": k2_cases})
+    emit({"phase": "k2_check", "rule": "torch.equal to the plain version, and to "
+          "maximum_path_numpy (the host search) where every row has 1 <= t_x <= t_y "
+          "(equal_host null elsewhere)", "host_checked": sum(
+              c["equal_host"] is True for c in k2_cases), "cases": k2_cases})
 
     # 4. the main path at full width, weights from the seed
     torch.manual_seed(SEED)
@@ -3605,9 +4036,12 @@ def main() -> int:
               "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        dp_train = dp_training(dev, trained["corpus"], root)
+        dp_train = dp_training(trained["corpus"], root)
         emit({"phase": "data_parallel", "nvidia_smi": smi, "serving": dp_serve,
               "training": dp_train, "seconds": dp_serve_s + time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        tp = tensor_parallel(trained["corpus"], root, smi)
+        emit({"phase": "tensor_parallel", **tp})
 
     # 7. kernels: K1's and K3's ms, plain_ms, bound_ms, library_ms summed
     # over the two narrow stages of one vocoder call at the serving path's
@@ -3683,6 +4117,7 @@ def main() -> int:
          "ddp_launches": {
              "nccl_world1": dp_train["nccl_world1"]["k2_launches"],
              "gloo_per_rank": dp_train["gloo_two_ranks_cuda0"]["k2_per_rank"]},
+         "tensor_parallel_launches": tp["k2_launches"],
          "bf16_log_prior": {k: bf16["k2"][k] for k in ("shape", "adjacent_ties", "equal", "ms")},
          "max_abs_err": 0.0, "ms": k2["ms"],
          "kernel_ms": k2["kernel_ms"], "wrapper_ms": k2["wrapper_ms"], "layout": k2["layout"],

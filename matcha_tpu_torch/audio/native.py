@@ -9,46 +9,30 @@ the source and the flags, and loaded with ``ctypes``.
 """
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
 from matcha_tpu_torch.audio.mel import mel_filterbank
-from matcha_tpu_torch.ops.cuda_build import BUILD_DIR
+from matcha_tpu_torch.ops.cuda_build import BUILD_DIR, build_host_library, host_library_path
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "audio" / "frontend.cpp"
-GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libaudio-{digest}.so"
+    return host_library_path(SOURCE, "libaudio", BUILD_DIR)
 
 
 def _load() -> ctypes.CDLL:
-    """The frontend's library, compiled first if it is not built yet. A
-    build writes a file of its own and renames it into place, so
-    processes that build at once do not see each other's partial output."""
+    """The frontend's library, compiled first if it is not built yet."""
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = path.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run(["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"g++ failed for {SOURCE.name} (rc {proc.returncode}):\n"
-                                       f"{proc.stderr}")
-                os.replace(tmp, path)
+            path = build_host_library(SOURCE, library_path())
             lib = ctypes.CDLL(str(path))
             lib.mel_spectrogram_c.argtypes = [
                 ctypes.POINTER(ctypes.c_float), ctypes.c_int64,

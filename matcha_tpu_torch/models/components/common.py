@@ -155,21 +155,27 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's type: f32 parameters as they are, bf16
+    ones upcast to an f32 input (as JAX promotes them)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
+
+
 class TimestepEmbedding(nn.Module):
     """Two-layer MLP over the sinusoidal embedding (silu in between), in
-    the embedding's type: f32 parameters as they are, bf16 ones upcast (a
-    bf16 decoder's MLP computes in f32, as JAX promotes it)."""
+    the embedding's type (``Linear``: a bf16 decoder's MLP computes in
+    f32, as JAX promotes it)."""
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_channels, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
-        def linear(layer, v):
-            return F.linear(v, layer.weight.to(v.dtype), layer.bias.to(v.dtype))
-
-        return linear(self.linear_2, F.silu(linear(self.linear_1, sample)))
+        return self.linear_2(F.silu(self.linear_1(sample)))
 
 
 class WeightNormConv(nn.Module):

@@ -60,8 +60,8 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
 
-        def split_heads(t):
-            return t.reshape(B, T, self.n_heads, self.k_channels).transpose(1, 2)
+        def split_heads(t):  # the heads this rank holds (all without tensor parallelism)
+            return t.reshape(B, T, -1, self.k_channels).transpose(1, 2)
 
         q = split_heads(self.conv_q(x))
         k = split_heads(self.conv_k(x))
@@ -73,7 +73,7 @@ class MultiHeadAttention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.k_channels)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
         probs = self.drop(torch.softmax(scores, dim=-1))
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, T, self.channels)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, T, -1)
         return self.conv_o(out)
 
 

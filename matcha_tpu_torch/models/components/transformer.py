@@ -103,8 +103,8 @@ class Attention(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
 
-        def split(t):
-            return t.reshape(B, T, self.heads, self.dim_head).transpose(1, 2)
+        def split(t):  # the heads this rank holds (all without tensor parallelism)
+            return t.reshape(B, T, -1, self.dim_head).transpose(1, 2)
 
         q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.dim_head)
@@ -115,7 +115,7 @@ class Attention(nn.Module):
             else:
                 scores = scores + key_mask
         probs = torch.softmax(scores, dim=-1)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, T, self.heads * self.dim_head)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, T, -1)
         return self.to_out[1](self.to_out[0](out))
 
 

@@ -1,9 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/matcha_tpu_torch/`` of the checkout (gitignored), keyed on a hash
-of the source and the flags, and loaded with ``ctypes``.
+of the source and the flags, and loaded with ``ctypes``. The host
+libraries of the repo's ``native/`` sources are compiled with ``g++``
+into the same directory (``build_host_library``), never next to their
+source.
 """
 
 import ctypes
@@ -17,6 +20,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "matcha_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 _loaded = {}
 
@@ -75,3 +79,27 @@ def load_all(names) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     return load_all([name])[name]
+
+
+def host_library_path(source: Path, stem: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Where ``build_host_library`` puts ``source``'s library: keyed on a
+    hash of the source and ``GXX_FLAGS``."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return build_dir / f"{stem}-{digest}.so"
+
+
+def build_host_library(source: Path, path: Path) -> Path:
+    """Compile ``source`` with ``g++ GXX_FLAGS`` into ``path`` unless it is
+    there; raises when ``g++`` fails. The build writes a file of its own
+    and renames it into place, so processes that build at once do not see
+    each other's partial output."""
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(["g++", *GXX_FLAGS, str(source), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {source.name} (rc {proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)
+    return path

@@ -10,11 +10,22 @@ launches the kernel in ``csrc/mas.cu`` (or raises); a CPU tensor takes
 same f32 values in the same order.
 
 No gradient flows through the search; its inputs are detached.
+
+``maximum_path_numpy(value, mask)`` is the port of
+``matcha_tpu/ops/mas_cpp.py``: numpy in and out, through the repo's
+C++/OpenMP ``native/mas/mas.cpp`` (``maximum_path_c``), which is built
+with ``g++`` at first use into ``build/matcha_tpu_torch/``
+(``cuda_build.build_host_library``; never next to its source) and bound
+with ``ctypes``. It is the host path of offline tools and a third oracle
+for the kernel.
 """
 
 import ctypes
 import functools
+import threading
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from matcha_tpu_torch.ops import cuda_build
@@ -150,3 +161,46 @@ def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if value.device.type != "cuda":
         raise ValueError(f"maximum_path runs on CUDA or CPU tensors, not {value.device}")
     return _launch(value, mask)
+
+
+HOST_SOURCE = Path(__file__).resolve().parents[2] / "native" / "mas" / "mas.cpp"
+_host_lock = threading.Lock()
+_host_lib = None
+
+
+def host_library_path() -> Path:
+    return cuda_build.host_library_path(HOST_SOURCE, "libmas", cuda_build.BUILD_DIR)
+
+
+def _host_library() -> ctypes.CDLL:
+    """``native/mas/mas.cpp``'s library, compiled first if it is not built
+    yet (raises when ``g++`` is missing or fails)."""
+    global _host_lib
+    with _host_lock:
+        if _host_lib is None:
+            lib = ctypes.CDLL(str(cuda_build.build_host_library(HOST_SOURCE, host_library_path())))
+            i32, f32 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+            lib.maximum_path_c.argtypes = [i32, f32, i32, i32, ctypes.c_int32, ctypes.c_int64,
+                                           ctypes.c_int64]
+            lib.maximum_path_c.restype = None
+            _host_lib = lib
+    return _host_lib
+
+
+def maximum_path_numpy(value: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """MAS on the host: value and mask (B, T_x, T_y) numpy arrays -> the
+    0/1 path (B, T_x, T_y) float32. ``value * mask`` in f32, the lengths
+    read off the mask's first column and first row, an int32 path from
+    the C++ search, returned as f32 times the mask (JAX's
+    ``maximum_path_cpp``)."""
+    lib = _host_library()
+    mask_f = np.asarray(mask, dtype=np.float32)
+    value = np.ascontiguousarray(np.asarray(value, dtype=np.float32) * mask_f)
+    B, T_x, T_y = value.shape
+    paths = np.zeros((B, T_x, T_y), dtype=np.int32)
+    t_xs = np.ascontiguousarray(mask_f[:, :, 0].sum(axis=1).astype(np.int32))
+    t_ys = np.ascontiguousarray(mask_f[:, 0, :].sum(axis=1).astype(np.int32))
+    i32, f32 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+    lib.maximum_path_c(paths.ctypes.data_as(i32), value.ctypes.data_as(f32),
+                       t_xs.ctypes.data_as(i32), t_ys.ctypes.data_as(i32), B, T_x, T_y)
+    return paths.astype(np.float32) * mask_f

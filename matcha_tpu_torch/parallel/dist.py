@@ -23,6 +23,15 @@ A node is what a JAX process is: it reads its shard of the filelist and
 its ranks (its local GPUs) split each of its batches. ``host_all_gather``
 runs on a gloo group on the host, also when the main backend is NCCL, so
 exchanging a few integers never waits for the card.
+
+The mesh (JAX's ``make_mesh(n_data, n_model)``): ``set_model_axis(n)``
+splits the ranks into groups of ``n`` consecutive ranks, the model groups
+that hold one model between them (tensor parallelism,
+``parallel/tensor.py``), and the data groups of the ranks with the same
+index in their model group, over which the gradients are averaged. Rank
+``r`` is at data index ``r // n`` and model index ``r % n``: JAX's
+``reshape(n_data, n_model)`` of the device list. Without a model axis
+(``n = 1``) the data group is the whole world.
 """
 
 import datetime
@@ -41,6 +50,9 @@ _topology: Optional[dict] = None
 #: a gloo group over every rank for host-side exchanges (the default
 #: group itself when that is gloo)
 _host_group = None
+#: the model axis: its size, this rank's model group and data group (None:
+#: no group of its own, the whole world for the data group)
+_axis = {"n_model": 1, "model_group": None, "data_group": None}
 
 
 def is_initialized() -> bool:
@@ -133,6 +145,69 @@ def n_nodes() -> int:
     return _topology["n_nodes"] if _topology else 1
 
 
+def set_model_axis(n_model: int) -> None:
+    """Split the ranks into model groups of ``n_model`` consecutive ranks
+    and data groups across them (every rank must call it, with the same
+    ``n_model``). ``n_model`` must divide the ranks of a node, so that a
+    model group never spans nodes. Without a process group only 1 is
+    accepted."""
+    n_model = int(n_model)
+    if n_model < 1:
+        raise ValueError(f"n_model={n_model}")
+    if _topology is None:
+        if n_model != 1:
+            raise ValueError(f"a model axis of {n_model} needs a process group of at least "
+                             f"{n_model} ranks; none is initialised")
+        return
+    if local_world_size() % n_model:
+        raise ValueError(f"a model axis of {n_model} does not divide the "
+                         f"{local_world_size()} ranks of a node")
+    if n_model == _axis["n_model"]:
+        return
+    model_g = data_g = None
+    if n_model > 1:
+        world = world_size()
+        for d in range(world // n_model):  # every rank creates every group
+            ranks = list(range(d * n_model, (d + 1) * n_model))
+            g = tdist.new_group(ranks)
+            model_g = g if rank() in ranks else model_g
+        for m in range(n_model):
+            ranks = list(range(m, world, n_model))
+            g = tdist.new_group(ranks)
+            data_g = g if rank() in ranks else data_g
+    _axis.update(n_model=n_model, model_group=model_g, data_group=data_g)
+
+
+def n_model() -> int:
+    """Ranks in a model group (1 without a model axis)."""
+    return _axis["n_model"]
+
+
+def model_rank() -> int:
+    """This rank's index in its model group."""
+    return rank() % n_model()
+
+
+def model_group():
+    """This rank's model group, or None without a model axis."""
+    return _axis["model_group"]
+
+
+def n_data() -> int:
+    """Ranks in a data group: the data axis's size."""
+    return world_size() // n_model()
+
+
+def data_rank() -> int:
+    """This rank's index on the data axis."""
+    return rank() // n_model()
+
+
+def data_group():
+    """This rank's data group; None when it is the whole world."""
+    return _axis["data_group"]
+
+
 def barrier() -> None:
     """Every rank waits for the others (on the host group)."""
     if _topology:
@@ -140,10 +215,11 @@ def barrier() -> None:
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks, in place (on the main backend: a CUDA
-    tensor under NCCL stays on the card); ``t`` itself without a group."""
-    if _topology:
-        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+    """``t`` summed over this rank's data group (every rank without a
+    model axis), in place (on the main backend: a CUDA tensor under NCCL
+    stays on the card); ``t`` itself when the data axis has one rank."""
+    if n_data() > 1:
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=data_group())
     return t
 
 
@@ -164,6 +240,7 @@ def destroy() -> None:
     if _topology:
         tdist.destroy_process_group()
     _topology, _host_group = None, None
+    _axis.update(n_model=1, model_group=None, data_group=None)
 
 
 def _launched(index: int, fn, args, nprocs: int, backend: str, init_file: str,

@@ -1,19 +1,73 @@
-"""The data axis: which devices a run uses and how a batch splits over
-them. The port of the ``data`` half of ``matcha_tpu/parallel/mesh.py``.
+"""The mesh: which devices a run uses, how a batch splits over them, and
+which parameters tensor parallelism splits. The port of
+``matcha_tpu/parallel/mesh.py``.
 
-JAX shards the leading axis of a batch over the ``data`` axis of one
-mesh; the port gives each device a contiguous slice of rows: a rank of a
-``DistributedDataParallel`` job in training, a replica of the models in
-serving (``cli.TTSPipeline(devices=)``). The ``model`` axis (tensor
-parallelism, JAX's ``_TP_RULES``) is not ported.
+The ``data`` axis: JAX shards the leading axis of a batch over it; the
+port gives each data index a contiguous slice of rows: a rank of a
+``DistributedDataParallel`` job in training (every rank of a model group
+holds the same rows), a replica of the models in serving
+(``cli.TTSPipeline(devices=)``).
+
+The ``model`` axis (``TP_RULES``): the wide projections split
+Megatron-style, a column split (output features) then a row split (input
+features), so that each attention or feed-forward pair needs one sum over
+the model group (``parallel/tensor.py`` inserts it; GSPMD does in JAX).
+The rules are JAX's ``_TP_RULES`` on the port's parameter names: a flax
+kernel carries its output features last, a torch conv or linear weight on
+dim 0, so JAX's ``P(None, "model")`` on a kernel is dim 0 here and a row
+split is dim 1.
 """
 
 import math
+import re
 from typing import List, Optional, Sequence, Union
 
 import torch
 
 Devices = Union[None, str, int, Sequence[int]]
+
+#: (parameter name pattern, the torch dim it splits on), one per rule of
+#: JAX's ``_TP_RULES``; a row layer's bias is never split
+TP_RULES = [
+    # encoder conv FFN: conv_1 (F, C, k) col / conv_2 (C, F, k) row
+    (r".*ffn_layers\.\d+\.conv_1\.weight$", 0),
+    (r".*ffn_layers\.\d+\.conv_1\.bias$", 0),
+    (r".*ffn_layers\.\d+\.conv_2\.weight$", 1),
+    # encoder attention (1x1 convs): q/k/v col, o row
+    (r".*attn_layers\.\d+\.conv_[qkv]\.weight$", 0),
+    (r".*attn_layers\.\d+\.conv_[qkv]\.bias$", 0),
+    (r".*attn_layers\.\d+\.conv_o\.weight$", 1),
+    # decoder transformer attention
+    (r".*\.attn1\.to_[qkv]\.weight$", 0),
+    (r".*\.attn1\.to_out\.0\.weight$", 1),
+    # decoder feed-forward: the activation's projection and its alpha/beta
+    # col, the output Linear row
+    (r".*\.ff\.net\.0\.proj\.weight$", 0),
+    (r".*\.ff\.net\.0\.proj\.bias$", 0),
+    (r".*\.ff\.net\.0\.(alpha|beta)$", 0),
+    (r".*\.ff\.net\.2\.weight$", 1),
+    # time MLP
+    (r".*\.time_mlp\.linear_1\.weight$", 0),
+    (r".*\.time_mlp\.linear_1\.bias$", 0),
+    (r".*\.time_mlp\.linear_2\.weight$", 1),
+]
+
+
+def param_shard_dim(name: str, shape, n_model: int) -> Optional[int]:
+    """The dim a parameter splits on over a model axis of ``n_model``, or
+    None (replicated): no rule matches, or ``n_model`` does not divide
+    that dim (JAX's ``param_pspec``)."""
+    if n_model > 1:
+        for pattern, dim in TP_RULES:
+            if re.match(pattern, name):
+                return dim if dim < len(shape) and shape[dim] % n_model == 0 else None
+    return None
+
+
+def mesh_coords(rank: int, n_model: int) -> tuple:
+    """(data index, model index) of a rank: JAX's ``reshape(n_data,
+    n_model)`` of the device list."""
+    return rank // n_model, rank % n_model
 
 
 def local_devices(devices: Devices = "all") -> List[torch.device]:
@@ -56,17 +110,21 @@ def split_bounds(B: int, n: int) -> List[tuple]:
     return bounds
 
 
-def rank_rows(B: int, local_rank: int, local_world_size: int, batch_size: int) -> tuple:
+def rank_rows(B: int, local_rank: int, local_world_size: int, batch_size: int,
+              n_model: int = 1) -> tuple:
     """(start, stop, weight) of a local rank's rows in a node batch of
-    ``B`` rows (``batch_size`` but for a short last batch): part
-    ``local_rank`` of ``n_data_local(local_world_size, batch_size)``
-    contiguous parts at weight 1; a rank beyond them, or with an empty
-    part, gets the first part at weight 0 (a zero-weight copy: under DDP
-    every rank must run every step)."""
-    n = n_data_local(local_world_size, batch_size)
+    ``B`` rows (``batch_size`` but for a short last batch). The node's
+    ranks form ``local_world_size // n_model`` data indices (``mesh_coords``);
+    ``n_data_local`` of them (JAX's ``gcd((n_dev // n_model_axis) //
+    pcount, local_bs)``) hold contiguous parts at weight 1, the rank's
+    part that of its data index; a data index beyond them, or with an
+    empty part, gets the first part at weight 0 (a zero-weight copy: under
+    DDP every rank must run every step)."""
+    index = mesh_coords(local_rank, n_model)[0]
+    n = n_data_local(local_world_size // n_model, batch_size)
     parts = split_bounds(B, n)
-    if local_rank < n and parts[local_rank][1] > parts[local_rank][0]:
-        return parts[local_rank] + (1,)
+    if index < n and parts[index][1] > parts[index][0]:
+        return parts[index] + (1,)
     return parts[0] + (0,)
 
 

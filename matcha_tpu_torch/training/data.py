@@ -17,9 +17,10 @@ filelist, ``n // n_nodes`` items with the remainder dropped (JAX's
 ``_process_shard``, a node standing for a JAX process), and forms the
 same batches of ``batch_size`` from it as one process would. Each local
 rank loads only its contiguous rows of each node batch
-(``parallel/mesh.py``: ``n_data_local`` of the node's ranks hold rows, by
-JAX's gcd rule; a rank without rows loads the first rank's as a
-zero-weight copy) and the batch carries ``rows``: [start, stop, weight]
+(``parallel/mesh.py``: ``n_data_local`` of the node's data indices hold
+rows, by JAX's gcd rule, and every rank of a model group loads its data
+index's; a rank without rows loads the first rank's as a zero-weight
+copy) and the batch carries ``rows``: [start, stop, weight]
 of those rows in the node batch. The trainer pads them to the shapes of
 the whole batch.
 """
@@ -296,7 +297,7 @@ class TextMelDataModule:
         B = min(self.batch_size, take)
         # this rank's rows of each batch: all of them without a process group
         start, stop, weight = rank_rows(B, dist.local_rank(), dist.local_world_size(),
-                                        self.batch_size)
+                                        self.batch_size, dist.n_model())
         items = self._load_items(ds, [idx[b + j] for b in range(0, take, B)
                                       for j in range(start, stop)])
         for _ in range(take // B):

@@ -51,6 +51,17 @@ batch (``training/data.py``). The step equals JAX's on the global batch:
   on every rank; only rank 0 logs and writes checkpoints, and every rank
   restores from the same file.
 
+Tensor parallelism (JAX's ``model`` axis; ``Trainer(n_model_axis=)``,
+``parallel/tensor.py``): the ranks form model groups of ``n_model_axis``
+consecutive ranks, each of which holds one model split by JAX's rules;
+``n_data = world // n_model_axis`` data indices share the batch by JAX's
+gcd rule, and every rank of a model group holds its data index's rows and
+draws its noise. DDP runs over the data group only (no wrapper when the
+data axis has one rank); the clip's global norm sums each split tensor's
+squares over the model group and counts each replicated tensor once;
+checkpoints hold the gathered weights and Adam moments, so a checkpoint
+of a split run is an ordinary one (a resume splits it again).
+
 Precision, as JAX's ``make_train_step``: params, gradients and Adam
 moments are f32. Under ``"bf16"``, ``"bf16-mixed"`` and ``"16-mixed"``
 (the same bf16 policy: no fp16, no loss scaling) the forward and backward
@@ -81,7 +92,7 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch.models.matcha import MatchaTTS, segment_offsets
-from matcha_tpu_torch.parallel import dist
+from matcha_tpu_torch.parallel import dist, tensor
 from matcha_tpu_torch.utils.checkpoints import load_native_checkpoint, save_native_checkpoint
 from matcha_tpu_torch.utils.pylogger import get_pylogger
 
@@ -126,12 +137,23 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, sharded=None) -> torch.Tensor:
     """Clip in place with optax's rule: leave ``grads`` as they are when
     their global norm is below ``max_norm``, else ``g / norm * max_norm``.
-    Returns the norm before clipping. No host sync."""
+    Returns the norm before clipping. No host sync. ``sharded``: which
+    gradients are a rank's slices of a tensor split over the model group
+    (``tensor.sharded_mask``): their norms sum their squares over the
+    group, every other gradient counts once."""
     grads = list(grads)
-    norm = global_norm(grads)
+    if sharded is None or not any(sharded):
+        norm = global_norm(grads)
+    else:
+        norms = list(torch._foreach_norm(grads))
+        split = [i for i, s in enumerate(sharded) if s]
+        sq = tensor.model_all_reduce(torch.stack([norms[i] for i in split]) ** 2)
+        for j, i in enumerate(split):
+            norms[i] = torch.sqrt(sq[j])
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     if max_norm:
         keep = norm < max_norm
         one = torch.ones_like(norm)
@@ -201,12 +223,13 @@ class BatchLoss(torch.nn.Module):
 
 def make_ddp(model: MatchaTTS, device, out_size: Optional[int] = None,
              precision: str = "f32"):
-    """``BatchLoss`` in ``DistributedDataParallel`` (the process group must
-    be initialised). Every parameter of a ``MatchaTTS`` reaches the loss
-    (single- and multi-speaker, transformer and conformer decoders;
-    ``tests/test_torch_ddp.py`` checks it), so ``find_unused_parameters``
-    is off: a parameter that the loss missed would make DDP raise at the
-    next step, not pass unnoticed."""
+    """``BatchLoss`` in ``DistributedDataParallel`` over the data group
+    (the process group must be initialised; a split model first goes
+    through ``tensor.shard_model``). Every parameter of a ``MatchaTTS``
+    reaches the loss (single- and multi-speaker, transformer and conformer
+    decoders; ``tests/test_torch_ddp.py`` checks it), so
+    ``find_unused_parameters`` is off: a parameter that the loss missed
+    would make DDP raise at the next step, not pass unnoticed."""
     from torch.nn.parallel import DistributedDataParallel
 
     device = torch.device(device)
@@ -214,7 +237,7 @@ def make_ddp(model: MatchaTTS, device, out_size: Optional[int] = None,
         BatchLoss(model, out_size, precision),
         device_ids=[device.index if device.index is not None else torch.cuda.current_device()]
         if device.type == "cuda" else None,
-        find_unused_parameters=False)
+        find_unused_parameters=False, process_group=dist.data_group())
 
 
 @dataclasses.dataclass
@@ -245,14 +268,15 @@ def share_batch(batch: dict, out_size: Optional[int] = None) -> Tuple[dict, Shar
     ``training/data.py`` adds) -> (its tensors zero-padded to the global
     batch's T_x and T_y, its ``Share``). One all-gather of a few integers
     on the host: the shapes, row counts and loss denominators of every
-    rank."""
+    rank, of which one rank per data index counts (the ranks of a model
+    group hold the same rows)."""
     batch = {k: None if v is None else torch.as_tensor(v) for k, v in batch.items()}
     start, stop, weight = (int(v) for v in batch.pop("rows"))
     xl, yl = batch["x_lengths"].long(), batch["y_lengths"].long()
     y_cut = torch.clamp(yl, max=out_size) if out_size is not None else yl
     mine = [batch["x"].shape[1], batch["y"].shape[1], (stop - start) * weight,
             int(xl.sum()) * weight, int(yl.sum()) * weight, int(y_cut.sum()) * weight]
-    every = dist.host_all_gather(mine)
+    every = dist.host_all_gather(mine)[::dist.n_model()]
     T_x, T_y = int(every[:, 0].max()), int(every[:, 1].max())
     for k in ("x", "durations"):
         if batch.get(k) is not None:
@@ -260,7 +284,7 @@ def share_batch(batch: dict, out_size: Optional[int] = None) -> Tuple[dict, Shar
     batch["y"] = _pad_to(batch["y"], 1, T_y)
     col = 5 if out_size is not None and out_size < T_y else 4
     world = every.shape[0]
-    share = Share(lo=int(every[:dist.rank(), 2].sum()) if weight else 0,
+    share = Share(lo=int(every[:dist.data_rank(), 2].sum()) if weight else 0,
                   n_global=int(every[:, 2].sum()), n_rows=stop - start,
                   dur_scale=world * mine[3] / int(every[:, 3].sum()),
                   mel_scale=world * mine[col] / int(every[:, col].sum()), world=world)
@@ -299,8 +323,8 @@ def _global_losses(losses, share: Share):
 
 
 def _reduced(scaled, share: Optional[Share]) -> torch.Tensor:
-    """(dur, prior, diff) of the global batch from every rank's scaled
-    parts, on the device."""
+    """(dur, prior, diff) of the global batch from every data index's
+    scaled parts, on the device."""
     v = torch.stack([t.detach() for t in scaled])
     return v if share is None else dist.all_reduce_sum(v) / share.world
 
@@ -319,11 +343,13 @@ def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int
     "backward" and "optimizer" (for timing). Returns the metrics as 0-d
     tensors on the device.
 
-    Data-parallel: ``ddp`` (``make_ddp`` of this model) and the rank's
+    Data-parallel: ``ddp`` (``make_ddp`` of this model, or its
+    ``BatchLoss`` when the data axis has one rank) and the rank's
     ``share`` (``share_batch``); ``batch`` holds the rank's rows and
     ``noise``, when given, is the global batch's. The losses and the
     gradient norm returned are the global batch's, the same on every
-    rank."""
+    rank. A model split by ``tensor.shard_model`` clips on the norm of
+    the whole."""
     model.train()
     device = batch["y"].device
     gen = torch.Generator(device=device).manual_seed(step_seed(seed, step))
@@ -340,8 +366,9 @@ def train_step(model: MatchaTTS, optimizer, lr_scheduler, batch: dict, step: int
     loss.backward()
     if on_phase:
         on_phase("backward")
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    grad_norm = clip_by_global_norm_(grads, gradient_clip_val)
+    named = [(k, p.grad) for k, p in model.named_parameters() if p.grad is not None]
+    grad_norm = clip_by_global_norm_([g for _, g in named], gradient_clip_val,
+                                     tensor.sharded_mask(model, [k for k, _ in named]))
     optimizer.step()
     if lr_scheduler is not None:
         lr_scheduler.step()
@@ -546,7 +573,9 @@ class Trainer:
     one rank of a data-parallel job when a process group is initialised
     (``parallel/dist.py``): then the loss runs in ``make_ddp``'s wrapper,
     each batch goes through ``share_batch``, and only rank 0 logs and
-    writes."""
+    writes. ``n_model_axis`` > 1 splits the model over groups of that
+    many consecutive ranks (tensor parallelism; module doc); it must
+    divide the ranks of a node."""
 
     def __init__(
         self,
@@ -563,6 +592,7 @@ class Trainer:
         log_every_n_steps: int = 10,
         output_dir: str = "logs/train/runs/default",
         seed: int = 1234,
+        n_model_axis: int = 1,
         fast_dev_run: bool = False,
         overfit_batches: int = 0,
         limit_train_batches: Optional[float] = None,
@@ -614,14 +644,24 @@ class Trainer:
         self.model_summary_depth = model_summary_depth
         self.enable_progress_bar = enable_progress_bar
         self.hparams = hparams or {}
-        self.ddp = (make_ddp(self.model, self.device, out_size, precision)
-                    if dist.is_initialized() else None)
+        dist.set_model_axis(n_model_axis)
+        if n_model_axis > 1:
+            tensor.shard_model(self.model)
+        # the loss in DDP over the data group; without a data axis (one
+        # process, or one model group) as it is
+        self.ddp = None
+        if dist.is_initialized():
+            self.ddp = (make_ddp(self.model, self.device, out_size, precision) if dist.n_data() > 1
+                        else BatchLoss(self.model, out_size, precision))
         self.optimizer, self.lr_scheduler = make_optimizer(model, lr, weight_decay, scheduler)
         self.step = 0
         self._start_epoch = 0
         self._last_val: Dict[str, float] = {}
         self._last_val_epoch = -1
         loggers = loggers if loggers is not None else {"tensorboard": {}}
+        # the validation images are synthesised by every rank of rank 0's
+        # model group (a split forward is a collective), written by rank 0
+        self._images = "tensorboard" in loggers and dist.data_rank() == 0
         if dist.rank() != 0:
             loggers = {}
         tb_dir = os.path.join(output_dir, "tensorboard") if "tensorboard" in loggers else None
@@ -664,9 +704,10 @@ class Trainer:
         """Continue from a native checkpoint: weights, Adam moments, the
         schedule's position, the step and the completed epochs."""
         payload = load_native_checkpoint(path, map_location=self.device)
-        self.model.load_state_dict(payload["model"])
+        self.model.load_state_dict(tensor.shard_state_dict(self.model, payload["model"]))
         if "optimizer" in payload:
-            self.optimizer.load_state_dict(payload["optimizer"])
+            self.optimizer.load_state_dict(
+                tensor.shard_optimizer_state(self.model, payload["optimizer"]))
         else:
             log.warning("Checkpoint has no optimizer state; re-initialising Adam moments")
         if self.lr_scheduler is not None and "scheduler" in payload:
@@ -681,8 +722,9 @@ class Trainer:
         if restore_from:
             self.restore(restore_from)
         self.dm.setup()
-        n_params = sum(p.numel() for p in self.model.parameters())
-        log.info(f"Model parameters: {n_params / 1e6:.2f}M | device: {self.device}")
+        n_params = tensor.full_numel(self.model)
+        log.info(f"Model parameters: {n_params / 1e6:.2f}M | device: {self.device} | mesh: "
+                 f"{{'data': {dist.n_data()}, 'model': {dist.n_model()}}}")
         if self.model_summary_depth > 0:
             log.info("Model summary:\n" + summarize_params(self.model, self.model_summary_depth))
         self.logger.hparams({**self.hparams, "n_params": n_params})
@@ -811,7 +853,7 @@ class Trainer:
         """2 samples of the validation batch synthesised (10 steps, noise
         from seed 42) -> images of the encoder output, the decoder output
         and the alignment; in epoch 0 the ground truth too."""
-        if self.logger.writer is None:
+        if self.logger.writer is None and not (self._images and tensor.plan_of(self.model)):
             return
         from matcha_tpu_torch.utils.utils import plot_tensor
 
@@ -827,6 +869,8 @@ class Trainer:
             y_max_length=batch["y"].shape[1],
             generator=torch.Generator(self.device).manual_seed(42),
             spks=None if spks is None else torch.as_tensor(spks[:n]).to(self.device))
+        if self.logger.writer is None:
+            return
         for i in range(n):
             for key, tag in (("encoder_outputs", "generated_enc"),
                              ("decoder_outputs", "generated_dec"), ("attn", "alignment")):
@@ -873,9 +917,11 @@ class Trainer:
 
     def _save(self, epochs_done: int, tag: Optional[str] = None) -> str:
         """The full training state, so a resume continues bit for bit
-        (written by rank 0; every rank returns once it is on disk)."""
+        (written by rank 0; every rank returns once it is on disk). A split
+        model's tensors are gathered first (every rank takes part)."""
         return save_native_checkpoint(
-            os.path.join(self.output_dir, "checkpoints"), self.model,
+            os.path.join(self.output_dir, "checkpoints"), tensor.full_state_dict(self.model),
             {**self.hparams, "epoch": epochs_done}, step=self.step,
-            optimizer=self.optimizer, scheduler=self.lr_scheduler, epoch=epochs_done,
+            optimizer=tensor.full_optimizer_state(self.model, self.optimizer),
+            scheduler=self.lr_scheduler, epoch=epochs_done,
             name="last" if tag == "last" else None)

@@ -18,12 +18,13 @@ import torch
 from matcha_tpu_torch.parallel import dist
 
 
-def save_native_checkpoint(ckpt_dir: str, model: torch.nn.Module, hparams: dict,
+def save_native_checkpoint(ckpt_dir: str, model, hparams: dict,
                            step: int = 0, optimizer=None, scheduler=None, epoch: int = 0,
                            name: Optional[str] = None) -> str:
     """Write the training state and its hparams json; returns the path.
-    ``epoch`` is the number of completed epochs. Rank 0 writes, then every
-    rank meets at a barrier."""
+    ``model`` and ``optimizer``: the objects or their state dicts (a split
+    model's gathered ones). ``epoch`` is the number of completed epochs.
+    Rank 0 writes, then every rank meets at a barrier."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     name = name if name is not None else f"checkpoint_{step:06d}"
     path = os.path.join(ckpt_dir, name)
@@ -35,9 +36,10 @@ def save_native_checkpoint(ckpt_dir: str, model: torch.nn.Module, hparams: dict,
 
 def _write(ckpt_dir, path, name, model, hparams, step, optimizer, scheduler, epoch) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"model": model.state_dict(), "step": int(step), "epoch": int(epoch)}
+    payload = {"model": model if isinstance(model, dict) else model.state_dict(),
+               "step": int(step), "epoch": int(epoch)}
     if optimizer is not None:
-        payload["optimizer"] = optimizer.state_dict()
+        payload["optimizer"] = optimizer if isinstance(optimizer, dict) else optimizer.state_dict()
     if scheduler is not None:
         payload["scheduler"] = scheduler.state_dict()
     tmp = f"{path}.{os.getpid()}.tmp"

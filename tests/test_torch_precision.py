@@ -132,7 +132,8 @@ def test_synthesise_bf16_matches_jax(loaded):  # noqa: F811
 
 def test_bf16_flow_stays_bf16_but_its_time_mlp_is_f32(loaded):  # noqa: F811
     """No layer of the bf16 decoder hands back f32 but the sinusoidal
-    embedding and its MLP, as in JAX (whose MLP output is cast)."""
+    embedding and its MLP (the MLP and its two Linear layers), as in JAX
+    (whose MLP output is cast)."""
     lat = decoder_cast(loaded["port"][0], BF16)
     f32 = set()
     hooks = [m.register_forward_hook(
@@ -145,7 +146,8 @@ def test_bf16_flow_stays_bf16_but_its_time_mlp_is_f32(loaded):  # noqa: F811
     finally:
         for h in hooks:
             h.remove()
-    assert f32 == {"estimator.time_embeddings", "estimator.time_mlp"}, sorted(f32)
+    assert f32 == {"estimator.time_embeddings", "estimator.time_mlp",
+                   "estimator.time_mlp.linear_1", "estimator.time_mlp.linear_2"}, sorted(f32)
 
 
 def test_cfm_noise_is_drawn_in_f32_then_cast():
