@@ -31,7 +31,11 @@ A multi-speaker model (the VCTK Matcha) takes a speaker id on every
 path (``spks``, CLI ``--spk``), checked on the host against the model's
 ``n_spks`` before it reaches the card. The CLI synthesises one utterance
 at a time, in length-sorted batches (``--batched``, ``--staged``) or
-sentence by sentence (``--long-form``).
+sentence by sentence (``--long-form``). ``--batched --staged`` prints
+the corpus's frame fill (``corpus_frames_true`` over
+``corpus_frames_decoded``: the share of the decoded mel frames that are
+speech, not bucket padding); ``--trace-spans PATH`` records the
+pipeline's spans (``utils/tracing.py``) and writes them as a Chrome trace.
 Models are named as in JAX's registry (``--model matcha_ljspeech |
 matcha_vctk``, ``--vocoder hifigan_T2_v1 | hifigan_univ_v1``, with each
 model's default vocoder, speaking rate and speaker: ``validate_args``) and
@@ -47,6 +51,7 @@ state_dict}``. Every path writes ``<name>.wav``, ``.npy`` and ``.png``.
 
 import argparse
 import collections
+import contextlib
 import copy
 import os
 import sys
@@ -72,6 +77,7 @@ from matcha_tpu_torch.models.matcha import MatchaTTS, check_speakers, decoder_ca
 from matcha_tpu_torch.parallel.mesh import replica_rows
 from matcha_tpu_torch.text import intersperse, sequence_to_text, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
+from matcha_tpu_torch.utils import tracing
 from matcha_tpu_torch.utils.checkpoints import load_native_checkpoint
 from matcha_tpu_torch.utils.utils import PCM24_SCALE, save_plot, write_wav
 
@@ -290,6 +296,10 @@ class TTSPipeline:
         # length_scale); None until a call returns real mel lengths
         self._dur_ratio = None
         self._dur_obs = collections.deque(maxlen=64)
+        #: ``synthesise_corpus``'s true mel frames (the host lengths, clipped
+        #: to the bucket) and the frames it decoded for them (B x T_y a batch)
+        self.corpus_frames_true = 0
+        self.corpus_frames_decoded = 0
         for d in (devices or [])[1:]:
             self._children.append(TTSPipeline(
                 copy.deepcopy(self.model), None if vocoder is None else copy.deepcopy(vocoder),
@@ -392,11 +402,15 @@ class TTSPipeline:
     def vocode(self, mel_btc: torch.Tensor, bf16: Optional[bool] = None) -> torch.Tensor:
         """Mel (B, T, n_feats) -> clipped, denoised waveform (B, T * hop),
         f32. ``bf16``: the generator in bf16 (None = ``vocoder_bf16``); the
-        clip and the denoiser run in f32 on its output either way."""
-        wav = torch.clamp(self._generate(mel_btc, bf16)[..., 0], -1.0, 1.0)
-        if self.denoiser_bias is not None:
-            wav = denoise(wav, self.denoiser_bias, strength=self.denoiser_strength)
-        return wav
+        clip and the denoiser run in f32 on its output either way. Spans
+        ``models.vocode`` (the generator and the clip) and ``models.denoise``,
+        except while a CUDA graph captures the call."""
+        with _eager_span("models.vocode", mel_btc):
+            wav = torch.clamp(self._generate(mel_btc, bf16)[..., 0], -1.0, 1.0)
+        if self.denoiser_bias is None:
+            return wav
+        with _eager_span("models.denoise", wav):
+            return denoise(wav, self.denoiser_bias, strength=self.denoiser_strength)
 
     def fused_graph(self, B: int, T_x: int, T_y: int, n_timesteps: int, temperature: float,
                     length_scale: float, cuda_graph: Optional[bool] = None,
@@ -490,81 +504,95 @@ class TTSPipeline:
         results that did not saturate calibrate the ratio. ``raw_pcm24``
         (pcm24 wire): deliver the packed rows as ``pcm24_bytes_host``
         instead of the f32 ``waveform_host``, also through the fallback.
+
+        Recorded as a ``pipeline.synthesise_batch`` span (``utils/tracing.py``)
+        with B, the path (``fast``: a fixed bucket) and the x, mel and
+        vocoder buckets; the dynamic path's ``models.*`` calls and its
+        ``pipeline.lengths_sync`` inside it.
         """
-        x = np.asarray(x)
-        x_lengths_host = np.asarray(x_lengths, dtype=np.int32)
-        spk_ids = check_speakers(self.model.n_spks, spks)
-        if spk_ids is not None and spk_ids.shape != (x.shape[0],):
-            raise ValueError(f"{spk_ids.shape[0]} speaker ids for a batch of {x.shape[0]}")
-        T_x = pick_bucket(x.shape[-1], X_BUCKETS)
-        x_pad = np.zeros((x.shape[0], T_x), dtype=np.int64)
-        x_pad[:, :x.shape[-1]] = x
+        path = "fast" if fixed_y_bucket else "dynamic"
+        with tracing.span("pipeline.synthesise_batch", B=len(x), path=path) as span:
+            x = np.asarray(x)
+            x_lengths_host = np.asarray(x_lengths, dtype=np.int32)
+            spk_ids = check_speakers(self.model.n_spks, spks)
+            if spk_ids is not None and spk_ids.shape != (x.shape[0],):
+                raise ValueError(f"{spk_ids.shape[0]} speaker ids for a batch of {x.shape[0]}")
+            T_x = pick_bucket(x.shape[-1], X_BUCKETS)
+            x_pad = np.zeros((x.shape[0], T_x), dtype=np.int64)
+            x_pad[:, :x.shape[-1]] = x
 
-        if fixed_y_bucket:
-            auto = fixed_y_bucket == "auto"
-            T_y = (self._auto_y_bucket(int(x_lengths_host.max()), length_scale)
-                   if auto else int(fixed_y_bucket))
+            if fixed_y_bucket:
+                auto = fixed_y_bucket == "auto"
+                T_y = (self._auto_y_bucket(int(x_lengths_host.max()), length_scale)
+                       if auto else int(fixed_y_bucket))
+                parts = self._parts(x.shape[0])
+                while True:
+                    zs = self._noise_parts(z(T_y) if callable(z) else z, (x.shape[0], T_y), generator,
+                                           parts, graph=True)
+                    out = self._gather([
+                        rep.fused_graph(rows.stop - rows.start, T_x, T_y, n_timesteps, temperature,
+                                        length_scale, cuda_graph, spk_ids is not None)(
+                            x_pad[rows], x_lengths_host[rows], zr, generator,
+                            None if spk_ids is None else spk_ids[rows])
+                        for (rep, rows), zr in zip(parts, zs)])
+                    if not auto:
+                        span.set(T_x=T_x, T_y=T_y, T_voc=T_y)
+                        return out
+                    ml = _fetch_auto_host(out, raw_pcm24)
+                    saturated = bool((ml >= T_y).any())
+                    valid = x_lengths_host > 0
+                    if not saturated and valid.any():
+                        self.observe_dur_ratio(
+                            float(np.max(ml[valid] / (x_lengths_host[valid] * length_scale))))
+                    if not saturated:
+                        span.set(T_x=T_x, T_y=T_y, T_voc=T_y)
+                        return out
+                    if T_y >= self.FUSED_Y_BUCKETS[-1]:
+                        # clipped audio is never acceptable: the dynamic path
+                        # is length-general (pick_bucket rounds past its table)
+                        warnings.warn(
+                            f"[-] Utterance saturated the largest fused mel "
+                            f"bucket ({T_y} frames); falling back to the "
+                            f"dynamic path for full-length audio. Consider "
+                            f"--long-form for very long inputs.", UserWarning)
+                        out = self.synthesise_batch(
+                            x, x_lengths_host, n_timesteps=n_timesteps, temperature=temperature,
+                            length_scale=length_scale, z=z, generator=generator,
+                            pack_wav=raw_pcm24, spks=spk_ids)
+                        _fetch_auto_host(out, raw_pcm24)  # the same byte-delivery contract
+                        return out
+                    T_y = next((b for b in self.FUSED_Y_BUCKETS if b >= 2 * T_y),
+                               self.FUSED_Y_BUCKETS[-1])
+
             parts = self._parts(x.shape[0])
-            while True:
-                zs = self._noise_parts(z(T_y) if callable(z) else z, (x.shape[0], T_y), generator,
-                                       parts, graph=True)
-                out = self._gather([
-                    rep.fused_graph(rows.stop - rows.start, T_x, T_y, n_timesteps, temperature,
-                                    length_scale, cuda_graph, spk_ids is not None)(
-                        x_pad[rows], x_lengths_host[rows], zr, generator,
-                        None if spk_ids is None else spk_ids[rows])
-                    for (rep, rows), zr in zip(parts, zs)])
-                if not auto:
-                    return out
-                ml = _fetch_auto_host(out, raw_pcm24)
-                saturated = bool((ml >= T_y).any())
-                valid = x_lengths_host > 0
-                if not saturated and valid.any():
-                    self.observe_dur_ratio(
-                        float(np.max(ml[valid] / (x_lengths_host[valid] * length_scale))))
-                if not saturated:
-                    return out
-                if T_y >= self.FUSED_Y_BUCKETS[-1]:
-                    # clipped audio is never acceptable: the dynamic path
-                    # is length-general (pick_bucket rounds past its table)
-                    warnings.warn(
-                        f"[-] Utterance saturated the largest fused mel "
-                        f"bucket ({T_y} frames); falling back to the "
-                        f"dynamic path for full-length audio. Consider "
-                        f"--long-form for very long inputs.", UserWarning)
-                    out = self.synthesise_batch(
-                        x, x_lengths_host, n_timesteps=n_timesteps, temperature=temperature,
-                        length_scale=length_scale, z=z, generator=generator,
-                        pack_wav=raw_pcm24, spks=spk_ids)
-                    _fetch_auto_host(out, raw_pcm24)  # the same byte-delivery contract
-                    return out
-                T_y = next((b for b in self.FUSED_Y_BUCKETS if b >= 2 * T_y),
-                           self.FUSED_Y_BUCKETS[-1])
-
-        parts = self._parts(x.shape[0])
-        encoded = []
-        for rep, rows in parts:
-            x_t = torch.from_numpy(x_pad[rows]).to(rep.device)
-            xl = torch.from_numpy(x_lengths_host[rows]).to(rep.device)
-            spks_t = None if spk_ids is None else torch.from_numpy(spk_ids[rows]).to(rep.device)
-            encoded.append((xl, spks_t, *rep.model.encode(x_t, xl, length_scale, spks_t)))
-        # the one host sync of the path (one per replica)
-        max_y = max(int(e[-1].max()) for e in encoded)
-        T_y = pick_bucket(max_y, Y_BUCKETS)
-        T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
-        zs = self._noise_parts(z(T_y) if callable(z) else z, (x.shape[0], T_y), generator, parts)
-        outs = []
-        for (rep, _), (xl, spks_t, mu_x, w_ceil, y_lengths), zr in zip(parts, encoded, zs):
-            out = rep.model.decode(mu_x, w_ceil, xl, y_lengths, n_timesteps, temperature,
-                                   y_max_length=T_y, z=zr, generator=generator, spks=spks_t)
-            if rep.vocoder is not None:
-                wav = rep.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
-                if pack_wav:
-                    out["wav_pcm24"] = _pack_pcm24(wav, out["mel_lengths"])
-                else:
-                    out["waveform"] = wav
-            outs.append(out)
-        return self._gather(outs)
+            encoded = []
+            for rep, rows in parts:
+                x_t = torch.from_numpy(x_pad[rows]).to(rep.device)
+                xl = torch.from_numpy(x_lengths_host[rows]).to(rep.device)
+                spks_t = None if spk_ids is None else torch.from_numpy(spk_ids[rows]).to(rep.device)
+                with tracing.span("models.encode"):
+                    encoded.append((xl, spks_t, *rep.model.encode(x_t, xl, length_scale, spks_t)))
+            # the one host sync of the path (one per replica)
+            with tracing.span("pipeline.lengths_sync"):
+                max_y = max(int(e[-1].max()) for e in encoded)
+            T_y = pick_bucket(max_y, Y_BUCKETS)
+            T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
+            span.set(T_x=T_x, T_y=T_y, T_voc=T_voc)
+            zs = self._noise_parts(z(T_y) if callable(z) else z, (x.shape[0], T_y), generator, parts)
+            outs = []
+            for (rep, _), (xl, spks_t, mu_x, w_ceil, y_lengths), zr in zip(parts, encoded, zs):
+                with tracing.span("models.decode"):
+                    out = rep.model.decode(mu_x, w_ceil, xl, y_lengths, n_timesteps, temperature,
+                                           y_max_length=T_y, z=zr, generator=generator,
+                                           spks=spks_t)
+                if rep.vocoder is not None:
+                    wav = rep.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
+                    if pack_wav:
+                        out["wav_pcm24"] = _pack_pcm24(wav, out["mel_lengths"])
+                    else:
+                        out["waveform"] = wav
+                outs.append(out)
+            return self._gather(outs)
 
     @torch.inference_mode()
     def synthesise_corpus(self, utterances, n_timesteps: int = 10, temperature: float = 0.667,
@@ -598,6 +626,10 @@ class TTSPipeline:
         ``out`` is the ``decode`` dict plus ``waveform`` (B, T_voc * hop)
         (and ``first_sample`` when fused), and ``mel_lengths_host``, the
         lengths already on the host.
+
+        Spans (``utils/tracing.py``): ``pipeline.corpus.encode`` and
+        ``pipeline.corpus.lengths`` per window, ``pipeline.corpus.batch`` per
+        batch, the ``models.*`` calls inside them on the split path.
         """
         spk_id = check_speakers(self.model.n_spks, None if spk is None else [spk])
         order = sorted(range(len(utterances)), key=lambda i: len(utterances[i]))
@@ -608,52 +640,61 @@ class TTSPipeline:
 
             # 1. the window's encoder passes, per replica part; nothing blocks
             encoded = []
-            for chunk in window:
-                T_x = pick_bucket(max(len(utterances[i]) for i in chunk), X_BUCKETS)
-                x = torch.zeros((len(chunk), T_x), dtype=torch.int64)
-                x_lengths = torch.zeros((len(chunk),), dtype=torch.int32)
-                for row, idx in enumerate(chunk):
-                    x[row, :len(utterances[idx])] = torch.as_tensor(np.asarray(utterances[idx]))
-                    x_lengths[row] = len(utterances[idx])
-                spks = None if spk_id is None else np.full((len(chunk),), spk_id[0], np.int32)
-                parts = []
-                for rep, rows in self._parts(len(chunk)):
-                    xr, xlr = (_to_device(t[rows], rep.device) for t in (x, x_lengths))
-                    spks_t = (None if spks is None
-                              else _to_device(torch.from_numpy(spks[rows]), rep.device))
-                    parts.append((rep, rows, xlr, spks_t,
-                                  *rep.model.encode(xr, xlr, length_scale, spks_t)))
-                encoded.append((chunk, T_x, spks, parts))
+            with tracing.span("pipeline.corpus.encode", batches=len(window)):
+                for chunk in window:
+                    T_x = pick_bucket(max(len(utterances[i]) for i in chunk), X_BUCKETS)
+                    x = torch.zeros((len(chunk), T_x), dtype=torch.int64)
+                    x_lengths = torch.zeros((len(chunk),), dtype=torch.int32)
+                    for row, idx in enumerate(chunk):
+                        x[row, :len(utterances[idx])] = torch.as_tensor(np.asarray(utterances[idx]))
+                        x_lengths[row] = len(utterances[idx])
+                    spks = None if spk_id is None else np.full((len(chunk),), spk_id[0], np.int32)
+                    parts = []
+                    for rep, rows in self._parts(len(chunk)):
+                        xr, xlr = (_to_device(t[rows], rep.device) for t in (x, x_lengths))
+                        spks_t = (None if spks is None
+                                  else _to_device(torch.from_numpy(spks[rows]), rep.device))
+                        with tracing.span("models.encode"):
+                            parts.append((rep, rows, xlr, spks_t,
+                                          *rep.model.encode(xr, xlr, length_scale, spks_t)))
+                    encoded.append((chunk, T_x, spks, parts))
 
             # 2. one host copy of the window's predicted lengths per replica
-            y_host = self._lengths_host([e[3] for e in encoded])
+            with tracing.span("pipeline.corpus.lengths"):
+                y_host = self._lengths_host([e[3] for e in encoded])
 
-            # 3. decode + vocode per batch, the buckets known on the host
+            # 3. decode + vocode per batch, the buckets known on the host; the
+            # span closes before the yield, so none is open while the caller
+            # holds the generator
             fused = self.vocoder is not None and fuse_stages
             for bi, (chunk, T_x, spks, parts) in enumerate(encoded):
                 B, max_y = len(chunk), int(y_host[bi].max())
                 T_y = pick_bucket(max_y, Y_BUCKETS)
                 T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
-                zs = self._noise_parts(None if z is None else z(w0 + bi, B, T_y), (B, T_y),
-                                       generator, [p[:2] for p in parts], graph=fused)
-                outs = []
-                for (rep, rows, xlr, spks_t, mu_x, w_ceil, y_lengths), zr in zip(parts, zs):
-                    if fused:
-                        stage = rep.stage_graph(rows.stop - rows.start, T_x, T_y, T_voc,
-                                                n_timesteps, temperature, cuda_graph,
-                                                spks is not None)
-                        out = stage(mu_x, w_ceil, xlr, y_lengths, zr, generator,
-                                    None if spks is None else spks[rows])
-                    else:
-                        out = rep.model.decode(mu_x, w_ceil, xlr, y_lengths, n_timesteps,
-                                               temperature, y_max_length=T_y, z=zr,
-                                               generator=generator, spks=spks_t)
-                        if rep.vocoder is not None:
-                            out["waveform"] = rep.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
-                    outs.append(out)
-                out = self._gather(outs)
-                # decode clips the lengths to the bucket
-                out["mel_lengths_host"] = np.minimum(y_host[bi], T_y).astype(np.int32)
+                with tracing.span("pipeline.corpus.batch", B=B, T_x=T_x, T_y=T_y, T_voc=T_voc):
+                    zs = self._noise_parts(None if z is None else z(w0 + bi, B, T_y), (B, T_y),
+                                           generator, [p[:2] for p in parts], graph=fused)
+                    outs = []
+                    for (rep, rows, xlr, spks_t, mu_x, w_ceil, y_lengths), zr in zip(parts, zs):
+                        if fused:
+                            stage = rep.stage_graph(rows.stop - rows.start, T_x, T_y, T_voc,
+                                                    n_timesteps, temperature, cuda_graph,
+                                                    spks is not None)
+                            out = stage(mu_x, w_ceil, xlr, y_lengths, zr, generator,
+                                        None if spks is None else spks[rows])
+                        else:
+                            with tracing.span("models.decode"):
+                                out = rep.model.decode(mu_x, w_ceil, xlr, y_lengths, n_timesteps,
+                                                       temperature, y_max_length=T_y, z=zr,
+                                                       generator=generator, spks=spks_t)
+                            if rep.vocoder is not None:
+                                out["waveform"] = rep.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
+                        outs.append(out)
+                    out = self._gather(outs)
+                    # decode clips the lengths to the bucket
+                    out["mel_lengths_host"] = np.minimum(y_host[bi], T_y).astype(np.int32)
+                    self.corpus_frames_true += int(out["mel_lengths_host"].sum())
+                    self.corpus_frames_decoded += B * T_y
                 yield chunk, out
 
     @staticmethod
@@ -674,6 +715,15 @@ class TTSPipeline:
             out.append(np.concatenate(host[k:k + len(parts)]))
             k += len(parts)
         return out
+
+
+def _eager_span(name: str, x: torch.Tensor):
+    """``tracing.span(name)`` around eager work on ``x``, and nothing while a
+    CUDA graph captures it: a capture runs this host code once, a replay
+    never."""
+    if tracing.enabled() and x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return contextlib.nullcontext()
+    return tracing.span(name)
 
 
 def _indexed(device: torch.device) -> torch.device:
@@ -899,6 +949,7 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
     generator = torch.Generator(pipeline.device).manual_seed(args.seed)
     t0 = time.perf_counter()
     total_samples = 0
+    true0, decoded0 = pipeline.corpus_frames_true, pipeline.corpus_frames_decoded
     for chunk, out in pipeline.synthesise_corpus(
             utts, n_timesteps=args.steps, temperature=args.temperature,
             length_scale=args.speaking_rate, batch_size=args.batch_size,
@@ -912,6 +963,10 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
         total_samples += int(out["mel_lengths_host"].sum()) * HOP
     rtf = _rtf(time.perf_counter() - t0, total_samples)
     print(f"[🍵] Corpus Matcha-TTS + VOCODER RTF: {rtf:.4f} ({len(texts)} utterances)")
+    true, decoded = (pipeline.corpus_frames_true - true0,
+                     pipeline.corpus_frames_decoded - decoded0)
+    print(f"[🍵] Corpus frame fill: {100 * true / max(decoded, 1):.1f} % ({true} speech frames "
+          f"of {decoded} decoded; the rest pads each batch to its mel bucket)")
     _print_rtf_summary([rtf])
 
 
@@ -1048,6 +1103,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-pallas-vocoder", action="store_true",
                         help="Run every vocoder stage as cuDNN convs instead of the fused MRF "
                              "kernel on the narrow stages")
+    parser.add_argument("--trace-spans", type=str, default=None, metavar="PATH",
+                        help="Record the pipeline's spans (utils/tracing.py: pipeline.*, "
+                             "models.*) and write them as a Chrome trace JSON file at the end")
     return parser
 
 
@@ -1188,14 +1246,22 @@ def cli(argv=None):
     texts = _texts(args)
     folder = Path(args.output_folder)
     folder.mkdir(parents=True, exist_ok=True)
-    if args.long_form and args.text:
-        long_form_synthesis(args, pipeline, args.text, folder)
-    elif len(texts) == 1 or not args.batched:
-        unbatched_synthesis(args, pipeline, texts, folder)
-    elif args.staged:
-        staged_batched_synthesis(args, pipeline, texts, folder)
-    else:
-        batched_synthesis(args, pipeline, texts, folder)
+    if args.trace_spans:
+        tracing.enable()
+    try:
+        if args.long_form and args.text:
+            long_form_synthesis(args, pipeline, args.text, folder)
+        elif len(texts) == 1 or not args.batched:
+            unbatched_synthesis(args, pipeline, texts, folder)
+        elif args.staged:
+            staged_batched_synthesis(args, pipeline, texts, folder)
+        else:
+            batched_synthesis(args, pipeline, texts, folder)
+    finally:
+        if args.trace_spans:
+            tracing.disable()
+            n = tracing.write_chrome(args.trace_spans)
+            print(f"[+] {n} spans written to {args.trace_spans}")
 
 
 if __name__ == "__main__":

@@ -25,18 +25,23 @@ ids from a static buffer, staged like the other inputs: the embedding
 lookup runs inside the graph, so one capture serves every speaker at its
 shapes.
 
+Spans (``utils/tracing.py``), outside what a graph captures: a call's
+``pipeline.stage_inputs`` (the copies into the static buffers and the
+noise draw), then ``pipeline.replay`` (the launch and the output clones)
+or, at a first call, ``pipeline.capture``.
+
 Capture fails loudly: a body raises and never runs eagerly in its place.
 Only an explicit ``cuda_graph=False`` runs it eagerly on a GPU. A
 pipeline whose ``capture_allowed`` is False (the serving daemon after its
 warmup) refuses any new capture.
 """
 
-import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from matcha_tpu_torch.utils import tracing
 from matcha_tpu_torch.utils.utils import PCM24_SCALE
 
 
@@ -101,8 +106,7 @@ class CapturedBody:
         self.cuda_graph, self.pool = cuda_graph, pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[Dict[str, torch.Tensor]] = None
-        #: seconds of warm-up + capture, and memory_allocated around them
-        self.capture_seconds: Optional[float] = None
+        #: memory_allocated before and after the warm-up and the capture
         self.memory_allocated: Optional[tuple] = None
         #: replays run so far
         self.replays = 0
@@ -130,7 +134,6 @@ class CapturedBody:
         dev = self.device
         torch.cuda.synchronize(dev)
         before = torch.cuda.memory_allocated(dev)
-        t0 = time.perf_counter()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         graph = torch.cuda.CUDAGraph()
@@ -150,7 +153,6 @@ class CapturedBody:
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         self.graph, self.outputs = graph, outputs
-        self.capture_seconds = time.perf_counter() - t0
         self.memory_allocated = (before, torch.cuda.memory_allocated(dev))
 
     def _stage_spks(self, spks) -> None:
@@ -168,10 +170,12 @@ class CapturedBody:
         if not self.cuda_graph:
             return self.body()
         if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        self.replays += 1
-        return {k: v.clone() for k, v in self.outputs.items()}
+            with tracing.span("pipeline.capture", graph=self.name, shapes=self.describe()):
+                self._capture()
+        with tracing.span("pipeline.replay"):
+            self.graph.replay()
+            self.replays += 1
+            return {k: v.clone() for k, v in self.outputs.items()}
 
 
 class FusedGraph(CapturedBody):
@@ -232,10 +236,11 @@ class FusedGraph(CapturedBody):
         (B,)] -> the body's outputs. ``z``: the unit noise (B, T_y,
         n_feats); else drawn from ``generator`` into the static buffer,
         outside the graph."""
-        _stage(self.x, np.asarray(x, dtype=np.int64))
-        _stage(self.x_lengths, np.asarray(x_lengths, dtype=np.int32))
-        self._stage_spks(spks)
-        _stage_noise(self.z, z, generator)
+        with tracing.span("pipeline.stage_inputs"):
+            _stage(self.x, np.asarray(x, dtype=np.int64))
+            _stage(self.x_lengths, np.asarray(x_lengths, dtype=np.int32))
+            self._stage_spks(spks)
+            _stage_noise(self.z, z, generator)
         return self._run()
 
 
@@ -286,9 +291,10 @@ class StageGraph(CapturedBody):
                  spks: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         """Stage 1's outputs for one batch -> the stage's outputs. ``z`` and
         ``spks`` as for ``FusedGraph``."""
-        for dst, src in ((self.mu_x, mu_x), (self.w_ceil, w_ceil),
-                         (self.x_lengths, x_lengths), (self.y_lengths, y_lengths)):
-            _stage(dst, src)
-        self._stage_spks(spks)
-        _stage_noise(self.z, z, generator)
+        with tracing.span("pipeline.stage_inputs"):
+            for dst, src in ((self.mu_x, mu_x), (self.w_ceil, w_ceil),
+                             (self.x_lengths, x_lengths), (self.y_lengths, y_lengths)):
+                _stage(dst, src)
+            self._stage_spks(spks)
+            _stage_noise(self.z, z, generator)
         return self._run()

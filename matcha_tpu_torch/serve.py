@@ -27,7 +27,9 @@ Endpoints (the JAX daemon's, with its status codes and JSON keys):
                             ["format": "wav"|"json"]}
   POST /synthesise_long    the same, sentence-chunked, chunks batched
   POST /synthesise_stream  a live WAV stream, one chunk after another
-  GET  /healthz            {"status": "ok", "batches": N, "requests": N}
+  GET  /healthz            {"status": "ok", "batches": N, "requests": N, "fast": N,
+                            "reruns": N, "frames_answered": N, "frames_decoded": N,
+                            "queue_depth": N}
 
 Each call draws its noise from a generator of its own on the pipeline's
 device, seeded from (``seed``, the call's number). A multi-speaker model
@@ -38,6 +40,16 @@ static input). A speaker id outside the model's range is answered with
 400 before it is queued. ``--model`` and ``--vocoder`` name the files
 as the CLI does, through its ``validate_args`` (each model's default
 vocoder, speaking rate and speaker).
+
+Tracing (``utils/tracing.py``, off unless ``--trace-spans PATH``): each
+request's ``serve.request`` span from its enqueue to its wake-up is tiled
+by ``serve.queue`` (until the batcher takes it), ``serve.batch_wait``
+(the batch window and the earlier groups of its take) and
+``serve.service`` (its group's run, fetch and wake); the handler thread
+adds ``serve.frontend`` and ``serve.respond``. The batcher's
+``serve.take``, ``serve.run``, ``serve.complete`` and ``serve.rerun`` carry
+the batch's id, as each request's spans do. ``--trace-spans`` writes the
+ring as a Chrome trace at shutdown.
 
     python -m matcha_tpu_torch.serve --port 8080 --warmup 128:512 [--cpu]
 """
@@ -67,6 +79,7 @@ from matcha_tpu_torch.fused import _pack_pcm24
 from matcha_tpu_torch.models.matcha import check_speakers
 from matcha_tpu_torch.text import intersperse, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
+from matcha_tpu_torch.utils import tracing
 from matcha_tpu_torch.utils.utils import pcm24_bytes as pcm24
 
 SR = SAMPLE_RATE
@@ -107,13 +120,49 @@ class _Request:
     n_frames: int = 0
     error: Optional[str] = None
     t_enqueue: float = field(default_factory=time.perf_counter)
+    #: taken off the queue by the batcher, and its group's run started
+    t_taken: float = 0.0
+    t_run: float = 0.0
     t_done: float = 0.0
+    #: the id of its ``serve.request`` span, and of the take that batched it
+    rid: int = field(default_factory=tracing.new_id)
+    batch: int = 0
     #: a stream's first chunk on an idle server: dispatched alone, at once,
     #: instead of waiting out the batch window
     urgent: bool = False
     #: a long-form or stream chunk: fills only the batch slots that
     #: interactive requests leave free
     bulk: bool = False
+
+
+def _frames_decoded(out: dict) -> int:
+    """B (padded) x the mel bucket of one result."""
+    B, _, T_y = out["mel"].shape
+    return B * T_y
+
+
+def _run_attrs(out: dict) -> dict:
+    """A group's result as its ``serve.run`` span's attributes: B (padded),
+    the path and the x, mel and vocoder buckets, read from the shapes."""
+    B, _, T_y = out["mel"].shape
+    if "waveform" in out:
+        samples = out["waveform"].shape[1]
+    else:  # the dynamic path's PCM rows, the lengths as a last sample
+        samples = out["wav_pcm24"].shape[1] // 3 - 1
+    return {"B": B, "path": "fast" if "_fused_T_y" in out else "dynamic",
+            "T_x": out["attn"].shape[1], "T_y": T_y, "T_voc": samples // HOP}
+
+
+def _record_request(r: "_Request") -> None:
+    """A woken request's spans: ``serve.request`` from its enqueue to its
+    wake-up, tiled by its queue wait, its batch wait and its service."""
+    ns = tracing.ns
+    tracing.record("serve.request", ns(r.t_enqueue), ns(r.t_done), sid=r.rid, req=r.rid,
+                   batch=r.batch)
+    for name, t0, t1 in (("serve.queue", r.t_enqueue, r.t_taken),
+                         ("serve.batch_wait", r.t_taken, r.t_run),
+                         ("serve.service", r.t_run, r.t_done)):
+        tracing.record(name, ns(t0), ns(t1), parent=r.rid, req=r.rid, batch=r.batch)
 
 
 def call_seed(seed: int, n_call: int) -> int:
@@ -162,6 +211,12 @@ class BatchingServer:
         self.n_requests = 0
         #: requests the fast path ran (one replay of a warmed graph each)
         self.n_fast = 0
+        #: fast-path results that filled their bucket and ran again
+        self.n_rerun = 0
+        #: true mel frames woken to clients, and the frames decoded for them
+        #: (B padded x the mel bucket of every replay, batch and re-run)
+        self.frames_answered = 0
+        self.frames_decoded = 0
         # the largest warmed x bucket: longer texts are refused at enqueue
         # (None until warmup runs: accept anything)
         self.max_warm_x: Optional[int] = None
@@ -186,6 +241,13 @@ class BatchingServer:
         self._thread.start()
         self._responder = threading.Thread(target=self._respond_loop, daemon=True)
         self._responder.start()
+
+    def counters(self) -> dict:
+        """The daemon's counters, read together, and the queue's depth."""
+        with self._lock:
+            return {"batches": self.n_batches, "requests": self.n_requests, "fast": self.n_fast,
+                    "reruns": self.n_rerun, "frames_answered": self.frames_answered,
+                    "frames_decoded": self.frames_decoded, "queue_depth": self._q.qsize()}
 
     def _quantize_rate(self, rate: float) -> float:
         lo, hi = self.RATE_RANGE
@@ -322,6 +384,7 @@ class BatchingServer:
             first = self._q.get()
             if first is None:
                 return []
+            first.t_taken = time.perf_counter()
             if first.urgent:
                 return [first]
             (bulk if first.bulk else interactive).append(first)
@@ -344,7 +407,9 @@ class BatchingServer:
                 continue
             if nxt is None:
                 stop = True
-            elif nxt.bulk and not nxt.urgent:
+                continue
+            nxt.t_taken = time.perf_counter()
+            if nxt.bulk and not nxt.urgent:
                 bulk.append(nxt)
             else:
                 interactive.append(nxt)
@@ -362,7 +427,9 @@ class BatchingServer:
 
     def _loop_inner(self):
         while not self._stop.is_set():
-            batch = self._take_batch()
+            batch_id = tracing.new_id()
+            with tracing.span("serve.take", batch=batch_id):
+                batch = self._take_batch()
             if not batch:
                 continue
             # shed requests whose submit() already timed out (nobody reads
@@ -373,12 +440,16 @@ class BatchingServer:
                 continue
             groups: dict = {}
             for r in batch:
+                r.batch = batch_id
                 groups.setdefault((r.speaking_rate, r.spk), []).append(r)
             self._busy = True
             try:
                 for (rate, spk), reqs in groups.items():
                     with self._lock:
                         self._in_flight += 1
+                    t_run = time.perf_counter()
+                    for r in reqs:
+                        r.t_run = t_run
                     try:
                         self._run(reqs, rate, spk)
                     except Exception as e:  # a device error: fail the batch, serve on
@@ -391,6 +462,15 @@ class BatchingServer:
                 self._busy = False
 
     def _run(self, reqs, rate, spk):
+        with tracing.span("serve.run", batch=reqs[0].batch) as span:
+            out = self._launch(reqs, rate, spk)
+            if span:
+                span.set(**_run_attrs(out))
+            self._hand_over(reqs, out)
+
+    def _launch(self, reqs, rate, spk) -> dict:
+        """One group's synthesis: the fast path's replay (its result marked
+        with ``_fused_T_y``) or the dynamic path's batch."""
         if len(reqs) == 1 and self._fused_warm and len(self.pipeline.replicas) == 1:
             # the fast path: one replay of a graph warmup captured
             r = reqs[0]
@@ -404,8 +484,7 @@ class BatchingServer:
                     temperature=self.temperature, length_scale=rate, fixed_y_bucket=T_y,
                     generator=self._next_generator(), spks=speaker_batch(spk, 1))
                 out["_fused_T_y"] = T_y  # the saturation check's marker
-                self._hand_over(reqs, out)
-                return
+                return out
         # B padded to a power of two and T_x routed up to a warmed bucket:
         # the batch runs only shapes that warmup ran; dummy rows (length
         # 1, all padding) are fetched with the batch and dropped
@@ -418,11 +497,10 @@ class BatchingServer:
         for i, r in enumerate(reqs):
             x[i, :len(r.seq)] = r.seq
             xl[i] = len(r.seq)
-        out = self.pipeline.synthesise_batch(
+        return self.pipeline.synthesise_batch(
             x, xl, n_timesteps=self.n_timesteps, temperature=self.temperature,
             length_scale=rate, generator=self._next_generator(),
             pack_wav=self.pipeline.pcm24_transfer, spks=speaker_batch(spk, B))
-        self._hand_over(reqs, out)
 
     def _hand_over(self, reqs, out):
         if self.pipelined:
@@ -459,8 +537,17 @@ class BatchingServer:
 
     def _complete(self, reqs, out):
         """Fetch a batch's results and wake its clients."""
+        with tracing.span("serve.complete", batch=reqs[0].batch):
+            self._fetch_and_wake(reqs, out)
+        if tracing.enabled():
+            for r in reqs:
+                if r.error is None:
+                    _record_request(r)
+
+    def _fetch_and_wake(self, reqs, out):
         try:
             wavs, mel_lengths = fetch_fused_host(out)
+            decoded, rerun = _frames_decoded(out), 0
             T_y = out.get("_fused_T_y")
             if T_y is not None:
                 self.n_fast += 1
@@ -475,12 +562,14 @@ class BatchingServer:
                     r = reqs[0]
                     x1 = np.zeros((1, self._route_x(len(r.seq))), np.int32)
                     x1[0, :len(r.seq)] = r.seq
-                    out2 = self.pipeline.synthesise_batch(
-                        x1, np.asarray([len(r.seq)], np.int32), n_timesteps=self.n_timesteps,
-                        temperature=self.temperature, length_scale=r.speaking_rate,
-                        generator=self._next_generator(), pack_wav=self.pipeline.pcm24_transfer,
-                        spks=speaker_batch(r.spk, 1))
-                    wavs, mel_lengths = fetch_fused_host(out2)
+                    with tracing.span("serve.rerun", batch=r.batch):
+                        out2 = self.pipeline.synthesise_batch(
+                            x1, np.asarray([len(r.seq)], np.int32), n_timesteps=self.n_timesteps,
+                            temperature=self.temperature, length_scale=r.speaking_rate,
+                            generator=self._next_generator(),
+                            pack_wav=self.pipeline.pcm24_transfer, spks=speaker_batch(r.spk, 1))
+                        wavs, mel_lengths = fetch_fused_host(out2)
+                    decoded, rerun = decoded + _frames_decoded(out2), 1
         except Exception as e:  # a device error: fail the batch, serve on
             with self._lock:
                 self._in_flight -= 1
@@ -488,11 +577,14 @@ class BatchingServer:
                 r.error = f"{type(e).__name__}: {e}"
                 r.done.set()
             return
-        self.n_batches += 1
         with self._lock:  # pairs with the timeout re-check of _wait
+            self.n_batches += 1
+            self.n_rerun += rerun
+            self.frames_decoded += decoded
             self._in_flight -= 1
             for i, r in enumerate(reqs):
                 n = int(mel_lengths[i])
+                self.frames_answered += n
                 r.n_frames = n
                 r.wav = wavs[i, :n * HOP]
                 r.t_done = time.perf_counter()
@@ -597,8 +689,7 @@ def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1", port: int
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._json(200, {"status": "ok", "batches": batcher.n_batches,
-                                 "requests": batcher.n_requests})
+                self._json(200, {"status": "ok", **batcher.counters()})
             else:
                 self._json(404, {"error": "not found"})
 
@@ -619,6 +710,8 @@ def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1", port: int
                 self.wfile.flush()
 
         def do_POST(self):
+            traced = tracing.enabled()
+            t_recv = time.perf_counter() if traced else 0.0
             if self.path not in ("/synthesise", "/synthesise_long", "/synthesise_stream"):
                 self._json(404, {"error": "not found"})
                 return
@@ -674,6 +767,16 @@ def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1", port: int
             if req.error:
                 self._json(500, {"error": req.error})
                 return
+            if not traced:
+                self._respond(payload, req)
+                return
+            # the parse and text to ids, up to the (first) request's enqueue
+            tracing.record("serve.frontend", tracing.ns(t_recv), tracing.ns(req.t_enqueue),
+                           parent=req.rid, tid=threading.get_ident(), req=req.rid)
+            with tracing.span("serve.respond", parent=req.rid, req=req.rid):
+                self._respond(payload, req)
+
+        def _respond(self, payload, req):
             latency_ms = (req.t_done - req.t_enqueue) * 1e3
             audio_s = len(req.wav) / SR
             if payload.get("format") == "json":
@@ -737,6 +840,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "one GPU")
     p.add_argument("--vocoder-chunk", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: CUDA)")
+    p.add_argument("--trace-spans", type=str, default=None, metavar="PATH",
+                   help="record the daemon's spans (utils/tracing.py) and write the last "
+                        f"{tracing.RING_SPANS} as a Chrome trace JSON file at shutdown")
     return p
 
 
@@ -746,6 +852,8 @@ def main(argv=None):
     args.text, args.file, args.batched = "x", None, False
     args = validate_args(args)
     device = resolve_device("cpu" if args.cpu else None)
+    if args.trace_spans:
+        tracing.enable()
     paths = assert_required_models_available(args)
     model = load_matcha(paths["matcha"], device)
     default_spk = resolve_speaker(model, args.spk)
@@ -778,6 +886,9 @@ def main(argv=None):
     finally:
         server.server_close()
         batcher.shutdown()
+        if args.trace_spans:
+            n = tracing.write_chrome(args.trace_spans)
+            print(f"[+] {n} spans written to {args.trace_spans}", flush=True)
 
 
 if __name__ == "__main__":

@@ -902,3 +902,73 @@ def test_replica_pipeline_k1_matches_plain(cuda_f32, monkeypatch):
     assert torch.equal(got["mel_lengths"], plain["mel_lengths"])
     assert (got["waveform"] - plain["waveform"]).abs().max().item() <= 1e-5
     assert (got["waveform"] - want["waveform"]).abs().max().item() <= 1e-5
+
+
+@pytest.fixture()
+def traced():
+    """The port's tracing on, on an empty ring, for one test."""
+    from matcha_tpu_torch.utils import tracing
+
+    tracing.reset()
+    tracing.enable()
+    yield tracing
+    tracing.disable()
+    tracing.reset()
+
+
+@pytest.mark.cuda
+def test_fused_graph_capture_with_tracing_on(cuda_f32, traced):
+    """A capture and a replay with tracing on: the same results as the
+    eager body, one ``pipeline.capture`` span, a ``pipeline.replay`` per
+    graph call; the vocoder's spans come from the capture's eager warm-up
+    and the eager call only, none from the pass the graph captured."""
+    pipe = _tiny_pipeline(cuda_f32)
+    x, xl = _ids(1, 40)
+    z = _unit_noise(2, 256, cuda_f32)
+    got = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256)
+    again = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256)
+    want = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256, cuda_graph=False)
+    torch.cuda.synchronize()
+    spans = traced.spans()
+    names = [s.name for s in spans]
+    assert names.count("pipeline.capture") == 1 and names.count("pipeline.replay") == 2
+    assert set(names) == {"pipeline.capture", "pipeline.replay", "pipeline.stage_inputs",
+                          "pipeline.synthesise_batch", "models.vocode", "models.denoise"}
+    (cap,) = [s for s in spans if s.name == "pipeline.capture"]
+    assert cap.attrs == {"graph": "fused", "shapes": "B, T_x = (1, 64), T_y = 256"}
+    eager = max((s for s in spans if s.name == "pipeline.synthesise_batch"), key=lambda s: s.t0_ns)
+    vocode = [s for s in spans if s.name == "models.vocode"]
+    assert sorted(s.parent for s in vocode) == sorted([cap.sid, eager.sid])
+    for out in (got, again):
+        assert torch.equal(out["mel_lengths"], want["mel_lengths"])
+        assert (out["waveform"] - want["waveform"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_program_span_lands_over_its_kernel_in_the_trace(cuda_f32, traced):
+    """A program span around ``torch.cuda._sleep`` and its synchronise,
+    read on the clock of a ``torch.profiler`` trace tied to the host's by
+    the benchmark's marker kernel (``benchmark/harness/trace.py``): the
+    spin kernel starts and ends within 0.1 ms of the span."""
+    import time
+
+    from benchmark.harness import trace
+
+    torch.cuda._sleep(1000)  # the spin kernel's first launch, outside the trace
+    torch.cuda.synchronize()
+    with trace.Trace() as tr:
+        tr.mark_start(time.perf_counter())
+        with traced.span("probe"):
+            torch.cuda._sleep(2_000_000)  # about a millisecond
+            torch.cuda.synchronize()
+        tr.mark_end(time.perf_counter())
+    (probe,) = traced.spans()
+    spins = sorted((e for e in tr.prof.profiler.kineto_results.events()
+                    if "spin_kernel" in e.name()), key=lambda e: e.start_ns())
+    assert len(spins) == 2  # the trace's marker, then the probe's kernel
+    offset_ns = spins[0].start_ns() - tr.t_mark * 1e9  # as Trace.device_events ties them
+    k0 = spins[1].start_ns() - offset_ns
+    k1 = k0 + spins[1].duration_ns()
+    assert spins[1].duration_ns() > 5e5
+    assert abs(k0 - probe.t0_ns) <= 1e5 and abs(k1 - probe.t1_ns) <= 1e5, (
+        k0 - probe.t0_ns, k1 - probe.t1_ns)

@@ -155,7 +155,9 @@ def test_http_server_end_to_end(batcher):
         with urllib.request.urlopen(f"{url}/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
         assert health["status"] == "ok" and health["requests"] >= 2
-        assert set(health) == {"status", "batches", "requests"}
+        assert set(health) == {"status", "batches", "requests", "fast", "reruns",
+                               "frames_answered", "frames_decoded", "queue_depth"}
+        assert health["frames_answered"] <= health["frames_decoded"]
 
         bad = urllib.request.Request(f"{url}/synthesise", data=b"{}")
         with pytest.raises(urllib.error.HTTPError) as ei:
@@ -261,6 +263,7 @@ def test_fused_single_fast_path_and_saturation_fallback(batcher, monkeypatch):
     assert r1.error is None and r1.n_frames == n
     assert np.isfinite(r1.wav).all() and r1.wav.size == n * 256
     assert calls and calls[-1].get("fixed_y_bucket") == T_big
+    assert batcher.n_fast == 1 and batcher.n_rerun == 0
 
     T_small = max(16, (n - 1) // 16 * 16)
     assert T_small < n
@@ -271,6 +274,8 @@ def test_fused_single_fast_path_and_saturation_fallback(batcher, monkeypatch):
     assert r2.wav.size == n * 256
     assert any(k.get("fixed_y_bucket") == T_small for k in calls)
     assert any(k.get("pack_wav") for k in calls)
+    assert batcher.n_fast == 2 and batcher.n_rerun == 1
+    assert batcher.frames_answered == 3 * n < batcher.frames_decoded
 
 
 def test_stream_first_chunk_urgent_marking():
@@ -554,15 +559,18 @@ def test_counters_and_call_numbers_under_contention(serve_pipeline):
     assert sorted(seen) == list(range(1, n + 1))
 
 
-def test_main_serves_on_the_cpu_with_no_jax(fabricated_ckpts):  # noqa: F811
-    """``python -m matcha_tpu_torch.serve --cpu`` in a subprocess: it warms,
-    serves one /synthesise and /healthz, stops on SIGINT, and never loads
-    a JAX module."""
+def test_main_serves_on_the_cpu_with_no_jax(fabricated_ckpts, tmp_path):  # noqa: F811
+    """``python -m matcha_tpu_torch.serve --cpu --trace-spans PATH`` in a
+    subprocess: it warms, serves one /synthesise and /healthz (with the
+    daemon's counters), stops on SIGINT, writes its spans as a Chrome
+    trace, and never loads a JAX module."""
+    trace_path = tmp_path / "spans.json"
     code = ("import atexit, runpy, sys\n"
             "atexit.register(lambda: print('LOADED', sorted({m.split('.')[0] for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'matcha_tpu')}), flush=True))\n"
             "sys.argv = ['serve', '--cpu', '--port', '0', '--warmup', '32:128', '--max-batch', "
-            "'1', '--steps', '1', '--cleaner', 'english_cleaners_no_espeak']\n"
+            "'1', '--steps', '1', '--cleaner', 'english_cleaners_no_espeak', '--trace-spans', "
+            f"{str(trace_path)!r}]\n"
             "runpy.run_module('matcha_tpu_torch.serve', run_name='__main__')\n")
     env = dict(os.environ, MATCHA_HOME=fabricated_ckpts, PYTHONUNBUFFERED="1")
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env, text=True,
@@ -577,9 +585,13 @@ def test_main_serves_on_the_cpu_with_no_jax(fabricated_ckpts):  # noqa: F811
         status, headers, body = _post(url + "/synthesise", {"text": "hi there"})
         assert status == 200 and headers["Content-Type"] == "audio/wav"
         with wave.open(io.BytesIO(body)) as f:
-            assert f.getnframes() > 0
+            n_samples = f.getnframes()
+        assert n_samples > 0
         with urllib.request.urlopen(f"{url}/healthz", timeout=30) as resp:
-            assert json.loads(resp.read()) == {"status": "ok", "batches": 1, "requests": 1}
+            # one fast-path replay, uncalibrated: B = 1 x the largest warmed mel bucket
+            assert json.loads(resp.read()) == {
+                "status": "ok", "batches": 1, "requests": 1, "fast": 1, "reruns": 0,
+                "frames_answered": n_samples // 256, "frames_decoded": 128, "queue_depth": 0}
         proc.send_signal(signal.SIGINT)
         out, err = proc.communicate(timeout=60)
     finally:
@@ -588,6 +600,12 @@ def test_main_serves_on_the_cpu_with_no_jax(fabricated_ckpts):  # noqa: F811
             proc.wait()
     assert proc.returncode == 0, err[-3000:]
     assert "LOADED []" in out
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    names = {e["name"] for e in events}
+    assert {"serve.take", "serve.run", "pipeline.synthesise_batch", "serve.complete",
+            "serve.frontend", "serve.respond", "serve.request", "serve.service"} <= names
+    (run,) = [e for e in events if e["name"] == "serve.run"]
+    assert run["args"]["path"] == "fast" and run["args"]["B"] == 1
 
 
 def test_main_without_cpu_needs_a_gpu():
