@@ -1298,8 +1298,8 @@ def staged_corpus(dev, model, vocoder, bias) -> dict:
     """``bench.py``'s protocol through the port's ``synthesise_corpus``: 128
     utterances of 64-192 ids, length scale 3.5, B = 8, 10 steps,
     temperature 0.667. Three modes in turns on the same noise: the split
-    stages, the fused stage (one CUDA graph per bucket triple, captured in
-    a first untimed pass), and ``synthesise_batch`` per batch; then the two
+    stages (the flow one CUDA graph per (B, T_y)), the fused stage (one
+    CUDA graph per bucket triple; both captured in first untimed passes), and ``synthesise_batch`` per batch; then the two
     staged modes again under ``torch.profiler``. Checks: the same batches
     and host lengths in every mode; fused against split (mel 1e-6,
     waveform GRAPH_TOL) and the loop against split alike; one copy to the
@@ -1324,6 +1324,7 @@ def staged_corpus(dev, model, vocoder, bias) -> dict:
     chunk = {}
     with K1Shapes() as shapes:
         shapes.tag = "corpus"
+        corpus_run(pipe, dev, utts, "split")  # captures every (B, T_y) decode graph
         first_s = corpus_run(pipe, dev, utts, "fused")[1]  # captures every triple's graph
         checked = {m: corpus_run(pipe, dev, utts, m) for m in modes}
         traced = {m: corpus_run(pipe, dev, utts, m, profile=True) for m in ("split", "fused")}

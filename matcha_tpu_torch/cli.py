@@ -12,8 +12,9 @@ Port of ``matcha_tpu/cli.py``'s three synthesis paths:
 - staged corpus synthesis (``synthesise_corpus``, CLI ``--batched
   --staged``): every batch's encoder pass of a window first, one host
   copy of their predicted lengths, then decode + vocode per batch with no
-  other host sync, split or (``--fused-stage``) as one CUDA graph per
-  bucket triple.
+  other host sync, split (the decoder's flow as one CUDA graph per (B,
+  mel bucket), the vocoder eagerly) or (``--fused-stage``) as one CUDA
+  graph per bucket triple.
 With ``vocoder_chunk`` (``--vocoder-chunk N``) every path vocodes in
 N-frame mel windows with a halo. Precision, as in JAX: ``vocoder_bf16``
 (``--bf16-vocoder``) runs every path's vocoder on a bf16 copy of the
@@ -34,7 +35,8 @@ at a time, in length-sorted batches (``--batched``, ``--staged``) or
 sentence by sentence (``--long-form``). ``--batched --staged`` prints
 the corpus's frame fill (``corpus_frames_true`` over
 ``corpus_frames_decoded``: the share of the decoded mel frames that are
-speech, not bucket padding); ``--trace-spans PATH`` records the
+speech, not bucket padding) and, split, how many batches replayed a decode
+graph and how many captured one; ``--trace-spans PATH`` records the
 pipeline's spans (``utils/tracing.py``) and writes them as a Chrome trace.
 Models are named as in JAX's registry (``--model matcha_ljspeech |
 matcha_vctk``, ``--vocoder hifigan_T2_v1 | hifigan_univ_v1``, with each
@@ -65,7 +67,7 @@ import torch
 
 from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.convert import fold_hifigan_state_dict
-from matcha_tpu_torch.fused import FusedGraph, StageGraph, _pack_pcm24
+from matcha_tpu_torch.fused import DecodeGraph, FusedGraph, StageGraph, _pack_pcm24
 from matcha_tpu_torch.models.denoiser import compute_bias_spec, denoise
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import (
@@ -300,6 +302,11 @@ class TTSPipeline:
         #: to the bucket) and the frames it decoded for them (B x T_y a batch)
         self.corpus_frames_true = 0
         self.corpus_frames_decoded = 0
+        #: the split path's batches whose decode graph was captured at that
+        #: batch (on the CPU or with ``cuda_graph=False``: built and run
+        #: eagerly for a new (B, T_y)) and those that replayed one built before
+        self.corpus_decode_captures = 0
+        self.corpus_decode_replays = 0
         for d in (devices or [])[1:]:
             self._children.append(TTSPipeline(
                 copy.deepcopy(self.model), None if vocoder is None else copy.deepcopy(vocoder),
@@ -437,6 +444,17 @@ class TTSPipeline:
         if key not in self._graphs:
             self._graphs[key] = StageGraph(self, B, T_x, T_y, T_voc, n_timesteps, temperature,
                                            has_spk, cuda_graph, self._pool(cuda_graph))
+        return self._graphs[key]
+
+    def decode_graph(self, B: int, T_y: int, n_timesteps: int, temperature: float,
+                     cuda_graph: Optional[bool] = None, has_spk: bool = False) -> DecodeGraph:
+        """The cached flow of the split corpus path for this key (B, the
+        mel bucket, the steps, the temperature, ``has_spk`` and the graph
+        mode; no x or vocoder bucket)."""
+        key = ("decode", B, T_y, n_timesteps, temperature, has_spk, cuda_graph)
+        if key not in self._graphs:
+            self._graphs[key] = DecodeGraph(self, B, T_y, n_timesteps, temperature, has_spk,
+                                            cuda_graph, self._pool(cuda_graph))
         return self._graphs[key]
 
     def _pool(self, cuda_graph: Optional[bool]):
@@ -608,17 +626,20 @@ class TTSPipeline:
            ids reach the card through pinned memory);
         2. ONE host copy of the window's predicted mel lengths;
         3. per batch, the mel bucket and the finer vocoder bucket picked on
-           the host, then decode and vocode, or with ``fuse_stages`` one
-           call of the stage's body (``fused.py::StageGraph``: a CUDA graph
-           per (B, T_x, T_y, T_voc) on a GPU, captured at its first use);
-           no other host sync.
+           the host, then decode and vocode: split, the alignment eagerly,
+           the flow as one call of ``fused.py::DecodeGraph`` (a CUDA graph
+           per (B, T_y) on a GPU, captured at its first use) and the
+           vocoder eagerly; or with ``fuse_stages`` one call of the stage's
+           body (``fused.py::StageGraph``: a CUDA graph per (B, T_x, T_y,
+           T_voc) on a GPU); no other host sync.
         Stage 1 keeps a window's encoder outputs on the card until stage 3
         reaches them, so the window bounds that memory.
 
         Noise per batch: ``z(batch_index, B, T_y)`` with ``batch_index`` the
         batch's place in the sorted corpus (JAX folds it into its key),
         else drawn from ``generator`` (on the pipeline's device) batch by
-        batch. ``cuda_graph=False`` runs the fused stage eagerly on a GPU.
+        batch. ``cuda_graph=False`` runs the decode graph's body or the
+        fused stage eagerly on a GPU; on the CPU both always run eagerly.
         ``spk``: one speaker id for the whole corpus (a multi-speaker
         model), checked on the host first.
 
@@ -629,7 +650,12 @@ class TTSPipeline:
 
         Spans (``utils/tracing.py``): ``pipeline.corpus.encode`` and
         ``pipeline.corpus.lengths`` per window, ``pipeline.corpus.batch`` per
-        batch, the ``models.*`` calls inside them on the split path.
+        batch, the ``models.*`` calls inside them on the split path (the
+        decode graph's ``pipeline.stage_inputs``, and ``pipeline.capture`` or
+        ``pipeline.replay`` on a GPU, inside ``models.decode``). Counters:
+        ``corpus_frames_true`` and ``corpus_frames_decoded``;
+        ``corpus_decode_captures`` and ``corpus_decode_replays`` on the
+        split path.
         """
         spk_id = check_speakers(self.model.n_spks, None if spk is None else [spk])
         order = sorted(range(len(utterances)), key=lambda i: len(utterances[i]))
@@ -673,8 +699,8 @@ class TTSPipeline:
                 T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
                 with tracing.span("pipeline.corpus.batch", B=B, T_x=T_x, T_y=T_y, T_voc=T_voc):
                     zs = self._noise_parts(None if z is None else z(w0 + bi, B, T_y), (B, T_y),
-                                           generator, [p[:2] for p in parts], graph=fused)
-                    outs = []
+                                           generator, [p[:2] for p in parts], graph=True)
+                    outs, new = [], False
                     for (rep, rows, xlr, spks_t, mu_x, w_ceil, y_lengths), zr in zip(parts, zs):
                         if fused:
                             stage = rep.stage_graph(rows.stop - rows.start, T_x, T_y, T_voc,
@@ -684,9 +710,16 @@ class TTSPipeline:
                                         None if spks is None else spks[rows])
                         else:
                             with tracing.span("models.decode"):
-                                out = rep.model.decode(mu_x, w_ceil, xlr, y_lengths, n_timesteps,
-                                                       temperature, y_max_length=T_y, z=zr,
-                                                       generator=generator, spks=spks_t)
+                                attn, mu_y, y_mask, y_clip = rep.model.align(
+                                    mu_x, w_ceil, xlr, y_lengths, T_y)
+                                flow = rep.decode_graph(rows.stop - rows.start, T_y, n_timesteps,
+                                                        temperature, cuda_graph, spks is not None)
+                                new |= flow.calls == 0
+                                out = flow(mu_y, y_mask, zr, generator,
+                                           None if spks is None else spks[rows])
+                            out = {"encoder_outputs": mu_y.transpose(1, 2),
+                                   "decoder_outputs": out["decoder_outputs"], "attn": attn,
+                                   "mel": out["mel"], "mel_lengths": y_clip}
                             if rep.vocoder is not None:
                                 out["waveform"] = rep.vocode(out["mel"].transpose(1, 2)[:, :T_voc])
                         outs.append(out)
@@ -695,6 +728,9 @@ class TTSPipeline:
                     out["mel_lengths_host"] = np.minimum(y_host[bi], T_y).astype(np.int32)
                     self.corpus_frames_true += int(out["mel_lengths_host"].sum())
                     self.corpus_frames_decoded += B * T_y
+                    if not fused:
+                        self.corpus_decode_captures += new
+                        self.corpus_decode_replays += not new
                 yield chunk, out
 
     @staticmethod
@@ -950,6 +986,8 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
     t0 = time.perf_counter()
     total_samples = 0
     true0, decoded0 = pipeline.corpus_frames_true, pipeline.corpus_frames_decoded
+    replays0, captures0 = pipeline.corpus_decode_replays, pipeline.corpus_decode_captures
+    n_batches = 0
     for chunk, out in pipeline.synthesise_corpus(
             utts, n_timesteps=args.steps, temperature=args.temperature,
             length_scale=args.speaking_rate, batch_size=args.batch_size,
@@ -961,12 +999,16 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
                              wavs[row, :ml * HOP])
             print(f"[🍵-{idx}] Waveform saved: {location}")
         total_samples += int(out["mel_lengths_host"].sum()) * HOP
+        n_batches += 1
     rtf = _rtf(time.perf_counter() - t0, total_samples)
     print(f"[🍵] Corpus Matcha-TTS + VOCODER RTF: {rtf:.4f} ({len(texts)} utterances)")
     true, decoded = (pipeline.corpus_frames_true - true0,
                      pipeline.corpus_frames_decoded - decoded0)
     print(f"[🍵] Corpus frame fill: {100 * true / max(decoded, 1):.1f} % ({true} speech frames "
           f"of {decoded} decoded; the rest pads each batch to its mel bucket)")
+    if not args.fused_stage:
+        print(f"[🍵] Corpus decode: {pipeline.corpus_decode_replays - replays0} replays, "
+              f"{pipeline.corpus_decode_captures - captures0} captures, of {n_batches} batches")
     _print_rtf_summary([rtf])
 
 

@@ -1,5 +1,6 @@
 """Fixed-shape bodies captured as one CUDA graph each: the fixed-bucket
-serving path and the decode + vocode stage of staged corpus synthesis.
+serving path, and the flow (split) or the decode + vocode stage (fused)
+of staged corpus synthesis.
 
 ``FusedGraph`` is the counterpart of ``matcha_tpu/cli.py::TTSPipeline._fused_fn``.
 At one (B, x bucket, mel bucket, steps, temperature, length scale,
@@ -8,6 +9,12 @@ shapes: encoder -> duration expansion -> the CFM Euler loop -> HiFi-GAN
 over the whole mel bucket -> clip -> denoiser -> the wire packing (24-bit
 PCM with the mel lengths as a last sample, or the f32 rows with the
 lengths as a last column).
+
+``DecodeGraph`` is the flow of the split corpus path: the CFM Euler loop
+and the denormalisation at one (B, mel bucket), fed with the expanded
+``mu_y`` that ``MatchaTTS.align`` computes eagerly before it; the
+vocoder runs eagerly after it. It has no counterpart in JAX, whose split
+path jit-compiles the whole decode per bucket.
 
 ``StageGraph`` is the counterpart of ``TTSPipeline._decode_vocode_fn``:
 stage 3 of ``synthesise_corpus`` at one (B, x bucket, mel bucket, vocoder
@@ -108,6 +115,8 @@ class CapturedBody:
         self.outputs: Optional[Dict[str, torch.Tensor]] = None
         #: memory_allocated before and after the warm-up and the capture
         self.memory_allocated: Optional[tuple] = None
+        #: calls so far (eager runs, or a capture and its replay, or replays)
+        self.calls = 0
         #: replays run so far
         self.replays = 0
         self.spks = torch.zeros((B,), dtype=torch.int64, device=device) if has_spk else None
@@ -167,6 +176,7 @@ class CapturedBody:
     def _run(self) -> Dict[str, torch.Tensor]:
         """The body on the static inputs: eagerly, or a replay (captured
         at the first call)."""
+        self.calls += 1
         if not self.cuda_graph:
             return self.body()
         if self.graph is None:
@@ -295,6 +305,55 @@ class StageGraph(CapturedBody):
             for dst, src in ((self.mu_x, mu_x), (self.w_ceil, w_ceil),
                              (self.x_lengths, x_lengths), (self.y_lengths, y_lengths)):
                 _stage(dst, src)
+            self._stage_spks(spks)
+            _stage_noise(self.z, z, generator)
+        return self._run()
+
+
+class DecodeGraph(CapturedBody):
+    """The CFM flow of the split corpus path at one (B, T_y): the Euler
+    loop of the U-Net and the denormalisation (``MatchaTTS.flow``), with
+    static inputs ``mu_y`` (B, T_y, n_feats) and ``y_mask`` (B, T_y, 1)
+    (``MatchaTTS.align``'s device tensors, copied in on the device), ``z``
+    (B, T_y, n_feats) and, with ``has_spk``, ``spks``. The key has no x or
+    vocoder bucket: the alignment runs eagerly before it, the vocoder
+    after it.
+
+    Calling it returns ``decoder_outputs`` and ``mel``, each (B, n_feats,
+    T_y).
+    """
+
+    name = "decode"
+
+    def __init__(self, pipeline, B: int, T_y: int, n_timesteps: int, temperature: float,
+                 has_spk: bool = False, cuda_graph: Optional[bool] = None, pool=None):
+        super().__init__(pipeline, B, has_spk, cuda_graph, pool)
+        self.T_y, self.n_timesteps, self.temperature = T_y, n_timesteps, temperature
+        device, n_feats = self.device, pipeline.model.n_feats
+        self.mu_y = torch.zeros((B, T_y, n_feats), dtype=torch.float32, device=device)
+        self.y_mask = torch.zeros((B, T_y, 1), dtype=torch.float32, device=device)
+        self.z = torch.zeros((B, T_y, n_feats), dtype=torch.float32, device=device)
+
+    def describe(self) -> str:
+        return f"B, T_y = {tuple(self.mu_y.shape[:2])}"
+
+    def body(self) -> Dict[str, torch.Tensor]:
+        model = self.pipeline.model
+        decoder_outputs, mel = model.flow(self.mu_y, self.y_mask, self.n_timesteps,
+                                          self.temperature, self.z,
+                                          spk_emb=model._speaker(self.spks))
+        return {"decoder_outputs": decoder_outputs, "mel": mel}
+
+    @torch.inference_mode()
+    def __call__(self, mu_y: torch.Tensor, y_mask: torch.Tensor, z=None,
+                 generator: Optional[torch.Generator] = None,
+                 spks: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """``align``'s ``mu_y`` and ``y_mask`` for one batch -> the flow's
+        outputs. ``z`` and ``spks`` as for ``FusedGraph``; the noise drawn
+        from ``generator`` is what ``decode`` would draw."""
+        with tracing.span("pipeline.stage_inputs"):
+            _stage(self.mu_y, mu_y)
+            _stage(self.y_mask, y_mask)
             self._stage_spks(spks)
             _stage_noise(self.z, z, generator)
         return self._run()

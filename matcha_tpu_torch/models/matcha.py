@@ -156,14 +156,43 @@ class MatchaTTS(nn.Module):
         that type: ``mu_y``, the mask and the speaker embeddings are cast
         to it, and the decoder's parameters must be of it
         (``decoder_cast``). The durations and the alignment stay f32 (bf16
-        cannot count frames above 256), and the mel comes back f32."""
-        spk_emb = self._speaker(spks)
+        cannot count frames above 256), and the mel comes back f32.
+
+        It is :meth:`align` then :meth:`flow`."""
+        attn, mu_y, y_mask, y_lengths = self.align(mu_x, w_ceil, x_lengths, y_lengths,
+                                                   y_max_length)
+        decoder_outputs, mel = self.flow(mu_y, y_mask, n_timesteps, temperature, z, generator,
+                                         self._speaker(spks), compute_dtype)
+        return {
+            "encoder_outputs": mu_y.transpose(1, 2),
+            "decoder_outputs": decoder_outputs,
+            "attn": attn,
+            "mel": mel,
+            "mel_lengths": y_lengths,
+        }
+
+    def align(self, mu_x: torch.Tensor, w_ceil: torch.Tensor, x_lengths: torch.Tensor,
+              y_lengths: torch.Tensor, y_max_length: int):
+        """The duration expansion of :meth:`decode_body`: -> (attn (B, T_x,
+        y_max_length), mu_y (B, y_max_length, n_feats), y_mask
+        (B, y_max_length, 1), y_lengths clipped to ``y_max_length``, int32)."""
         x_mask = sequence_mask(x_lengths, mu_x.shape[1]).float()[..., None]
         y_lengths = torch.clamp(y_lengths, max=y_max_length).to(torch.int32)
         y_mask = sequence_mask(y_lengths, y_max_length).float()[..., None]
         attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, :, 0][:, None, :]
         attn = generate_path(w_ceil[:, :, 0], attn_mask)
         mu_y = torch.einsum("bxy,bxf->byf", attn, mu_x)
+        return attn, mu_y, y_mask, y_lengths
+
+    def flow(self, mu_y: torch.Tensor, y_mask: torch.Tensor, n_timesteps: int = 10,
+             temperature=1.0, z: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None,
+             spk_emb: Optional[torch.Tensor] = None,
+             compute_dtype: Optional[torch.dtype] = None):
+        """The CFM sampling of :meth:`decode_body` from the expanded
+        ``mu_y`` and its mask, and the denormalisation: -> (decoder_outputs,
+        mel), both (B, n_feats, T_y) f32. ``spk_emb`` (B, spk_emb_dim) or
+        None; the other arguments as for :meth:`decode_body`."""
         if compute_dtype is None:
             decoder_outputs = self.decoder(mu_y, y_mask, n_timesteps, temperature, z, generator,
                                            spk_emb)
@@ -176,13 +205,7 @@ class MatchaTTS(nn.Module):
                 mu_y.to(compute_dtype), y_mask.to(compute_dtype), n_timesteps, temperature, z,
                 generator, None if spk_emb is None else spk_emb.to(compute_dtype)).float()
         mel = denormalize(decoder_outputs.transpose(1, 2), self.mel_mean, self.mel_std)
-        return {
-            "encoder_outputs": mu_y.transpose(1, 2),
-            "decoder_outputs": decoder_outputs.transpose(1, 2),
-            "attn": attn,
-            "mel": mel,
-            "mel_lengths": y_lengths,
-        }
+        return decoder_outputs.transpose(1, 2), mel
 
     @torch.inference_mode()
     def synthesise(self, x: torch.Tensor, x_lengths: torch.Tensor, n_timesteps: int = 10,

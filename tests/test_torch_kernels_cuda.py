@@ -448,6 +448,42 @@ def test_stage_graph_replay_equals_eager(cuda_f32):
 
 
 @pytest.mark.cuda
+def test_decode_graph_replay_equals_eager(cuda_f32):
+    """The split corpus path with the flow as CUDA graphs (one per (B,
+    T_y), captured at its first batch) against the same body run eagerly
+    on the card, on generators seeded alike: the same batches and
+    lengths, the mel within 1e-6 and the waveform within 1e-5; a second
+    run replays with no new capture, and the captures are the distinct
+    (B, T_y)."""
+    pipe = _tiny_pipeline(cuda_f32)
+    utts = _corpus(13, 9)
+    runs = {}
+    for mode in (None, False, None):
+        outs = list(pipe.synthesise_corpus(utts, n_timesteps=2, batch_size=2, cuda_graph=mode,
+                                           generator=torch.Generator(cuda_f32).manual_seed(5)))
+        runs.setdefault(mode, []).append((outs, pipe.corpus_decode_captures,
+                                          pipe.corpus_decode_replays))
+    torch.cuda.synchronize()
+    eager = runs[False][0][0]
+    keys = {(len(c), o["mel"].shape[-1]) for c, o in eager}
+    graphs = {k[1:3]: g for k, g in pipe._graphs.items() if k[0] == "decode" and g.cuda_graph}
+    assert set(graphs) == keys and all(g.graph is not None for g in graphs.values())
+    assert sum(g.replays for g in graphs.values()) == 2 * len(eager)
+    (first, captures, replays), (second, captures2, replays2) = runs[None]
+    assert captures == len(keys) and replays == len(eager) - len(keys)
+    assert captures2 == captures + len(keys)  # the eager run's bodies count as new
+    assert replays2 == replays + 2 * len(eager) - len(keys)
+    assert runs[False][0][1] == captures + len(keys)
+    for outs in (first, second):
+        assert [c for c, _ in outs] == [c for c, _ in eager]
+        for (_, a), (_, b) in zip(outs, eager):
+            assert (a["mel_lengths_host"] == b["mel_lengths_host"]).all()
+            assert torch.equal(a["attn"], b["attn"])
+            assert (a["mel"] - b["mel"]).abs().max().item() <= 1e-6
+            assert (a["waveform"] - b["waveform"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
 def test_daemon_replays_only_warmed_graphs(cuda_f32):
     """After warmup a lone request replays a warmed graph from the
     batcher thread and equals the eager body on its call's generator; a

@@ -240,8 +240,10 @@ def _corpus(n=7):
 def test_corpus_spans_and_counters(loaded, traced, fuse_stages):  # noqa: F811
     """7 utterances in batches of 3 over windows of 2 batches: an encode
     and a lengths span per window, a batch span per batch with its
-    buckets, none open while the caller holds the generator; the frame
-    counters are the host lengths and B x T_y."""
+    buckets, none open while the caller holds the generator; split, the
+    decode graph's ``pipeline.stage_inputs`` inside each ``models.decode``
+    and one capture or replay counted a batch; the frame counters are the
+    host lengths and B x T_y."""
     model, voc, bias = loaded["port"]
     pipe = port_cli.TTSPipeline(model, voc, bias, CLEANER, device="cpu")
     gen = pipe.synthesise_corpus(_corpus(), n_timesteps=1, batch_size=3, stage_window=2,
@@ -265,6 +267,15 @@ def test_corpus_spans_and_counters(loaded, traced, fuse_stages):  # noqa: F811
         assert inside == {"pipeline.stage_inputs", "models.vocode", "models.denoise"}
     else:
         assert inside == {"models.decode", "models.vocode", "models.denoise"}
+        # the decode graph's inputs staged inside each batch's decode (its
+        # body eager on the CPU; a capture or a replay beside it on a card)
+        decodes = by["models.decode"]
+        assert len(decodes) == 3 and {s.parent for s in decodes} == {s.sid for s in batches}
+        assert sorted(s.parent for s in by["pipeline.stage_inputs"]) == sorted(
+            s.sid for s in decodes)
+        assert {p.name for p in tracing.spans() if p.parent in {s.sid for s in decodes}} == {
+            "pipeline.stage_inputs"}
+        assert pipe.corpus_decode_captures + pipe.corpus_decode_replays == 3
     encode_ids = {s.sid for s in by["pipeline.corpus.encode"]}
     assert len(by["models.encode"]) == 3 and {s.parent for s in by["models.encode"]} <= encode_ids
     assert pipe.corpus_frames_true == sum(int(o["mel_lengths_host"].sum()) for _, o in outs)
@@ -333,7 +344,7 @@ def test_cli_staged_prints_frame_fill_and_writes_spans(fabricated_ckpts, tmp_pat
                                                        monkeypatch, capsys):
     """``--batched --staged --trace-spans PATH``: the CLI prints the corpus's
     frame fill from the two counters (its speech frames are the written
-    mels' lengths) and writes the corpus spans as a Chrome trace, with
+    mels' lengths) and the decode graph's replays and captures, and writes the corpus spans as a Chrome trace, with
     tracing off again after the run."""
     monkeypatch.setenv("MATCHA_HOME", fabricated_ckpts)
     lines = tmp_path / "lines.txt"
@@ -346,13 +357,18 @@ def test_cli_staged_prints_frame_fill_and_writes_spans(fabricated_ckpts, tmp_pat
                   "--trace-spans", str(path)])
     assert not tracing.enabled()
     tracing.reset()
-    fill = [ln for ln in capsys.readouterr().out.splitlines() if "Corpus frame fill" in ln]
+    printed = capsys.readouterr().out.splitlines()
+    fill = [ln for ln in printed if "Corpus frame fill" in ln]
     assert len(fill) == 1
     speech = sum(np.load(out / f"utterance_{i:03d}.npy").shape[1] for i in range(3))
     pct, true, decoded = (float(v) for v in
                           re.search(r"fill: ([\d.]+) % \((\d+) speech frames of (\d+) decoded",
                                     fill[0]).groups())
     assert true == speech <= decoded and pct == round(100 * true / decoded, 1)
+    (decode,) = [ln for ln in printed if "Corpus decode" in ln]
+    replays, captures, batches = (int(v) for v in re.search(
+        r"decode: (\d+) replays, (\d+) captures, of (\d+) batches", decode).groups())
+    assert batches == 2 and replays + captures == batches and captures >= 1
     names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]]
     assert names.count("pipeline.corpus.encode") == names.count("pipeline.corpus.lengths") == 1
     assert names.count("pipeline.corpus.batch") == names.count("models.decode") == 2
