@@ -2,7 +2,8 @@
 device's description and the result line.
 
 A cell is found by its name in ``BENCHMARK.json``: its configuration in
-``benchmark/configs/<config>.json``, its traffic mix in
+``benchmark/configs/<config>.json`` (whose vocoder is built by
+``benchmark/harness/vocoders/<vocoder_arch>.py``), its traffic mix in
 ``benchmark/traffic/<traffic>.json``, the limits of its correctness check
 in ``benchmark/limits/<workload>.json`` and each metric's reader in
 ``benchmark/metrics/<metric>.py``. A later cell or metric is added by

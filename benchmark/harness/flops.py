@@ -8,9 +8,11 @@ card's published peaks.
   weights and biases once.
 - The model (``mfu``): what ``torch.utils.flop_counter`` counts in the
   reference's encoder at T_x ids, its U-Net at T_y frames (once per
-  Euler step) and its vocoder at T_y frames, run on the meta device
-  (shapes only). The denoiser's FFTs are not counted: the flop counter
-  has no formula for them, and they are a small part of the work.
+  Euler step) and its vocoder's ``generate`` at T_y mel frames (the
+  reference generator of the configuration's ``vocoder_arch``, from
+  ``vocoders.adapter``), run on the meta device (shapes only). The
+  denoiser's FFTs are not counted: the flop counter has no formula for
+  them, and they are a small part of the work.
   Attention makes each count a quadratic in the length, so each is
   counted at three lengths and the quadratic through them is evaluated.
 """
@@ -67,13 +69,12 @@ class ModelFlops:
 
     def __init__(self, cfg: dict):
         from benchmark.harness.models import _model_kwargs
-        from benchmark.reference.models.hifigan import Generator, HiFiGANConfig
+        from benchmark.harness.vocoders import adapter
         from benchmark.reference.models.matcha import MatchaTTS
 
         with torch.device("meta"):
             self.model = MatchaTTS(**_model_kwargs(cfg)).eval()
-            self.vocoder = Generator(HiFiGANConfig(**{k: tuple(v) if isinstance(v, list) else v
-                                                      for k, v in cfg["vocoder"].items()})).eval()
+        self.vocoder = adapter(cfg).reference(cfg["vocoder"], "meta").eval()
         self.n_feats = cfg["model"]["n_feats"]
         self.n_spks = cfg["model"]["n_spks"]
         self.steps = cfg["synthesis"]["n_timesteps"]

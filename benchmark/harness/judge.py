@@ -13,8 +13,9 @@ For each sampled answer the reference
    w by a little and can flip a ceil that lies close to an integer;
 3. runs its decoder over the system's durations, from the same unit
    noise (the reference draws it again from the same generator seed and
-   shape), at the mel bucket the system used, then its vocoder at the
-   system's vocoder bucket, the clip and the denoiser;
+   shape), at the mel bucket the system used, then its vocoder (the
+   configuration's ``vocoder_arch``) at the system's vocoder bucket, the
+   clip, and the denoiser where the architecture has a bias;
 4. compares: the answer's length with the durations' (``len_mismatch``),
    the relative L2 error of the mel over the answer's frames
    (``mel_err``), and that of the waveform in units of the vocoder's own
@@ -117,7 +118,8 @@ class Reference:
         from benchmark.reference.models.denoiser import denoise
         mel = mel_btc[:, :T_voc].to(next(vocoder.parameters()).dtype)
         wav = torch.clamp(vocoder(mel).float()[..., 0], -1.0, 1.0)
-        wav = denoise(wav, self.bias, strength=self.strength)
+        if self.bias is not None:
+            wav = denoise(wav, self.bias, strength=self.strength)
         return wav[0, :n * HOP].cpu().numpy()
 
     def _decode(self, model, mu_x, frames, n: int, T_y: int, noise, spks, dtype):

@@ -2,7 +2,8 @@
 reference, with the same seeded weights.
 
 A configuration file holds ``model`` (the ``MatchaTTS`` arguments),
-``vocoder`` (the HiFi-GAN arguments) and ``synthesis`` (steps,
+``vocoder_arch`` and ``vocoder`` (the vocoder's architecture and its
+arguments, built through ``vocoders.adapter``) and ``synthesis`` (steps,
 temperature, the operator's speaking rate as ``length_scale``, the
 denoiser's strength). Both sides take the same keyword arguments: the
 reference is a frozen copy of the system's plain modules.
@@ -11,14 +12,14 @@ reference is a frozen copy of the system's plain modules.
 import torch
 
 from benchmark.harness.common import derive_seed
+from benchmark.harness.vocoders import adapter
 from benchmark.harness.weights import seeded_state_dict
 
 
-def _build(matcha_cls, gen_cls, cfg_cls, cfg: dict, seed: int, device):
+def _build(matcha_cls, make_vocoder, cfg: dict, seed: int, device):
     with torch.device(device):
         model = matcha_cls(**cfg["model"])
-        vocoder = gen_cls(cfg_cls(**{k: tuple(v) if isinstance(v, list) else v
-                                     for k, v in cfg["vocoder"].items()}))
+    vocoder = make_vocoder(cfg["vocoder"], device)
     model.eval()
     vocoder.eval()
     seeded_state_dict(model, derive_seed(seed, "weights", "matcha"))
@@ -34,32 +35,30 @@ def _model_kwargs(cfg: dict) -> dict:
 
 def system_pipeline(cfg: dict, seed: int, device, cleaner: str, cls=None):
     """The system's ``TTSPipeline`` (or the subclass ``cls``) over seeded
-    models (the fused-MRF vocoder, the denoiser bias from its output on a
-    zero mel, as ``cli.load_vocoder`` makes it)."""
+    models, with the vocoder and its denoiser bias that the architecture's
+    ``pipeline_kwargs`` give (for HiFi-GAN: the fused-MRF vocoder, the
+    bias from its output on a zero mel, as ``cli.load_vocoder`` makes
+    it)."""
     from matcha_tpu_torch.cli import TTSPipeline
-    from matcha_tpu_torch.models.denoiser import compute_bias_spec
-    from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
-    from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused
     from matcha_tpu_torch.models.matcha import MatchaTTS
 
+    arch = adapter(cfg)
     c = dict(cfg, model=_model_kwargs(cfg))
-    model, vocoder = _build(MatchaTTS, Generator, HiFiGANConfig, c, seed, device)
-    bias = compute_bias_spec(lambda mel: generator_apply_fused(vocoder, mel), device=device)
-    return (cls or TTSPipeline)(model, vocoder, bias, cleaner=cleaner, device=device,
-                       denoiser_strength=cfg["synthesis"]["denoiser_strength"])
+    model, vocoder = _build(MatchaTTS, arch.system, c, seed, device)
+    return (cls or TTSPipeline)(model, cleaner=cleaner, device=device,
+                                denoiser_strength=cfg["synthesis"]["denoiser_strength"],
+                                **arch.pipeline_kwargs(vocoder, device))
 
 
 def reference_models(cfg: dict, seed: int, device):
-    """(model, vocoder, denoiser bias) of the plain reference, on the same
-    seeded weights."""
-    from benchmark.reference.models.denoiser import compute_bias_spec
-    from benchmark.reference.models.hifigan import Generator, HiFiGANConfig
+    """(model, vocoder, denoiser bias or None) of the plain reference, on
+    the same seeded weights."""
     from benchmark.reference.models.matcha import MatchaTTS
 
+    arch = adapter(cfg)
     c = dict(cfg, model=_model_kwargs(cfg))
-    model, vocoder = _build(MatchaTTS, Generator, HiFiGANConfig, c, seed, device)
-    bias = compute_bias_spec(lambda mel: vocoder(mel), device=device)
-    return model, vocoder, bias
+    model, vocoder = _build(MatchaTTS, arch.reference, c, seed, device)
+    return model, vocoder, arch.reference_bias(vocoder, device)
 
 
 def with_speaking_rate(cfg: dict, traffic: dict, seed: int, device) -> dict:

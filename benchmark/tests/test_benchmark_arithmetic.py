@@ -80,7 +80,8 @@ def test_model_flops_fit_matches_a_direct_count():
                      "enc_filter_channels": 64, "enc_filter_channels_dp": 32, "enc_n_heads": 2,
                      "enc_n_layers": 1, "dec_channels": [32, 32], "dec_attention_head_dim": 16,
                      "dec_num_mid_blocks": 1, "dec_num_heads": 2},
-           "vocoder": {"upsample_initial_channel": 64}, "synthesis": {"n_timesteps": 10}}
+           "vocoder_arch": "hifigan", "vocoder": {"upsample_initial_channel": 64},
+           "synthesis": {"n_timesteps": 10}}
     mf = flops.ModelFlops(cfg)
     n, T = 100, 300
     direct = mf.encoder_at(n) + 10 * mf.estimator_at(T) + mf.vocoder_at(T)

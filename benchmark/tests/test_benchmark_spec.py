@@ -86,3 +86,11 @@ def test_cell_resolves(name):
 def test_every_config_used():
     used = {w["config"] for w in SPEC["workloads"]}
     assert used == {c["name"] for c in SPEC["configs"]}
+
+
+@pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda c: c["name"])
+def test_every_config_names_a_vocoder_module(entry):
+    from benchmark.harness import vocoders
+    arch = common.load_json(common.ROOT / entry["file"])["vocoder_arch"]
+    assert (common.BENCH / "harness" / "vocoders" / f"{arch}.py").is_file(), arch
+    assert arch in vocoders.known()
