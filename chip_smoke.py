@@ -7,7 +7,7 @@ Phases, one output line each (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA /
    nvcc / Triton versions;
-2. the build of the three CUDA sources in ``matcha_tpu_torch/csrc`` (one
+2. the build of the four CUDA sources in ``matcha_tpu_torch/csrc`` (one
    ``nvcc`` each, started together) and its seconds;
 3. kernel K1 (the fused MRF stage, 3xTF32 on the tensor cores) against
    its plain PyTorch version on the card, TF32 off, at every C in 16..128
@@ -90,7 +90,12 @@ Phases, one output line each (any failure exits non-zero):
    decoder (every U-Net stage, GroupNorm and BatchNorm modes) at the
    fixed bucket (replay bit-equal to eager), and one decoder step at
    B = 1, T = 2,048 against the transformer decoder's peak memory; K1
-   against its plain version at every shape these paths ran;
+   against its plain version at every shape these paths ran; after the
+   data-parallel serving phase, the ``bigvgan`` line: BigVGAN-v2 at its
+   published widths behind the LJSpeech Matcha (``bigvgan_phase``: the
+   daemon's fast path and the corpus, split and ``--fused-stage``, with
+   K4's 109 launches per vocoder call counted, and K4 against its plain
+   version at every shape they ran);
 6. the training path at full width (the LJSpeech config, batch 32, no
    segment cut) on a synthetic corpus written from the seed: 5 steps of
    ``python -m matcha_tpu_torch.train`` (through ``train.main``) with
@@ -239,6 +244,11 @@ CHUNK_FRAMES, CHUNK_TOL = 256, 1e-5
 # the daemon: the warmed pair (the three serving sentences route to x bucket
 # 384), lone requests per sentence, and the closed loop's clients and seconds
 SERVE_WARMUP, SERVE_REPS, SERVE_CLIENTS, SERVE_SECONDS = "384:768", 5, 8, 10.0
+# BigVGAN-v2 at its published widths behind the LJSpeech Matcha: K4 (the
+# anti-aliased SnakeBeta) against its plain version, as a share of the plain
+# output's largest magnitude (tests/test_torch_kernels_cuda.py::K4_TOL), its
+# launches per vocoder call, and the daemon's warmed pair
+K4_TOL, K4_PER_CALL, BIGVGAN_WARMUP = 1e-4, 109, "128:512"
 N_TRAIN, N_VAL = 64, 8
 # serving precision: the fixed-bucket path's modes, each (TTSPipeline
 # options, cuDNN TF32 on, K1 launches per stage pass of the 3xTF32 and the
@@ -3812,6 +3822,145 @@ def tensor_parallel(corpus: dict, root: str, smi: str) -> dict:
     return out
 
 
+
+class K4Shapes:
+    """While active, records every (B, C, L) at which the BigVGAN generator
+    calls K4's wrapper (``models/bigvgan.py``'s ``aa_snake``)."""
+
+    def __enter__(self):
+        from matcha_tpu_torch.models import bigvgan
+
+        self.seen, self._orig = set(), bigvgan.aa_snake
+
+        def recording(x, *args, **kw):
+            self.seen.add(tuple(x.shape))
+            return self._orig(x, *args, **kw)
+
+        bigvgan.aa_snake = recording
+        return self
+
+    def __exit__(self, *exc):
+        from matcha_tpu_torch.models import bigvgan
+
+        bigvgan.aa_snake = self._orig
+
+    def check(self, dev, gen) -> list:
+        """K4 against its plain version on random input and snake
+        parameters at each recorded shape; raises past K4_TOL."""
+        import torch
+
+        from matcha_tpu_torch.ops import aa_snake
+
+        rows = []
+        h = aa_snake.kaiser_sinc_filter().to(dev)
+        for B, C, L in sorted(self.seen):
+            x = torch.randn(B, C, L, generator=gen).to(dev)
+            freq, inv_mag = aa_snake.snake_terms((0.5 * torch.randn(C, generator=gen)).to(dev),
+                                                 (0.5 * torch.randn(C, generator=gen)).to(dev))
+            got = aa_snake.aa_snake(x, freq, inv_mag, h)
+            want = aa_snake.aa_snake(x, freq, inv_mag, h, fused=False)
+            rows.append({"B": B, "C": C, "L": L, "rel_err": (got - want).abs().max().item()
+                         / want.abs().max().item()})
+            del x, got, want
+            if not rows[-1]["rel_err"] <= K4_TOL:
+                raise AssertionError(f"K4 disagrees with its plain version at {rows[-1]}")
+        return rows
+
+
+def bigvgan_phase(dev, model) -> dict:
+    """BigVGAN-v2 (``models/bigvgan.py``) at its published widths (PyTorch's
+    default conv init, snake parameters N(0, 0.5)) as the vocoder of the
+    LJSpeech Matcha, no denoiser. The daemon in process (no HTTP): warmed
+    at BIGVGAN_WARMUP, a lone request replays a fast-path graph, K4_PER_CALL
+    K4 events in its trace; the lone request's waveform against the
+    plain generator (``vocoder_pallas=False``) on the same ids and noise.
+    The corpus (``synthesise_corpus``, B = 8) split (K4's wrapper
+    K4_PER_CALL a batch) and ``--fused-stage`` (K4_PER_CALL events in each
+    replay's trace), the two within GRAPH_TOL x 10 of each other. Last, K4
+    against its plain version at every (B, C, L) these runs gave it."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.models.bigvgan import Generator as BigVGAN
+    from matcha_tpu_torch.ops import aa_snake
+    from matcha_tpu_torch.scripts.trace_settle import TRACE_SETTLE_S, corpus_utterances
+    from matcha_tpu_torch.serve import BatchingServer, _parse_warmup
+
+    def k4_events(prof):
+        return sum("aa_snake_kernel" in e.name for e in prof.events())
+
+    torch.manual_seed(SEED)
+    gen = BigVGAN()
+    with torch.no_grad():
+        for a in gen.activations():
+            a.act.alpha.normal_(0.0, 0.5)
+            a.act.beta.normal_(0.0, 0.5)
+    gen = gen.to(dev).eval()
+    out = {"parameters": sum(p.numel() for p in gen.parameters())}
+    with K4Shapes() as shapes:
+        pipe = TTSPipeline(model, gen, None, cleaner=CLEANER, device=dev)
+        server = BatchingServer(pipe, max_batch=8, n_timesteps=10, temperature=0.667, seed=SEED)
+        try:
+            t0 = time.perf_counter()
+            server.warmup(_parse_warmup(BIGVGAN_WARMUP))
+            out["daemon_warmup_s"] = time.perf_counter() - t0
+            fast0 = server.n_fast
+            with trace(activities=[ProfilerActivity.CUDA]) as prof:
+                req = server.submit(SHORT_SENTENCE)
+                torch.cuda.synchronize()
+                time.sleep(TRACE_SETTLE_S)
+            if req.error is not None or server.n_fast != fast0 + 1:
+                raise AssertionError(f"bigvgan daemon: {req.error}, fast {server.n_fast - fast0}")
+            out["daemon"] = {"fast_path_requests": server.n_fast - fast0,
+                             "k4_events": k4_events(prof), "frames": req.n_frames}
+        finally:
+            server.shutdown()
+            pipe.capture_allowed = True
+        if out["daemon"]["k4_events"] != K4_PER_CALL:
+            raise AssertionError(f"bigvgan daemon: {out['daemon']}")
+
+        utts = corpus_utterances(32, SEED)
+        kw = dict(n_timesteps=10, temperature=0.667, length_scale=CORPUS_RATE, batch_size=8)
+
+        def corpus(p, fuse, prof=False):
+            g = torch.Generator(dev).manual_seed(SEED)
+            if not prof:
+                return list(p.synthesise_corpus(utts, fuse_stages=fuse, generator=g, **kw)), None
+            with trace(activities=[ProfilerActivity.CUDA]) as t:
+                res = list(p.synthesise_corpus(utts, fuse_stages=fuse, generator=g, **kw))
+                torch.cuda.synchronize()
+                time.sleep(TRACE_SETTLE_S)
+            return res, t
+
+        corpus(pipe, True)  # captures every triple's stage graph
+        k0 = aa_snake.LAUNCHES["aa_snake"]
+        split, _ = corpus(pipe, False)
+        k4_split = aa_snake.LAUNCHES["aa_snake"] - k0
+        fused, prof = corpus(pipe, True, prof=True)
+        plain = TTSPipeline(model, gen, None, cleaner=CLEANER, device=dev, vocoder_pallas=False)
+        want, _ = corpus(plain, False)
+        err = {"fused": 0.0, "plain": 0.0}
+        for (ca, a), (cb, b), (cw, w) in zip(split, fused, want):
+            if not (ca == cb == cw and np.array_equal(a["mel_lengths_host"], b["mel_lengths_host"])):
+                raise AssertionError("bigvgan corpus: the modes ran other batches")
+            err["fused"] = max(err["fused"], (a["waveform"] - b["waveform"]).abs().max().item())
+            err["plain"] = max(err["plain"], (a["waveform"] - w["waveform"]).abs().max().item())
+        n = len(split)
+        out["corpus"] = {"batches": n, "k4_wrapper_split": k4_split,
+                         "k4_events_fused": k4_events(prof), "max_abs_err": err}
+        if not (k4_split == K4_PER_CALL * n and out["corpus"]["k4_events_fused"] == K4_PER_CALL * n
+                and err["fused"] <= 10 * GRAPH_TOL and err["plain"] <= 10 * GRAPH_TOL):
+            raise AssertionError(f"bigvgan corpus: {out['corpus']}")
+        del split, fused, want
+    torch.cuda.empty_cache()
+    rows = shapes.check(dev, torch.Generator().manual_seed(SEED))
+    out["k4_shapes"] = {"tolerance": K4_TOL, "n": len(rows),
+                        "worst_rel_err": max(r["rel_err"] for r in rows), "rows": rows}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3847,7 +3996,7 @@ def main() -> int:
           "python": sys.version.split()[0], "device_count": torch.cuda.device_count()})
 
     # 2. build K1, K2 and K3, one nvcc each, started together
-    names = ("mrf_stage", "mas", "mrf_phase")
+    names = ("mrf_stage", "mas", "mrf_phase", "aa_snake")
     compiled = [n for n in names if not cuda_build.library_path(n).exists()]
     t0 = time.perf_counter()
     cuda_build.load_all(names)
@@ -3970,6 +4119,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dp_serve = dp_serving(dev, model, vocoder, bias)
     dp_serve_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit({"phase": "bigvgan", **bigvgan_phase(dev, model), "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
 
     # K1 at the dynamic path's shape, at 512 frames, and at every mel bucket

@@ -35,11 +35,13 @@ at a time, in length-sorted batches (``--batched``, ``--staged``) or
 sentence by sentence (``--long-form``). ``--batched --staged`` prints
 the corpus's frame fill (``corpus_frames_true`` over
 ``corpus_frames_decoded``: the share of the decoded mel frames that are
-speech, not bucket padding) and, split, how many batches replayed a decode
-graph and how many captured one; ``--trace-spans PATH`` records the
+speech, not bucket padding), split, how many batches replayed a decode
+graph and how many captured one, and with BigVGAN the launches of K4
+(``ops/aa_snake.py::LAUNCHES``); ``--trace-spans PATH`` records the
 pipeline's spans (``utils/tracing.py``) and writes them as a Chrome trace.
 Models are named as in JAX's registry (``--model matcha_ljspeech |
-matcha_vctk``, ``--vocoder hifigan_T2_v1 | hifigan_univ_v1``, with each
+matcha_vctk``, ``--vocoder hifigan_T2_v1 | hifigan_univ_v1 |
+bigvgan_v2_22khz_80band_fmax8k_256x``, with each
 model's default vocoder, speaking rate and speaker: ``validate_args``) and
 read from ``$MATCHA_HOME/matcha_tpu/<name>[.ckpt]``; nothing is
 downloaded (the published URLs are named when a file is missing).
@@ -68,6 +70,7 @@ import torch
 from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.convert import fold_hifigan_state_dict
 from matcha_tpu_torch.fused import DecodeGraph, FusedGraph, StageGraph, _pack_pcm24
+from matcha_tpu_torch.models import bigvgan
 from matcha_tpu_torch.models.denoiser import compute_bias_spec, denoise
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import (
@@ -76,6 +79,7 @@ from matcha_tpu_torch.models.hifigan_fused import (
     generator_apply_fused,
 )
 from matcha_tpu_torch.models.matcha import MatchaTTS, check_speakers, decoder_cast
+from matcha_tpu_torch.ops import aa_snake
 from matcha_tpu_torch.parallel.mesh import replica_rows
 from matcha_tpu_torch.text import intersperse, sequence_to_text, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
@@ -91,7 +95,10 @@ MATCHA_URLS = {
 VOCODER_URLS = {
     "hifigan_T2_v1": "https://github.com/shivammehta25/Matcha-TTS-checkpoints/releases/download/v1.0/generator_v1",
     "hifigan_univ_v1": "https://github.com/shivammehta25/Matcha-TTS-checkpoints/releases/download/v1.0/g_02500000",
+    "bigvgan_v2_22khz_80band_fmax8k_256x": "https://huggingface.co/nvidia/bigvgan_v2_22khz_80band_fmax8k_256x/resolve/main/bigvgan_generator.pt",
 }
+#: the vocoders of ``VOCODER_URLS`` that are BigVGAN generators (the rest are HiFi-GAN v1)
+BIGVGAN_VOCODERS = {"bigvgan_v2_22khz_80band_fmax8k_256x": bigvgan.BigVGANConfig()}
 
 MULTISPEAKER_MODEL = {
     "matcha_vctk": {"vocoder": "hifigan_univ_v1", "speaking_rate": 0.85, "spk": 0, "spk_range": (0, 107)}
@@ -264,6 +271,14 @@ class TTSPipeline:
         # generator is left as it is)
         self.vocoder_bf16 = vocoder_bf16
         vocoder = None if vocoder is None else vocoder.to(self.device).eval()
+        if isinstance(vocoder, bigvgan.Generator):
+            for flag, on in (("vocoder_bf16", vocoder_bf16), ("bf16_latency", bf16_latency),
+                             ("vocoder_chunk", vocoder_chunk)):
+                if on:
+                    raise ValueError(
+                        f"{flag} with a BigVGAN vocoder: BigVGAN runs in float32 only, and "
+                        f"the chunk halo (VOC_CHUNK_HALO) is HiFi-GAN's receptive field, not "
+                        f"BigVGAN's")
         self._vocoders = {}
         if vocoder is not None:
             self._vocoders[False] = self._packed(vocoder)
@@ -271,6 +286,9 @@ class TTSPipeline:
                 self._vocoders[True] = self._packed(
                     copy.deepcopy(vocoder).to(torch.bfloat16).eval())
         self.vocoder = None if vocoder is None else self._vocoders[vocoder_bf16][0]
+        #: ``hifigan`` or ``bigvgan`` (the ``models.vocode`` span's ``arch``)
+        self.vocoder_arch = (None if vocoder is None else
+                             "bigvgan" if isinstance(vocoder, bigvgan.Generator) else "hifigan")
         # the fused stages' kernel weights, packed once here and not per call
         self.vocoder_weights = None if vocoder is None else self._vocoders[vocoder_bf16][1]
         # the fixed-bucket body's Euler loop on a bf16 copy of the decoder
@@ -371,10 +389,21 @@ class TTSPipeline:
         return {k: (torch.cat([o[k].to(self.device) for o in outs]) if outs[0][k].dim()
                     else outs[0][k]) for k in outs[0]}
 
-    def _packed(self, vocoder: Generator) -> tuple:
+    def _packed(self, vocoder) -> tuple:
         """(generator, its fused stages' packed weights under this
-        pipeline's cap)."""
-        return vocoder, fused_stage_weights(vocoder, self.max_fused_channels)
+        pipeline's cap, or None, and the call mel (B, T, n_feats) -> (B, T *
+        hop, 1) that ``_generate`` makes), chosen here once by the
+        generator's class: HiFi-GAN through ``generator_apply_fused``, BigVGAN
+        its own forward on its snake terms computed now (K4 on a GPU unless
+        ``vocoder_pallas`` is False)."""
+        if isinstance(vocoder, bigvgan.Generator):
+            fused = self.vocoder_pallas
+            vocoder.prepare()
+            return vocoder, None, lambda mel: vocoder(mel, fused=fused)
+        weights = fused_stage_weights(vocoder, self.max_fused_channels)
+        cap = self.max_fused_channels
+        return vocoder, weights, lambda mel: generator_apply_fused(vocoder, mel, weights,
+                                                                   max_fused_channels=cap)
 
     def _generate(self, mel_btc: torch.Tensor, bf16: Optional[bool] = None) -> torch.Tensor:
         """Mel (B, T, n_feats) f32 -> the generator's output (B, T * hop, 1)
@@ -388,11 +417,11 @@ class TTSPipeline:
         if bf16 not in self._vocoders:
             raise ValueError("a bf16 vocoder call on a pipeline built without vocoder_bf16 or "
                              "bf16_latency")
-        gen, weights = self._vocoders[bf16]
+        call = self._vocoders[bf16][2]
         mel = mel_btc.to(torch.bfloat16) if bf16 else mel_btc
 
         def run(m):
-            out = generator_apply_fused(gen, m, weights, max_fused_channels=self.max_fused_channels)
+            out = call(m)
             return out.float() if bf16 else out
 
         chunk, halo = self.vocoder_chunk, self.VOC_CHUNK_HALO
@@ -410,9 +439,11 @@ class TTSPipeline:
         """Mel (B, T, n_feats) -> clipped, denoised waveform (B, T * hop),
         f32. ``bf16``: the generator in bf16 (None = ``vocoder_bf16``); the
         clip and the denoiser run in f32 on its output either way. Spans
-        ``models.vocode`` (the generator and the clip) and ``models.denoise``,
-        except while a CUDA graph captures the call."""
-        with _eager_span("models.vocode", mel_btc):
+        ``models.vocode`` (the generator and the clip; attributes ``arch``,
+        ``B`` and ``T_voc``) and ``models.denoise``, except while a CUDA graph
+        captures the call."""
+        with _eager_span("models.vocode", mel_btc, arch=self.vocoder_arch, B=mel_btc.shape[0],
+                         T_voc=mel_btc.shape[1]):
             wav = torch.clamp(self._generate(mel_btc, bf16)[..., 0], -1.0, 1.0)
         if self.denoiser_bias is None:
             return wav
@@ -753,13 +784,13 @@ class TTSPipeline:
         return out
 
 
-def _eager_span(name: str, x: torch.Tensor):
-    """``tracing.span(name)`` around eager work on ``x``, and nothing while a
-    CUDA graph captures it: a capture runs this host code once, a replay
-    never."""
+def _eager_span(name: str, x: torch.Tensor, **attrs):
+    """``tracing.span(name, **attrs)`` around eager work on ``x``, and nothing
+    while a CUDA graph captures it: a capture runs this host code once, a
+    replay never."""
     if tracing.enabled() and x.is_cuda and torch.cuda.is_current_stream_capturing():
         return contextlib.nullcontext()
-    return tracing.span(name)
+    return tracing.span(name, **attrs)
 
 
 def _indexed(device: torch.device) -> torch.device:
@@ -873,9 +904,11 @@ def load_matcha(checkpoint_path, device=None) -> MatchaTTS:
 
 
 def load_vocoder(checkpoint_path, device=None, name: str = "hifigan_T2_v1"):
-    """A reference HiFi-GAN v1 generator file of the vocoder ``name`` (one
-    of ``VOCODER_URLS``; both are v1) -> (Generator with weight norm
-    folded, denoiser bias spectrum from its output on a zero mel)."""
+    """A published generator file ``{"generator": state_dict}`` of the
+    vocoder ``name`` (one of ``VOCODER_URLS``) -> (generator with weight
+    norm folded, denoiser bias). HiFi-GAN v1: the bias spectrum of its
+    output on a zero mel. BigVGAN (``BIGVGAN_VOCODERS``): the bias is None,
+    as BigVGAN's own inference does not denoise."""
     if name not in VOCODER_URLS:
         raise NotImplementedError(
             f"Vocoder {name} not implemented! define a load_<<vocoder_name>> method for it")
@@ -883,11 +916,13 @@ def load_vocoder(checkpoint_path, device=None, name: str = "hifigan_T2_v1"):
     print(f"[!] Loading {path.name}!")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["generator"] if "generator" in ckpt else ckpt
-    vocoder = Generator(HiFiGANConfig())
+    big = name in BIGVGAN_VOCODERS
+    vocoder = bigvgan.Generator(BIGVGAN_VOCODERS[name]) if big else Generator(HiFiGANConfig())
     vocoder.load_state_dict(fold_hifigan_state_dict(sd))
     device = resolve_device(device)
     vocoder = vocoder.to(device).eval()
-    bias = compute_bias_spec(lambda mel: generator_apply_fused(vocoder, mel), device=device)
+    bias = None if big else compute_bias_spec(lambda mel: generator_apply_fused(vocoder, mel),
+                                              device=device)
     print(f"[+] {path.name} loaded!")
     return vocoder, bias
 
@@ -987,6 +1022,7 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
     total_samples = 0
     true0, decoded0 = pipeline.corpus_frames_true, pipeline.corpus_frames_decoded
     replays0, captures0 = pipeline.corpus_decode_replays, pipeline.corpus_decode_captures
+    k4_0 = aa_snake.LAUNCHES["aa_snake"]
     n_batches = 0
     for chunk, out in pipeline.synthesise_corpus(
             utts, n_timesteps=args.steps, temperature=args.temperature,
@@ -1009,6 +1045,9 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
     if not args.fused_stage:
         print(f"[🍵] Corpus decode: {pipeline.corpus_decode_replays - replays0} replays, "
               f"{pipeline.corpus_decode_captures - captures0} captures, of {n_batches} batches")
+    k4 = aa_snake.LAUNCHES["aa_snake"] - k4_0
+    if k4:
+        print(f"[🍵] Corpus K4 (anti-aliased SnakeBeta) launches: {k4} (replays run it uncounted)")
     _print_rtf_summary([rtf])
 
 

@@ -39,7 +39,9 @@ serves every speaker: ``--spk`` is the default of requests that omit
 static input). A speaker id outside the model's range is answered with
 400 before it is queued. ``--model`` and ``--vocoder`` name the files
 as the CLI does, through its ``validate_args`` (each model's default
-vocoder, speaking rate and speaker).
+vocoder, speaking rate and speaker); ``--vocoder
+bigvgan_v2_22khz_80band_fmax8k_256x`` serves BigVGAN-v2 (float32 only, so
+not with ``--bf16-vocoder`` or ``--vocoder-chunk``).
 
 Tracing (``utils/tracing.py``, off unless ``--trace-spans PATH``): each
 request's ``serve.request`` span from its enqueue to its wake-up is tiled

@@ -1008,3 +1008,163 @@ def test_program_span_lands_over_its_kernel_in_the_trace(cuda_f32, traced):
     assert spins[1].duration_ns() > 5e5
     assert abs(k0 - probe.t0_ns) <= 1e5 and abs(k1 - probe.t1_ns) <= 1e5, (
         k0 - probe.t0_ns, k1 - probe.t1_ns)
+
+
+# --------------------------------------------------------------------------
+# K4: BigVGAN's anti-aliased SnakeBeta (ops/aa_snake.py, csrc/aa_snake.cu)
+
+#: K4 against the plain sequence (cuDNN's depthwise convs, TF32 off), as a
+#: share of the plain output's largest magnitude: the sums run in another
+#: order, and a rounding of the snake's argument u e^alpha (up to ~50 here)
+#: by one ulp moves sin^2 by ~1e-5 of the output's scale at most; a bf16
+#: instance of the same arithmetic errs by ~4e-3
+K4_TOL = 1e-4
+#: (B, C, L) of the published BigVGAN's six stages and activation_post at
+#: 128 mel frames and B = 8, and odd lengths, where the clamps at both ends
+#: and a partial last tile decide
+K4_SHAPES = [(8, 768, 512), (8, 384, 2048), (8, 192, 4096), (8, 96, 8192), (8, 48, 16384),
+             (8, 24, 32768), (1, 3, 1), (2, 5, 2), (1, 7, 3), (3, 16, 511), (2, 8, 513),
+             (1, 4, 1025)]
+
+
+def _k4_problem(seed, B, C, L, device):
+    from matcha_tpu_torch.ops import aa_snake
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, C, L, generator=g).to(device)
+    freq, inv_mag = aa_snake.snake_terms((0.5 * torch.randn(C, generator=g)).to(device),
+                                         (0.5 * torch.randn(C, generator=g)).to(device))
+    return x, freq, inv_mag, aa_snake.kaiser_sinc_filter().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,L", K4_SHAPES)
+def test_aa_snake_kernel_matches_plain(cuda_f32, B, C, L):
+    from matcha_tpu_torch.ops import aa_snake
+
+    x, freq, inv_mag, h = _k4_problem(B * C + L, B, C, L, cuda_f32)
+    before = aa_snake.LAUNCHES["aa_snake"]
+    got = aa_snake.aa_snake(x, freq, inv_mag, h)
+    want = aa_snake.aa_snake(x, freq, inv_mag, h, fused=False)
+    torch.cuda.synchronize()
+    assert aa_snake.LAUNCHES["aa_snake"] == before + 1
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= K4_TOL * scale
+    # the same arithmetic on bf16-rounded input misses the tolerance
+    rounded = aa_snake.aa_snake(x.bfloat16().float(), freq, inv_mag, h)
+    if L > 2:
+        assert (rounded - want).abs().max().item() > K4_TOL * scale
+
+
+@pytest.mark.cuda
+def test_aa_snake_kernel_refuses_what_it_cannot_take(cuda_f32):
+    from matcha_tpu_torch.ops import aa_snake
+
+    x, freq, inv_mag, h = _k4_problem(1, 1, 4, 64, cuda_f32)
+    with pytest.raises(ValueError):
+        aa_snake.aa_snake(x.double(), freq.double(), inv_mag.double(), h.double())
+    with pytest.raises(ValueError):
+        aa_snake.aa_snake(x[..., ::2], freq, inv_mag, h)
+    with pytest.raises(ValueError):
+        aa_snake.aa_snake(x, freq[:3], inv_mag, h)
+    with pytest.raises(ValueError):
+        aa_snake.aa_snake(x, freq.cpu(), inv_mag, h)
+
+
+def _small_bigvgan(device):
+    from matcha_tpu_torch.models.bigvgan import BigVGANConfig
+    from matcha_tpu_torch.models.bigvgan import Generator as BigVGAN
+
+    torch.manual_seed(4)
+    gen = BigVGAN(BigVGANConfig(upsample_initial_channel=64, upsample_rates=(4, 4, 2),
+                                upsample_kernel_sizes=(8, 8, 4)))
+    with torch.no_grad():
+        for a in gen.activations():
+            a.act.alpha.normal_(0.0, 0.5)
+            a.act.beta.normal_(0.0, 0.5)
+    return gen.to(device).eval()
+
+
+@pytest.mark.cuda
+def test_bigvgan_generator_launches_k4_per_activation(cuda_f32):
+    """3 stages x 18 + 1 launches a call; the output within 1e-4 of the
+    plain generator's (the clamp's range)."""
+    from matcha_tpu_torch.ops import aa_snake
+
+    gen = _small_bigvgan(cuda_f32).prepare()
+    mel = torch.randn(2, 50, 80, generator=torch.Generator().manual_seed(6)).to(cuda_f32)
+    before = aa_snake.LAUNCHES["aa_snake"]
+    got = gen(mel)
+    torch.cuda.synchronize()
+    assert aa_snake.LAUNCHES["aa_snake"] - before == 3 * 18 + 1
+    want = gen(mel, fused=False)
+    assert aa_snake.LAUNCHES["aa_snake"] - before == 3 * 18 + 1
+    assert got.shape == (2, 50 * 32, 1)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bigvgan_in_a_captured_cuda_graph(cuda_f32):
+    """The generator captured as a CUDA graph (K4 launches on the capture
+    stream, the snake terms computed before the capture): a replay on new
+    input equals the eager call, and launches nothing the counter sees."""
+    from matcha_tpu_torch.ops import aa_snake
+
+    gen = _small_bigvgan(cuda_f32).prepare()
+    g = torch.Generator().manual_seed(7)
+    static = torch.randn(1, 40, 80, generator=g).to(cuda_f32)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        gen(static)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = aa_snake.LAUNCHES["aa_snake"]
+    with torch.cuda.graph(graph):
+        out = gen(static)
+    assert aa_snake.LAUNCHES["aa_snake"] - before == 3 * 18 + 1
+    new = torch.randn(1, 40, 80, generator=g).to(cuda_f32)
+    static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert aa_snake.LAUNCHES["aa_snake"] - before == 3 * 18 + 1
+    assert (out - gen(new)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_bigvgan_pipeline_paths_on_cuda(cuda_f32):
+    """``TTSPipeline`` with the small BigVGAN: the split corpus path (K4
+    per activation), the fused stage as CUDA graphs and the fixed-bucket
+    graph against the plain generator (``vocoder_pallas=False``) on the
+    same noise."""
+    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tpu_torch.ops import aa_snake
+
+    torch.manual_seed(3)
+    model = MatchaTTS(enc_n_channels=32, enc_filter_channels=64, enc_filter_channels_dp=32,
+                      enc_n_heads=2, enc_n_layers=2, dec_channels=(32, 32),
+                      dec_attention_head_dim=16, dec_num_heads=2)
+    gen = _small_bigvgan(cuda_f32)
+    pipe, plain = (TTSPipeline(model, gen, None, device=cuda_f32, vocoder_pallas=p)
+                   for p in (True, False))
+    utts = _corpus(13, 5)
+
+    def corpus(p, fuse):
+        return list(p.synthesise_corpus(utts, n_timesteps=2, batch_size=2, fuse_stages=fuse,
+                                        generator=torch.Generator(cuda_f32).manual_seed(5)))
+
+    want = corpus(plain, False)
+    before = aa_snake.LAUNCHES["aa_snake"]
+    split = corpus(pipe, False)
+    assert aa_snake.LAUNCHES["aa_snake"] - before == (3 * 18 + 1) * len(want)
+    fused = corpus(pipe, True)
+    for outs in (split, fused):
+        for (_, a), (_, b) in zip(outs, want):
+            assert (a["mel_lengths_host"] == b["mel_lengths_host"]).all()
+            assert (a["waveform"] - b["waveform"]).abs().max().item() <= 1e-4
+    x, xl = _ids(1, 40)
+    z = torch.randn(1, 256, 80, generator=torch.Generator().manual_seed(2)).to(cuda_f32)
+    got = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256)
+    ref = plain.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256, cuda_graph=False)
+    assert (got["waveform"] - ref["waveform"]).abs().max().item() <= 1e-4
