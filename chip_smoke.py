@@ -4229,7 +4229,8 @@ def main() -> int:
     bf16_path = [r for r in precision["k1_bf16"] if r["shape"] == "main_path"]
     emit({"kernels": [
         {"name": "mrf_stage", "route": "cuda", "status": "ported",
-         "engine": "tensor cores: 3xTF32 mma.sync.m16n8k8, f32 sums",
+         "engine": "tensor cores: 3xTF32 wgmma m64nCk8 (A from registers, B from a shared "
+                   "weight ring), f32 sums",
          "source": "matcha_tpu_torch/csrc/mrf_stage.cu",
          "replaces": "matcha_tpu/ops/mrf_pallas.py:121",
          "launches": launches,
@@ -4265,7 +4266,7 @@ def main() -> int:
         {"name": "mrf_stage_bf16", "route": "cuda", "status": "ported",
          "path": "generator_apply_fused(compute_dtype=bfloat16): the stage profiler's "
                  "--mrf-dtype bfloat16 (the Pallas kernel's compute_dtype)",
-         "engine": "tensor cores: bf16 mma.sync.m16n8k16, f32 sums",
+         "engine": "tensor cores: bf16 wgmma m64nCk16, f32 sums",
          "source": "matcha_tpu_torch/csrc/mrf_stage.cu",
          "replaces": "matcha_tpu/ops/mrf_pallas.py:121",
          "launches": precision["k1_bf16_launches"],
@@ -4303,7 +4304,7 @@ def main() -> int:
          "library_ms": None},
         {"name": "mrf_stage_phase", "route": "cuda", "status": "ported",
          "path": "vocoder variants, narrow_impl='phase'",
-         "engine": "tensor cores: 3xTF32 mma.sync.m16n8k8, f32 sums",
+         "engine": "tensor cores: K1's 3xTF32 wgmma pass, f32 sums",
          "source": "matcha_tpu_torch/csrc/mrf_phase.cu",
          "replaces": "matcha_tpu/ops/mrf_pallas.py:347",
          "launches": variants["launches"]["k3"],

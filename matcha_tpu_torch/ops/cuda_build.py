@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/matcha_tpu_torch/`` of the checkout (gitignored), keyed on a hash
-of the source and the flags, and loaded with ``ctypes``. The host
+of the source, every header in ``csrc/`` and the flags, and loaded with
+``ctypes``. The host
 libraries of the repo's ``native/`` sources are compiled with ``g++``
 into the same directory (``build_host_library``), never next to their
 source.
@@ -34,6 +35,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -11,10 +11,12 @@ name) its second instance, whose products take both operands rounded to
 bf16 and sum in f32. A CPU tensor takes ``fused_mrf_stage_reference``.
 
 The kernel reads all of a stage's weights from one buffer. ``pack_mrf_weights``
-copies the tuple into it once, when a model is loaded, and returns the tuple
-as views of that buffer; the kernel takes only weights packed so. It takes
-every multiple of 16 channels up to 128; above C = 80 its conv-1 buffer
-moves from shared memory to a global scratch the wrapper allocates.
+copies the tuple into it once, when a model is loaded, appends the weights
+as the kernel stages them (split into TF32 hi and lo, and rounded to bf16,
+in the K-major tiles its products read), and returns the tuple as f32 views
+of that buffer; the kernel takes only weights packed so. It takes every
+multiple of 16 channels up to 128; above C = 80 its conv-1 buffer moves from
+shared memory to a global scratch the wrapper allocates.
 """
 
 import ctypes
@@ -32,19 +34,22 @@ LAUNCHES = {"mrf_stage": 0, "mrf_stage_bf16": 0}
 #: the products' operand types, each a compiled instance of the kernel
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
-HALO = 64  # halo per side in the kernel; >= the stage's receptive field
-MARGIN = 32  # zero rows per buffer side; >= the widest tap reach c0 * d
+HALO = 64  # window rows per side of the tile in the kernel; >= the receptive field
 MAX_BLOCKS = MAX_DIL = 4
-KERNEL_SIZES = (3, 7, 11)  # the kernel's compiled tap counts (HiFi-GAN v1, v2)
-MAX_THREADS = 384
+KERNEL_SIZES = (3, 7, 11)  # the tap counts the kernel takes (HiFi-GAN v1, v2)
 MAX_CHANNELS = 128
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
-# the geometry of K1 (csrc/mrf_stage.cu), which K3 (csrc/mrf_phase.cu) shares
-TILE_STEP = 16  # t_tile granularity: one m16 tile of time rows
-BAND = 32  # time rows of one warp's work item: two m16 tiles
-TAIL = BAND - TILE_STEP  # rows after a buffer's last margin: the last band's reach
+# the geometry of the conv pass K1 and K3 share (csrc/mrf_conv.cuh)
+TILE_STEP = 16  # t_tile granularity
+WG_ROWS = 64  # time rows of one warpgroup product
+N_WG = 2  # consumer warpgroups
+THREADS = 128 * N_WG + 128  # and the producer's warpgroup
+RING = 4  # weight stages in shared memory
+TF32_KC = 16  # input channels of one 3xTF32 weight stage
+ROW_PAD = 8  # a buffer row holds C + ROW_PAD floats
 MIN_TILE = 64  # the smallest tile pick_t_tile chooses: below it K1 got no faster on an H100
 SMS = 132  # streaming multiprocessors of an H100 SXM
+HIFIGAN_KS, HIFIGAN_DILS = (3, 7, 11), ((1, 3, 5),) * 3  # HiFi-GAN v1's and v2's MRF
 
 
 def receptive_field(kernel_sizes, dilations) -> int:
@@ -54,14 +59,35 @@ def receptive_field(kernel_sizes, dilations) -> int:
                for k, dils in zip(kernel_sizes, dilations))
 
 
+def chain_reaches(k: int, dils) -> Tuple[int, ...]:
+    """How far each conv of a ResBlock1 chain reaches, in order: c0 * d for
+    a dilated conv, c0 for the d=1 conv after it."""
+    c0 = (k - 1) // 2
+    return tuple(r for d in dils for r in (c0 * int(d), c0))
+
+
+def conv_rows(t_tile: int, k: int, dils) -> Tuple[Tuple[int, int], ...]:
+    """The rows each conv of a chain computes, as (first, end) relative to
+    the tile's first position, as the kernel schedules them: the central
+    ``t_tile`` plus, each side, ``rem`` = what the chain's later convs
+    still reach, rounded up to whole WG_ROWS tiles past the end (rows
+    the kernel computes but never stores)."""
+    reaches = chain_reaches(k, dils)
+    rows = []
+    for i in range(len(reaches)):
+        rem = sum(reaches[i + 1:])
+        rows.append((-rem, -rem + -(-(t_tile + 2 * rem) // WG_ROWS) * WG_ROWS))
+    return tuple(rows)
+
+
 def _most_tile(C: int, buffers: int) -> int:
-    """The largest multiple of TILE_STEP whose shared rows of C + 4 floats
-    fit the block's shared memory: with two buffers [MARGIN][xb][MARGIN]
-    [hb][MARGIN][TAIL], with one [MARGIN][xb][MARGIN][TAIL]; a buffer holds
-    t_tile + 2*HALO rows."""
-    rows = SMEM_LIMIT // ((C + 4) * 4) - TAIL
-    e_max = (rows - 3 * MARGIN) // 2 if buffers == 2 else rows - 2 * MARGIN
-    return (e_max - 2 * HALO) // TILE_STEP * TILE_STEP
+    """The largest multiple of TILE_STEP whose window fits the block's
+    shared memory beside the ring of RING 3xTF32 weight stages (and 256
+    bytes for the mbarriers and alignment): ``buffers`` buffers of t_tile +
+    2*HALO rows of C + ROW_PAD floats."""
+    ring = RING * 2 * C * TF32_KC * 4
+    rows = (SMEM_LIMIT - 256 - ring) // ((C + ROW_PAD) * 4)
+    return (rows // buffers - 2 * HALO) // TILE_STEP * TILE_STEP
 
 
 def hb_in_global(C: int) -> bool:
@@ -70,14 +96,15 @@ def hb_in_global(C: int) -> bool:
     return _most_tile(C, 2) < 128
 
 
-def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None, B: int = 1) -> int:
+def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None, B: int = 1,
+                kernel_sizes=HIFIGAN_KS, dilations=HIFIGAN_DILS) -> int:
     """Central tile length: ``t_tile`` when given (a multiple of TILE_STEP;
     one above the largest that fits is clamped to it, as the JAX kernels
     clamp theirs, since the output does not depend on the tile), else the
     tile from MIN_TILE up to the largest that fits whose B * ceil(T /
-    t_tile) blocks take the fewest waves of SMS blocks, each of t_tile +
-    2*HALO rows of work (the larger tile on a tie); no longer than T
-    rounded up to TILE_STEP."""
+    t_tile) blocks take the fewest waves of SMS blocks times the rows a
+    block computes, tap-weighted (``conv_rows``; the larger tile on a
+    tie); no longer than T rounded up to TILE_STEP."""
     if C > MAX_CHANNELS:
         raise ValueError(f"C={C} is too wide for the fused MRF kernel "
                          f"(at most {MAX_CHANNELS} channels)")
@@ -87,10 +114,18 @@ def pick_t_tile(C: int, T: int, t_tile: Optional[int] = None, B: int = 1) -> int
     whole = -(-T // TILE_STEP) * TILE_STEP
     if t_tile is not None:
         return min(t_tile, most, whole)
-    top = min(most, whole)
+    return _auto_tile(C, T, B, min(most, whole), tuple(map(int, kernel_sizes)),
+                      tuple(tuple(map(int, d)) for d in dilations))
+
+
+@functools.lru_cache(maxsize=4096)
+def _auto_tile(C, T, B, top, kernel_sizes, dilations) -> int:
+    """pick_t_tile's own choice, cached: it runs at every launch."""
 
     def cost(t):
-        return -(-B * -(-T // t) // SMS) * (t + 2 * HALO), -t
+        rows = sum(k * (end - first) for k, dils in zip(kernel_sizes, dilations)
+                   for first, end in conv_rows(t, k, dils))
+        return -(-B * -(-T // t) // SMS) * rows, -t
 
     return min(range(min(MIN_TILE, top), top + 1, TILE_STEP), key=cost)
 
@@ -153,8 +188,6 @@ def check_stage(C: int, device, weights, kernel_sizes, dilations) -> Tuple[int, 
                          f"(at most {MAX_CHANNELS} channels)")
     if receptive_field(kernel_sizes, dilations) > HALO:
         raise ValueError(f"receptive field exceeds the kernel's halo of {HALO}")
-    if max((k - 1) // 2 * int(d) for k, dils in zip(kernel_sizes, dilations) for d in dils) > MARGIN:
-        raise ValueError(f"a tap reaches past the kernel's {MARGIN}-column margin")
     if any(k not in KERNEL_SIZES for k in kernel_sizes):
         raise ValueError(f"kernel sizes {kernel_sizes}: the kernel is built for {KERNEL_SIZES}")
     if len(weights) != 4 * n_blocks:
@@ -170,6 +203,11 @@ def check_stage(C: int, device, weights, kernel_sizes, dilations) -> Tuple[int, 
         if w.data_ptr() != offset or not w.is_contiguous():
             raise ValueError("the kernel takes weights packed into one buffer by pack_mrf_weights")
         offset += 4 * w.numel()
+    storage = weights[0].untyped_storage()
+    if (storage.data_ptr() + storage.nbytes() < offset + staged_bytes(weights)
+            or weights[0].data_ptr() % 16):
+        raise ValueError("the kernel takes weights packed into one buffer by pack_mrf_weights, "
+                         "with their staged copies")
     return n_blocks, n_dil
 
 
@@ -179,7 +217,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mrf_stage_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                                     i, i, p]
+                                     i, p]
     lib.mrf_stage_launch.restype = ctypes.c_int
     lib.mrf_error_string.argtypes = [ctypes.c_int]
     lib.mrf_error_string.restype = ctypes.c_char_p
@@ -189,14 +227,12 @@ def _library():
 def _launch(x, weights, kernel_sizes, dilations, t_tile, compute_dtype) -> torch.Tensor:
     n_blocks, n_dil = _check(x, weights, kernel_sizes, dilations)
     B, C, T = x.shape
-    t_tile = pick_t_tile(C, T, t_tile, B)
-    n_items = -(-(t_tile + 2 * HALO) // BAND) * (2 if C > 64 else 1)  # (band, C_out half)
-    threads = 32 * min(n_items, MAX_THREADS // 32)
+    t_tile = pick_t_tile(C, T, t_tile, B, kernel_sizes, dilations)
     y = torch.empty_like(x)
     scratch = None
-    if hb_in_global(C):
+    if hb_in_global(C):  # per block: the window and the rows a last tile's taps read past it
         n_tiles = -(-T // t_tile)
-        scratch = torch.empty(B * n_tiles * (t_tile + 2 * HALO + 2 * MARGIN + TAIL) * (C + 4),
+        scratch = torch.empty(B * n_tiles * (t_tile + 2 * HALO + WG_ROWS) * (C + ROW_PAD),
                               dtype=torch.float32, device=x.device)
     ks = (ctypes.c_int * n_blocks)(*kernel_sizes)
     ds = (ctypes.c_int * (n_blocks * n_dil))(*(int(d) for dils in dilations for d in dils))
@@ -206,7 +242,7 @@ def _launch(x, weights, kernel_sizes, dilations, t_tile, compute_dtype) -> torch
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mrf_stage_launch(x.data_ptr(), weights[0].data_ptr(), y.data_ptr(),
                                    None if scratch is None else scratch.data_ptr(), B, C, T,
-                                   t_tile, n_blocks, n_dil, ks, ds, threads, int(bf16), stream)
+                                   t_tile, n_blocks, n_dil, ks, ds, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage launch failed: {lib.mrf_error_string(err).decode()}")
     LAUNCHES["mrf_stage_bf16" if bf16 else "mrf_stage"] += 1
@@ -236,11 +272,71 @@ def fused_mrf_stage(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return _launch(x, weights, kernel_sizes, dilations, t_tile, compute_dtype)
 
 
+def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w = hi + lo, hi rounded to TF32 (to nearest, ties away from zero:
+    the kernel's ``split``, on the bits), lo the exact remainder."""
+    bits = w.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w - hi
+
+
+def bf16_stage_channels(C: int) -> int:
+    """Input channels of one bf16 weight stage (two k16 steps where C
+    allows)."""
+    return 32 if C % 32 == 0 else 16
+
+
+def staged_tf32(W: torch.Tensor) -> torch.Tensor:
+    """A conv's weights (n_dil, k, C_in, C_out) as the 3xTF32 instance
+    stages them: per (dilation, tap, TF32_KC input channels) a hi tile
+    then a lo tile, each K-major in core matrices of 8 output channels x 4
+    input channels, [c_out // 8][kk // 4][c_out % 8][kk % 4], where within
+    each 8 channels position kk holds channel 2 kk (kk < 4) or 2 (kk - 4)
+    + 1, the channels a lane's A fragment loads as one float2."""
+    n_dil, k, C, _ = W.shape
+    order = torch.tensor([2 * i for i in range(4)] + [2 * i + 1 for i in range(4)])
+    order = torch.cat([order + 8 * s for s in range(TF32_KC // 8)]).to(W.device)
+    t = W.reshape(n_dil, k, C // TF32_KC, TF32_KC, C)[:, :, :, order]
+    t = t.transpose(3, 4).reshape(n_dil, k, C // TF32_KC, C // 8, 8, TF32_KC // 4, 4)
+    t = t.permute(0, 1, 2, 3, 5, 4, 6).reshape(n_dil, k, C // TF32_KC, 1, -1)
+    return torch.cat(split_tf32(t), dim=3).reshape(-1)
+
+
+def staged_bf16(W: torch.Tensor) -> torch.Tensor:
+    """A conv's weights as the bf16 instance stages them, rounded to bf16
+    (to nearest even): per (dilation, tap, stage of input channels) one
+    tile, K-major in core matrices of 8 output x 8 input channels,
+    [c_out // 8][kk // 8][c_out % 8][kk % 8], in the channels' own order;
+    returned as the f32 words that hold them."""
+    n_dil, k, C, _ = W.shape
+    kc = bf16_stage_channels(C)
+    t = W.reshape(n_dil, k, C // kc, kc, C).transpose(3, 4)
+    t = t.reshape(n_dil, k, C // kc, C // 8, 8, kc // 8, 8).permute(0, 1, 2, 3, 5, 4, 6)
+    return t.to(torch.bfloat16).reshape(-1).view(torch.float32)
+
+
+def _staged_convs(weights: Sequence[torch.Tensor]):
+    """The conv weights the kernel stages: every 4-D one, at a width the
+    kernel takes (a multiple of 16; it refuses any other stage)."""
+    return [w for w in weights if w.dim() == 4 and w.shape[-1] % 16 == 0]
+
+
+def staged_bytes(weights: Sequence[torch.Tensor]) -> int:
+    """Bytes the staged copies take after the f32 tuple: each staged conv
+    weight twice in TF32 (hi, lo) and once in bf16."""
+    return sum(10 * w.numel() for w in _staged_convs(weights))
+
+
 def pack_mrf_weights(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Copy the weight tuple into one flat buffer, in the order the kernel
-    reads it, and return the tuple as views of that buffer."""
-    flat = torch.cat([w.reshape(-1) for w in weights])
-    parts = flat.split([w.numel() for w in weights])
+    reads it, followed by its staged copies (every conv weight of a width
+    the kernel takes, in order as ``staged_tf32``, then every one as
+    ``staged_bf16``; the kernel finds them from the shapes), and return the
+    tuple as f32 views of the buffer's start."""
+    convs = _staged_convs(weights)
+    flat = torch.cat([w.reshape(-1) for w in weights] + [staged_tf32(w) for w in convs]
+                     + [staged_bf16(w) for w in convs])
+    parts = flat[:sum(w.numel() for w in weights)].split([w.numel() for w in weights])
     return tuple(part.view(w.shape) for part, w in zip(parts, weights))
 
 

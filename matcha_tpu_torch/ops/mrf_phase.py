@@ -15,9 +15,9 @@ function hands it to its plain kernel.
 The phase packing (time phases stacked on the channel axis, x_packed[(p,
 c), s] = x[P*s + p, c]) exists to fill a TPU's 128-row matrix unit at
 C = 32. The CUDA kernel does not pack: time is the rows of its products
-and a tap is a row offset. It runs K1's conv pass (3xTF32 tensor-core
-products with f32 accuracy, K1's tile and rows) on channels-last rows
-(see the source), and agrees with K1 on the transposed input. The packing
+and a tap is a row offset. It runs K1's conv pass (``csrc/mrf_conv.cuh``:
+3xTF32 warpgroup products with f32 accuracy, K1's tile and rows) on
+channels-last rows, and equals K1 on the transposed input. The packing
 survives here as the plain version, an independent formulation of the
 stage that the tests hold against K1's plain ``F.conv1d`` chain and
 against JAX.
@@ -36,8 +36,8 @@ from matcha_tpu_torch.ops import cuda_build, mrf
 #: launches of the CUDA kernel in this process (the CPU path does not count)
 LAUNCHES = {"mrf_stage_phase": 0}
 
-MAX_CHANNELS = 64  # the widest C with P = 128 // C >= 2; the halo, margin,
-# thread and shared-memory limits are K1's (``mrf.HALO`` etc.)
+MAX_CHANNELS = 64  # the widest C with P = 128 // C >= 2; the halo, thread
+# and shared-memory limits are K1's (``mrf.HALO`` etc.)
 
 
 # --- the phase packing (own copy of the JAX package's helpers) ------------
@@ -152,14 +152,14 @@ def fused_mrf_stage_phase_reference(x: torch.Tensor, weights: Sequence[torch.Ten
 
 # --- the kernel ------------------------------------------------------------
 
-def launch_geometry(C: int, T: int, B: int = 1, t_tile: Optional[int] = None) -> Tuple[int, int]:
-    """(t_tile, threads) of a launch. The kernel keeps K1's rows at C <= 64
-    (two shared buffers of t_tile + 2*HALO rows of C + 4 floats), so its
-    tile is K1's, ``mrf.pick_t_tile``; one warp per BAND rows of the
-    window, at most MAX_THREADS."""
-    t_tile = mrf.pick_t_tile(C, T, t_tile, B)
-    bands = -(-(t_tile + 2 * mrf.HALO) // mrf.BAND)
-    return t_tile, 32 * min(bands, mrf.MAX_THREADS // 32)
+def launch_geometry(C: int, T: int, B: int = 1, t_tile: Optional[int] = None,
+                    kernel_sizes=mrf.HIFIGAN_KS, dilations=mrf.HIFIGAN_DILS) -> Tuple[int, int]:
+    """(t_tile, threads) of a launch. The kernel runs K1's conv pass on
+    K1's rows at C <= 64 (two shared buffers of t_tile + 2*HALO rows of
+    C + ROW_PAD floats beside the weight ring), so its tile is K1's,
+    ``mrf.pick_t_tile``, and so are its threads: two consumer warpgroups
+    and the producer's."""
+    return mrf.pick_t_tile(C, T, t_tile, B, kernel_sizes, dilations), mrf.THREADS
 
 
 def _check(x, weights, kernel_sizes, dilations) -> Tuple[int, int]:
@@ -179,8 +179,7 @@ def _library():
     lib = cuda_build.load("mrf_phase")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mrf_phase_launch.argtypes = [p, p, p, i, i, i, i, i, i,
-                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                                     i, p]
+                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), p]
     lib.mrf_phase_launch.restype = ctypes.c_int
     lib.mrf_phase_error_string.argtypes = [ctypes.c_int]
     lib.mrf_phase_error_string.restype = ctypes.c_char_p
@@ -190,7 +189,7 @@ def _library():
 def _launch(x, weights, kernel_sizes, dilations, t_tile) -> torch.Tensor:
     n_blocks, n_dil = _check(x, weights, kernel_sizes, dilations)
     B, T, C = x.shape
-    t_tile, threads = launch_geometry(C, T, B, t_tile)
+    t_tile, _ = launch_geometry(C, T, B, t_tile, kernel_sizes, dilations)
     y = torch.empty_like(x)
     ks = (ctypes.c_int * n_blocks)(*kernel_sizes)
     ds = (ctypes.c_int * (n_blocks * n_dil))(*(int(d) for dils in dilations for d in dils))
@@ -198,7 +197,7 @@ def _launch(x, weights, kernel_sizes, dilations, t_tile) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mrf_phase_launch(x.data_ptr(), weights[0].data_ptr(), y.data_ptr(), B, C, T,
-                                   t_tile, n_blocks, n_dil, ks, ds, threads, stream)
+                                   t_tile, n_blocks, n_dil, ks, ds, stream)
     if err != 0:
         raise RuntimeError(f"mrf_phase launch failed: {lib.mrf_phase_error_string(err).decode()}")
     LAUNCHES["mrf_stage_phase"] += 1

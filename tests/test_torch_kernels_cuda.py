@@ -12,7 +12,7 @@ import torch
 
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused
-from matcha_tpu_torch.ops import mas, mrf, mrf_phase
+from matcha_tpu_torch.ops import cuda_build, mas, mrf, mrf_phase
 
 KS, DILS = (3, 7, 11), ((1, 3, 5),) * 3
 
@@ -76,6 +76,31 @@ def test_fused_mrf_kernel_explicit_tiles(cuda_f32, C, t_tile):
     want = mrf.fused_mrf_stage_reference(x, weights, KS, DILS)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T_mel", [(64, 384), (32, 384), (64, 768), (32, 768)])
+def test_fused_mrf_kernel_at_the_corpus_shapes(cuda_f32, C, T_mel):
+    """K1 at the staged corpus's own shapes (B = 8, T = 128 x a mel bucket
+    at C = 64, 256 x at C = 32; its tiles cross passes over the weights):
+    atol 1e-4 against its plain version (the old mma.sync pass read up to
+    6.9e-6 at the corpus's shapes on an H100), in one launch of a kernel
+    whose name holds ``mrf_stage_kernel``, the events k1_roofline.corpus
+    counts, a name no kernel of K3's library holds."""
+    g = torch.Generator().manual_seed(C + T_mel)
+    T = T_mel * (128 if C == 64 else 256)
+    x = torch.randn(8, C, T, generator=g).to(cuda_f32)
+    weights = _stage_weights(g, C, cuda_f32)
+    before = mrf.LAUNCHES["mrf_stage"]
+    got = mrf.fused_mrf_stage(x, weights, KS, DILS)
+    torch.cuda.synchronize()
+    assert mrf.LAUNCHES["mrf_stage"] == before + 1
+    want = mrf.fused_mrf_stage_reference(x, weights, KS, DILS)
+    assert (got - want).abs().max().item() < 1e-4
+    mrf_phase.fused_mrf_stage_phase(torch.zeros(1, 64, 32, device=cuda_f32),
+                                    _stage_weights(g, 32, cuda_f32))  # K3's library built
+    assert b"mrf_stage_kernel" in cuda_build.library_path("mrf_stage").read_bytes()
+    assert b"mrf_stage_kernel" not in cuda_build.library_path("mrf_phase").read_bytes()
 
 
 @pytest.mark.cuda

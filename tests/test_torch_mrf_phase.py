@@ -131,18 +131,21 @@ def test_p1_branch_goes_to_k1(C):
 
 def test_kernel_geometry_and_argument_checks():
     """K3's launch (K1's tile and threads: two shared buffers of t_tile +
-    128 rows of C + 4 floats, a warp per 32 rows), and its refusals; K1's
-    tiles up to C = 128 (conv-1 buffer in global scratch above C = 80)."""
-    assert mrf_phase.launch_geometry(64, 10**6, B=8) == (240, 384)  # 848 rows x 272 B
-    assert mrf_phase.launch_geometry(32, 10**6, B=8) == (608, 384)
-    assert mrf_phase.launch_geometry(16, 10**6, B=8) == (1264, 384)
-    assert mrf_phase.launch_geometry(32, 100) == (64, 192)  # MIN_TILE: 6 bands of 32 rows
-    assert mrf_phase.launch_geometry(64, 8192, B=8) == (176, 320)
+    128 rows of C + 8 floats beside the weight ring, two consumer
+    warpgroups and the producer's), and its refusals; K1's tiles up to
+    C = 128 (conv-1 buffer in global scratch above C = 80). The tiles are
+    those of the fewest waves times rows computed (``mrf.conv_rows``), up
+    to the largest that fits."""
+    assert mrf_phase.launch_geometry(64, 10**6, B=8) == (208, 384)  # the largest: 672 x 288 B
+    assert mrf_phase.launch_geometry(32, 10**6, B=8) == (496, 384)  # 544 fits; 496: fewer rows
+    assert mrf_phase.launch_geometry(16, 10**6, B=8) == (880, 384)  # 1,024 fits
+    assert mrf_phase.launch_geometry(32, 100) == (64, 384)  # MIN_TILE
+    assert mrf_phase.launch_geometry(64, 8192, B=8) == (176, 384)
     assert mrf_phase.launch_geometry(32, 10**6, 1, 256) == (256, 384)
-    assert mrf_phase.launch_geometry(64, 10**6, 1, 256) == (240, 384)  # clamped
+    assert mrf_phase.launch_geometry(64, 10**6, 1, 256) == (208, 384)  # clamped
     with pytest.raises(ValueError, match="multiple of 16"):
         mrf_phase.launch_geometry(64, 10**6, 1, 40)
-    assert [mrf.pick_t_tile(C, 10**6, B=8) for C in (80, 96, 112, 128)] == [160, 368, 288, 224]
+    assert [mrf.pick_t_tile(C, 10**6, B=8) for C in (80, 96, 112, 128)] == [128, 304, 224, 176]
     assert [mrf.hb_in_global(C) for C in (32, 64, 80, 96, 128)] == [False] * 3 + [True] * 2
     with pytest.raises(ValueError, match="too wide"):
         mrf.pick_t_tile(256, 1000)

@@ -67,16 +67,18 @@ def test_mrf_weights_from_resblocks_match_the_plain_stage():
 
 def test_kernel_geometry_and_argument_checks():
     assert mrf.receptive_field(KS, DILS) == 60 <= mrf.HALO
-    # two buffers of t_tile + 128 rows, three 32-row margins and a 16-row
-    # tail, rows of C + 4 f32: 848 x 272 = 230,656 B at C = 64 (t_tile 256
-    # would need 239,360 B); 1,584 x 144 = 228,096 B at C = 32
-    assert mrf._most_tile(64, 2) == 240
-    assert mrf._most_tile(32, 2) == 608
+    # two buffers of t_tile + 128 rows of C + 8 f32 beside a ring of four
+    # 3xTF32 weight stages (16 input channels: 128 C bytes each) and 256 B
+    # for the mbarriers: 672 x 288 + 32,768 + 256 = 226,560 B at C = 64
+    # (t_tile 224 would need 235,776 B); 1,344 x 160 + 16,640 = 231,680 B
+    # at C = 32 (560: 236,800 B)
+    assert mrf._most_tile(64, 2) == 208
+    assert mrf._most_tile(32, 2) == 544
     # one request's narrow stages (B = 1): tiles that fill the 132 SMs in
     # whole waves; at B = 8 the largest that fits
-    assert mrf.pick_t_tile(64, 32768) == 128  # 256 blocks: 2 waves of 256 rows
+    assert mrf.pick_t_tile(64, 32768) == 128  # 256 blocks: 2 waves
     assert mrf.pick_t_tile(32, 65536) == 512  # 128 blocks: 1 wave
-    assert mrf.pick_t_tile(64, 131072, B=8) == 240
+    assert mrf.pick_t_tile(64, 131072, B=8) == 208
     assert mrf.pick_t_tile(64, 100) == 64
     assert mrf.pick_t_tile(64, 40) == 48  # no longer than T rounded up to 16
     x, weights = _stage_inputs(32, 1, 40)
@@ -112,6 +114,119 @@ def test_k1_tile_follows_the_batch(C, T):
     assert mrf.pick_t_tile(C, T, most + mrf.TILE_STEP, B=8) == most  # and clamped
     with pytest.raises(ValueError, match="t_tile"):
         mrf.pick_t_tile(C, T, 40)
+
+
+# HiFi-GAN v1's and v2's MRF (the same chains), and a 2-chain stage
+CHAIN_CONFIGS = {"hifigan_v1_v2": (KS, DILS), "two_chains": ((3, 7), ((1, 3), (1, 3)))}
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN_CONFIGS))
+@pytest.mark.parametrize("t_tile", [16, 208, 544])
+def test_conv_rows_cover_what_each_next_conv_reads(name, t_tile):
+    """The kernel's row schedule (``mrf.conv_rows``): each conv computes
+    whole 64-row tiles from the tile start minus what the chain's later
+    convs reach; every conv covers the rows the next one reads, the first
+    reads the chain's own receptive field (the window load; the stage's
+    receptive field for the widest chain), and the last computes from the
+    central tile's first row (only the tile is stored)."""
+    ks, dils = CHAIN_CONFIGS[name]
+    fields = []
+    for k, d in zip(ks, dils):
+        rows, reaches = mrf.conv_rows(t_tile, k, d), mrf.chain_reaches(k, d)
+        assert len(rows) == len(reaches) == 2 * len(d)
+        for i, (first, end) in enumerate(rows):
+            rem = sum(reaches[i + 1:])
+            assert first == -rem and (end - first) % mrf.WG_ROWS == 0
+            assert t_tile + rem <= end < t_tile + rem + mrf.WG_ROWS
+            if i + 1 < len(rows):  # what conv i + 1 reads, conv i stored
+                nxt = rows[i + 1][0] - reaches[i + 1], t_tile + rem
+                assert first <= nxt[0] and nxt[1] <= t_tile + rem
+        fields.append(sum(reaches))
+        assert -rows[0][0] + reaches[0] == sum(reaches)  # the window: its own field
+        assert rows[-1][0] == 0  # the last conv: the central tile
+    assert max(fields) == mrf.receptive_field(ks, dils) <= mrf.HALO
+
+
+@pytest.mark.parametrize("C", [16, 48, 64])
+def test_load_time_weight_split_is_exact(C):
+    """The weights split once when packed: hi + lo == w exactly, hi with
+    its 13 low mantissa bits clear (TF32), as the kernel splits its
+    activations; and the staged copies follow the f32 tuple in one buffer
+    (``staged_bytes`` of them)."""
+    g = torch.Generator().manual_seed(C)
+    w = torch.randn(3, 7, C, C, generator=g) * torch.logspace(-8, 2, C)
+    hi, lo = mrf.split_tf32(w)
+    assert torch.equal(hi + lo, w)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert (lo.abs() <= hi.abs() * 2.0 ** -11).all()
+    weights = [(torch.randn(shape, generator=g) * 0.1)
+               for k in KS for shape in ((3, k, C, C), (3, C), (3, k, C, C), (3, C))]
+    packed = mrf.pack_mrf_weights(weights)
+    assert all(torch.equal(a, b) for a, b in zip(packed, weights))
+    storage = packed[0].untyped_storage()
+    tuple_bytes = 4 * sum(x.numel() for x in weights)
+    assert storage.nbytes() == tuple_bytes + mrf.staged_bytes(weights)
+
+
+def _read_stage(buf: bytes, stage: int, C: int, bf16: bool) -> torch.Tensor:
+    """One weight stage as the kernel's products read it: for each k step
+    the (K, N) matrix at the descriptor's start + 256 B per step, core
+    matrices of 8 rows x 16 B, 128 B apart along K and SBO apart along N;
+    3xTF32 stages are a hi tile then a lo tile. Returns (steps, [hi, lo,]
+    K, N) as f32."""
+    kc = mrf.bf16_stage_channels(C) if bf16 else mrf.TF32_KC
+    per = 8 if bf16 else 4  # elements of a core matrix row (16 B)
+    step_k, sbo = 2 * per, kc // per * 128
+    esize, tiles = (2, 1) if bf16 else (4, 2)
+    start = stage * tiles * C * kc * esize
+    kk, n = torch.meshgrid(torch.arange(step_k), torch.arange(C), indexing="ij")
+    out = []
+    for step in range(kc // step_k):
+        for tile in range(tiles):
+            off = (start + tile * C * kc * esize + step * 256 + n // 8 * sbo
+                   + kk // per * 128 + n % 8 * 16 + kk % per * esize)
+            raw = torch.frombuffer(bytearray(buf), dtype=torch.uint8)
+            idx = off.reshape(-1, 1) + torch.arange(esize)
+            vals = raw[idx.reshape(-1)].reshape(-1, esize)
+            vals = vals.view(torch.bfloat16).float() if bf16 else vals.view(torch.float32)
+            out.append(vals.reshape(step_k, C))
+    return torch.stack(out).reshape(kc // step_k, tiles, step_k, C)
+
+
+@pytest.mark.parametrize("C,bf16", [(16, False), (32, False), (64, False), (16, True),
+                                    (48, True), (64, True)])
+def test_staged_weights_read_as_the_kernel_reads_them(C, bf16):
+    """The staged copies, read through the kernel's descriptor arithmetic,
+    are W.permute of the tuple's (dilation, tap, C_in, C_out) weights: per
+    k step, row k of the 3xTF32 products is input channel 2k (k < 4) or
+    2(k - 4) + 1 of its 8 (the channels a lane's A fragment loads as one
+    float2), hi and lo; of the bf16 products the channel itself, rounded to
+    bf16 (to nearest even)."""
+    g = torch.Generator().manual_seed(C + bf16)
+    W = torch.randn(2, 3, C, C, generator=g)
+    staged = mrf.staged_bf16(W) if bf16 else mrf.staged_tf32(W)
+    buf = staged.numpy().tobytes()
+    kc = mrf.bf16_stage_channels(C) if bf16 else mrf.TF32_KC
+    order = torch.arange(8) if bf16 else torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    hi, lo = mrf.split_tf32(W)
+    stage = 0
+    for j in range(2):
+        for tap in range(3):
+            for ci0 in range(0, C, kc):
+                got = _read_stage(buf, stage, C, bf16)
+                for step in range(got.shape[0]):
+                    base = ci0 + step * (16 if bf16 else 8)
+                    chans = (base + torch.cat([order, order + 8]) if bf16
+                             else base + order)
+                    Wt = W.permute(0, 1, 3, 2)[j, tap][:, chans].T  # (K, N)
+                    if bf16:
+                        assert torch.equal(got[step, 0], Wt.to(torch.bfloat16).float())
+                    else:
+                        assert torch.equal(got[step, 0], hi.permute(0, 1, 3, 2)[j, tap][:, chans].T)
+                        assert torch.equal(got[step, 1], lo.permute(0, 1, 3, 2)[j, tap][:, chans].T)
+                        assert torch.equal(got[step, 0] + got[step, 1], Wt)
+                stage += 1
+    assert stage * (C * kc * (2 if bf16 else 8)) == staged.numel() * 4
 
 
 def _small_generators(seed=0):
