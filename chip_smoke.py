@@ -1145,7 +1145,7 @@ def fused_path(dev, model, vocoder, bias, texts, requests, dynamic_lat) -> dict:
     after (it counts at capture and in eager runs, never in a replay)."""
     import torch
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.ops import mrf
 
     bucket = next(b for b in TTSPipeline.FUSED_Y_BUCKETS
@@ -1322,7 +1322,7 @@ def staged_corpus(dev, model, vocoder, bias) -> dict:
     import numpy as np
     import torch
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.ops import mrf
     from matcha_tpu_torch.scripts.trace_settle import corpus_utterances
 
@@ -1462,7 +1462,7 @@ def serve_phase(dev, model, vocoder, bias) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile as trace
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.ops import mrf
     from matcha_tpu_torch.scripts import bench_serve
     from matcha_tpu_torch.scripts.profile_latency import SENTENCES
@@ -1680,7 +1680,7 @@ def precision_fixed_bucket(dev, model, vocoder, bias, tp, bucket, shapes) -> dic
     default) must give full precision's mel lengths."""
     import torch
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.ops import mrf
 
     z = torch.randn(1, bucket, model.n_feats, generator=torch.Generator().manual_seed(SEED + 5))
@@ -1850,7 +1850,7 @@ def precision_daemon(dev, model, vocoder, bias) -> dict:
     import torch
 
     from matcha_tpu_torch import serve
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
 
     set_tf32(False)
     rows = {}
@@ -2015,7 +2015,7 @@ def multispeaker_serving(dev, vocoder, bias, texts) -> dict:
     import numpy as np
     import torch
 
-    from matcha_tpu_torch.cli import X_BUCKETS, TTSPipeline, pick_bucket
+    from matcha_tpu_torch.pipeline import X_BUCKETS, TTSPipeline, pick_bucket
     from matcha_tpu_torch.models.matcha import MatchaTTS
     from matcha_tpu_torch.ops import mrf
     from matcha_tpu_torch.scripts.trace_settle import corpus_utterances
@@ -2221,7 +2221,7 @@ def conformer_serving(dev, vocoder, bias, tp) -> dict:
     memory. K1's count set to 0 before and read after each mode."""
     import torch
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.matcha import MatchaTTS
     from matcha_tpu_torch.ops import mrf
 
@@ -3091,7 +3091,8 @@ def dp_serving(dev, model, vocoder, bias) -> dict:
     import torch
 
     from matcha_tpu_torch import serve
-    from matcha_tpu_torch.cli import TTSPipeline, data_parallel_devices
+    from matcha_tpu_torch.cli import data_parallel_devices
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.ops import mrf
     from matcha_tpu_torch.scripts.trace_settle import corpus_utterances
 
@@ -3882,7 +3883,7 @@ def bigvgan_phase(dev, model) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile as trace
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.bigvgan import Generator as BigVGAN
     from matcha_tpu_torch.ops import aa_snake
     from matcha_tpu_torch.scripts.trace_settle import TRACE_SETTLE_S, corpus_utterances
@@ -3967,7 +3968,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from matcha_tpu_torch.cli import VOC_BUCKETS, Y_BUCKETS, TTSPipeline, pick_bucket, process_text
+    from matcha_tpu_torch.cli import process_text
+    from matcha_tpu_torch.pipeline import VOC_BUCKETS, Y_BUCKETS, TTSPipeline, pick_bucket
     from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
     from matcha_tpu_torch.models.hifigan_fused import MAX_FUSED_CHANNELS, generator_apply_fused

@@ -18,15 +18,13 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch.cli import (
-    HOP,
-    SAMPLE_RATE,
-    TTSPipeline,
     assert_required_models_available,
     get_user_data_dir,
     load_matcha,
     load_vocoder,
     process_text,
 )
+from matcha_tpu_torch.pipeline import HOP, SAMPLE_RATE, TTSPipeline
 from matcha_tpu_torch.utils.utils import save_plot
 
 LOCATION = Path(get_user_data_dir())

@@ -163,6 +163,13 @@ class MatchaTTS(nn.Module):
                                                    y_max_length)
         decoder_outputs, mel = self.flow(mu_y, y_mask, n_timesteps, temperature, z, generator,
                                          self._speaker(spks), compute_dtype)
+        return self.decode_dict(attn, mu_y, y_lengths, decoder_outputs, mel)
+
+    @staticmethod
+    def decode_dict(attn: torch.Tensor, mu_y: torch.Tensor, y_lengths: torch.Tensor,
+                    decoder_outputs: torch.Tensor, mel: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """:meth:`decode_body`'s dict of :meth:`align`'s ``attn``, ``mu_y``
+        and clipped ``y_lengths`` and :meth:`flow`'s outputs."""
         return {
             "encoder_outputs": mu_y.transpose(1, 2),
             "decoder_outputs": decoder_outputs,

@@ -6,7 +6,7 @@ The ``data`` axis: JAX shards the leading axis of a batch over it; the
 port gives each data index a contiguous slice of rows: a rank of a
 ``DistributedDataParallel`` job in training (every rank of a model group
 holds the same rows), a replica of the models in serving
-(``cli.TTSPipeline(devices=)``).
+(``pipeline.TTSPipeline(devices=)``).
 
 The ``model`` axis (``TP_RULES``): the wide projections split
 Megatron-style, a column split (output features) then a row split (input

@@ -143,7 +143,7 @@ def build_pipeline(device, seed: int):
     """The full-width LJSpeech Matcha + HiFi-GAN v1, weights from ``seed``."""
     import torch
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
     from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused

@@ -65,12 +65,11 @@ def stage_split(pipe, tp, reps: int) -> dict:
     """One dynamic-path request of the processed sentence ``tp`` stage by
     stage, a synchronise after each: median ms of ``reps`` after one
     warm-up per stage, with the mel and vocoder buckets it ran at."""
-    from matcha_tpu_torch.cli import VOC_BUCKETS, X_BUCKETS, Y_BUCKETS, pick_bucket
     from matcha_tpu_torch.models.denoiser import denoise
+    from matcha_tpu_torch.pipeline import X_BUCKETS, Y_BUCKETS, pad_ids, pick_bucket, voc_bucket
 
     dev = pipe.device
-    x_pad = np.zeros((1, pick_bucket(tp["x"].shape[-1], X_BUCKETS)), np.int64)
-    x_pad[:, :tp["x"].shape[-1]] = tp["x"]
+    x_pad, _ = pad_ids(tp["x"], pick_bucket(tp["x"].shape[-1], X_BUCKETS), dtype=np.int64)
     x_t, xl = torch.from_numpy(x_pad).to(dev), torch.from_numpy(tp["x_lengths"]).to(dev)
     split = {name: [] for name in STAGES}
     for rep in range(reps + 1):
@@ -87,7 +86,7 @@ def stage_split(pipe, tp, reps: int) -> dict:
         out = pipe.model.decode(mu_x, w_ceil, xl, y_len, 10, 0.667, y_max_length=T_y,
                                 generator=torch.Generator(dev).manual_seed(SEED))
         mark()
-        T_voc = min(T_y, pick_bucket(min(max_y, T_y), VOC_BUCKETS))
+        T_voc = voc_bucket(max_y, T_y)
         wav = pipe._generate(out["mel"].transpose(1, 2)[:, :T_voc])[..., 0]
         mark()
         denoise(torch.clamp(wav, -1.0, 1.0), pipe.denoiser_bias, strength=pipe.denoiser_strength)
@@ -107,7 +106,8 @@ def main(argv=None) -> None:
         raise SystemExit("profile_latency: needs a CUDA device")
 
     import matcha_tpu_torch
-    from matcha_tpu_torch.cli import TTSPipeline, process_text
+    from matcha_tpu_torch.cli import process_text
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
     from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused

@@ -90,7 +90,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("trace_settle: needs a CUDA device")
 
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
     from matcha_tpu_torch.models.hifigan_fused import generator_apply_fused

@@ -72,13 +72,13 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch import resolve_device
-from matcha_tpu_torch.cli import (HOP, MATCHA_URLS, SAMPLE_RATE, VOC_BUCKETS, VOCODER_URLS,
-                                  X_BUCKETS, Y_BUCKETS, TTSPipeline,
-                                  assert_required_models_available, fetch_fused_host,
+from matcha_tpu_torch.cli import (MATCHA_URLS, VOCODER_URLS, assert_required_models_available,
                                   data_parallel_devices, load_matcha, load_vocoder,
-                                  pick_bucket, resolve_speaker, speaker_batch, validate_args)
-from matcha_tpu_torch.fused import _pack_pcm24
+                                  resolve_speaker, validate_args)
 from matcha_tpu_torch.models.matcha import check_speakers
+from matcha_tpu_torch.pipeline import (HOP, SAMPLE_RATE, X_BUCKETS, Y_BUCKETS, TTSPipeline,
+                                       fetch_fused_host, pad_ids, pick_bucket, speaker_batch,
+                                       voc_bucket)
 from matcha_tpu_torch.text import intersperse, text_to_sequence
 from matcha_tpu_torch.text.segment import split_sentences
 from matcha_tpu_torch.utils import tracing
@@ -479,10 +479,8 @@ class BatchingServer:
             T_x = self._route_x(len(r.seq))
             T_y = self._pick_fused_bucket(T_x, rate, spk is not None, len(r.seq))
             if T_y:
-                x1 = np.zeros((1, T_x), np.int32)
-                x1[0, :len(r.seq)] = r.seq
                 out = self.pipeline.synthesise_batch(
-                    x1, np.asarray([len(r.seq)], np.int32), n_timesteps=self.n_timesteps,
+                    *pad_ids([r.seq], T_x), n_timesteps=self.n_timesteps,
                     temperature=self.temperature, length_scale=rate, fixed_y_bucket=T_y,
                     generator=self._next_generator(), spks=speaker_batch(spk, 1))
                 out["_fused_T_y"] = T_y  # the saturation check's marker
@@ -494,14 +492,9 @@ class BatchingServer:
         while B < len(reqs):
             B *= 2
         T = self._route_x(max(len(r.seq) for r in reqs))
-        x = np.zeros((B, T), np.int32)
-        xl = np.ones((B,), np.int32)
-        for i, r in enumerate(reqs):
-            x[i, :len(r.seq)] = r.seq
-            xl[i] = len(r.seq)
         return self.pipeline.synthesise_batch(
-            x, xl, n_timesteps=self.n_timesteps, temperature=self.temperature,
-            length_scale=rate, generator=self._next_generator(),
+            *pad_ids([r.seq for r in reqs], T, B), n_timesteps=self.n_timesteps,
+            temperature=self.temperature, length_scale=rate, generator=self._next_generator(),
             pack_wav=self.pipeline.pcm24_transfer, spks=speaker_batch(spk, B))
 
     def _hand_over(self, reqs, out):
@@ -521,21 +514,11 @@ class BatchingServer:
 
     def _pick_fused_bucket(self, T_x: int, rate: float, has_spk: bool,
                            n_ids: int) -> Optional[int]:
-        """The tightest warmed fast-path bucket that holds the estimated
-        length (the pipeline's calibrated frames per id, as ``"auto"``
-        uses it); the largest warmed one before calibration. The
-        saturation check in ``_complete`` catches an underestimate."""
+        """The warmed fast-path bucket that ``fit_y_bucket`` picks, as for
+        ``"auto"``; None when none is warmed for the key. The saturation
+        check in ``_complete`` catches an underestimate."""
         buckets = self._fused_warm.get((T_x, rate, has_spk))
-        if not buckets:
-            return None
-        ratio = self.pipeline._dur_ratio
-        if ratio is None:
-            return buckets[-1]
-        est = n_ids * rate * ratio * self.pipeline.FUSED_MARGIN
-        for b in buckets:
-            if b >= est:
-                return b
-        return buckets[-1]
+        return self.pipeline.fit_y_bucket(buckets, n_ids, rate) if buckets else None
 
     def _complete(self, reqs, out):
         """Fetch a batch's results and wake its clients."""
@@ -562,11 +545,10 @@ class BatchingServer:
                     # the warmed bucket was too small: run the request again
                     # on the dynamic path, at a warmed x bucket
                     r = reqs[0]
-                    x1 = np.zeros((1, self._route_x(len(r.seq))), np.int32)
-                    x1[0, :len(r.seq)] = r.seq
+                    x1, xl1 = pad_ids([r.seq], self._route_x(len(r.seq)))
                     with tracing.span("serve.rerun", batch=r.batch):
                         out2 = self.pipeline.synthesise_batch(
-                            x1, np.asarray([len(r.seq)], np.int32), n_timesteps=self.n_timesteps,
+                            x1, xl1, n_timesteps=self.n_timesteps,
                             temperature=self.temperature, length_scale=r.speaking_rate,
                             generator=self._next_generator(),
                             pack_wav=self.pipeline.pcm24_transfer, spks=speaker_batch(r.spk, 1))
@@ -628,7 +610,7 @@ class BatchingServer:
                         key = (T_x, self.default_rate, self.default_spk is not None)
                         for T_f in sorted({max(64, T_y // 2), T_y}):
                             p.synthesise_batch(
-                                np.ones((1, T_x), np.int32), np.full((1,), T_x, np.int32),
+                                *pad_ids([np.ones(T_x, np.int32)], T_x),
                                 n_timesteps=self.n_timesteps, temperature=self.temperature,
                                 length_scale=self.default_rate, fixed_y_bucket=T_f,
                                 generator=self.call_generator(0),
@@ -654,23 +636,18 @@ class BatchingServer:
 
     def _warm_replica(self, r, B: int, T_x: int, y_buckets) -> None:
         gen = torch.Generator(r.device).manual_seed(call_seed(self.seed, 0))
-        x = torch.ones((B, T_x), dtype=torch.int64, device=r.device)
-        xl = torch.full((B,), T_x, dtype=torch.int32, device=r.device)
+        x, xl = (torch.from_numpy(a).to(r.device)
+                 for a in pad_ids([np.ones(T_x, np.int64)] * B, T_x, dtype=np.int64))
         spks = None if self.default_spk is None else torch.full(
             (B,), self.default_spk, dtype=torch.int64, device=r.device)
         mu_x, w_ceil, y_lengths = r.model.encode(x, xl, self.default_rate, spks)
         for T_yb in y_buckets:
-            prev_y = max([y for y in Y_BUCKETS if y < T_yb], default=0)
-            voc_lens = [v for v in VOC_BUCKETS if prev_y < v <= T_yb] or [T_yb]
             out = r.model.decode(mu_x, w_ceil, xl, y_lengths, self.n_timesteps,
                                  self.temperature, y_max_length=T_yb, generator=gen, spks=spks)
-            if r.vocoder is None:
-                continue
-            mel_btc = out["mel"].transpose(1, 2)
-            for T_voc in voc_lens:
-                wav = r.vocode(mel_btc[:, :T_voc])
-                if r.pcm24_transfer:
-                    _pack_pcm24(wav, out["mel_lengths"])
+            # every vocoder bucket of the longest mels that land in T_yb
+            prev_y = max([y for y in Y_BUCKETS if y < T_yb], default=0)
+            for T_voc in sorted({voc_bucket(m, T_yb) for m in range(prev_y + 1, T_yb + 1)}):
+                r.vocode_decoded(out, T_voc, r.pcm24_transfer)
 
 
 def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1", port: int = 8080):

@@ -1,5 +1,5 @@
-"""Host-side helpers: wav I/O, the blank interleave, the sweep metric,
-plots, and the task wrappers of the entry points.
+"""Host-side helpers: wav I/O and the 24-bit PCM wire format, the blank
+interleave, the sweep metric, plots, and the entry points' task wrappers.
 
 The port's own copies of ``matcha_tpu/utils/utils.py``'s ``pcm24_bytes``,
 ``write_wav``, ``read_wav``, ``get_metric_value``, ``plot_tensor``,
@@ -15,12 +15,14 @@ import wave
 import zlib
 
 import numpy as np
+import torch
 
 from matcha_tpu_torch.text import intersperse
 from matcha_tpu_torch.utils.pylogger import get_pylogger, process_rank
 
-__all__ = ["intersperse", "pcm24_bytes", "write_wav", "read_wav", "get_metric_value",
-           "plot_tensor", "save_plot", "write_png", "extras", "enforce_tags", "task_wrapper"]
+__all__ = ["intersperse", "pcm24_bytes", "pack_pcm24", "unpack_pcm24", "pcm24_lengths",
+           "write_wav", "read_wav", "get_metric_value", "plot_tensor", "save_plot", "write_png",
+           "extras", "enforce_tags", "task_wrapper"]
 
 log = get_pylogger(__name__)
 
@@ -35,6 +37,36 @@ def pcm24_bytes(audio: np.ndarray) -> bytes:
     clipped = np.clip(np.asarray(audio, dtype=np.float32).squeeze(), -1.0, 1.0)
     scaled = (clipped * PCM24_SCALE).astype("<i4")
     return np.frombuffer(scaled.tobytes(), dtype=np.uint8).reshape(-1, 4)[:, :3].tobytes()
+
+
+def pack_pcm24(wav: torch.Tensor, mel_lengths: torch.Tensor) -> torch.Tensor:
+    """(B, n) f32 waveform -> (B, 3n+3) uint8 little-endian 24-bit PCM on
+    the waveform's device (clip, scale by 2^23-1, truncate toward zero,
+    low 3 bytes), with mel_lengths appended as one trailing sample per
+    row."""
+    v = (torch.clamp(wav, -1.0, 1.0) * PCM24_SCALE).to(torch.int32)
+    v = torch.cat([v, mel_lengths[:, None].to(torch.int32)], dim=1)
+    b = torch.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF], dim=-1)
+    return b.to(torch.uint8).reshape(v.shape[0], -1)
+
+
+def unpack_pcm24(arr: np.ndarray):
+    """Host inverse of ``pack_pcm24``: (B, 3n+3) uint8 -> f32 waveform
+    (B, n) + int32 mel_lengths (B,)."""
+    u = arr.reshape(arr.shape[0], -1, 3).astype(np.int32)
+    v = u[..., 0] | (u[..., 1] << 8) | (u[..., 2] << 16)
+    v = (v ^ 0x800000) - 0x800000  # sign-extend 24 -> 32 bit
+    wav = (v[:, :-1] / np.float32(PCM24_SCALE)).astype(np.float32)
+    return wav, v[:, -1].astype(np.int32)
+
+
+def pcm24_lengths(arr: np.ndarray) -> np.ndarray:
+    """mel_lengths from packed PCM24 rows without decoding the audio: only
+    the trailing 3-byte sample of each row is read (lengths are positive
+    and below 2^23). The other bytes of a row are the WAV frames as
+    ``write_wav`` writes them."""
+    t = arr[:, -3:].astype(np.int32)
+    return t[:, 0] | (t[:, 1] << 8) | (t[:, 2] << 16)
 
 
 def write_wav(path, audio: np.ndarray, sample_rate: int = 22050) -> None:

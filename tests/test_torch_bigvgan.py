@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from benchmark.reference.models import bigvgan as ref
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch.models import bigvgan
 from matcha_tpu_torch.models.matcha import MatchaTTS
 from matcha_tpu_torch.ops import aa_snake as K4
@@ -227,7 +228,7 @@ def _reference_wav(reference, mel_bft, T_voc):
 @pytest.mark.parametrize("path", ["dynamic", "fused_graph"])
 def test_pipeline_batch_paths_vocode_as_the_reference(model, pair, path):
     port, reference = pair
-    pipe = port_cli.TTSPipeline(model, port, None, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, port, None, device="cpu")
     assert pipe.vocoder is port and pipe.vocoder_weights is None
     x, xl = _ids(4, (15, 9))
     kw = {"fixed_y_bucket": 64} if path == "fused_graph" else {}
@@ -241,7 +242,7 @@ def test_pipeline_batch_paths_vocode_as_the_reference(model, pair, path):
 @pytest.mark.parametrize("fuse_stages", [False, True], ids=["split", "fused_stage"])
 def test_pipeline_corpus_paths_vocode_as_the_reference(model, pair, fuse_stages):
     port, reference = pair
-    pipe = port_cli.TTSPipeline(model, port, None, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, port, None, device="cpu")
     x, xl = _ids(6, (12, 20, 7))
     utts = [x[i, :xl[i]] for i in range(len(xl))]
     n = 0
@@ -256,7 +257,7 @@ def test_pipeline_corpus_paths_vocode_as_the_reference(model, pair, fuse_stages)
 
 def test_vocode_span_names_the_architecture(pair):
     port, _ = pair
-    pipe = port_cli.TTSPipeline(MatchaTTS(**MODEL).eval(), port, None, device="cpu")
+    pipe = port_pipeline.TTSPipeline(MatchaTTS(**MODEL).eval(), port, None, device="cpu")
     tracing.reset()
     tracing.enable()
     try:
@@ -272,7 +273,7 @@ def test_vocode_span_names_the_architecture(pair):
                                 {"vocoder_chunk": 64}])
 def test_bf16_and_chunk_raise(model, pair, kw):
     with pytest.raises(ValueError, match="BigVGAN"):
-        port_cli.TTSPipeline(model, pair[0], None, device="cpu", **kw)
+        port_pipeline.TTSPipeline(model, pair[0], None, device="cpu", **kw)
 
 
 def _weight_normed(sd):

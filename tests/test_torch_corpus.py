@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from matcha_tpu import cli as jax_cli
-from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from tests.test_cli_e2e import fabricated_ckpts  # noqa: F401  (module fixture)
 from tests.test_torch_fused import CLEANER, MEL_TOL, WAV_TOL, _pipes, loaded  # noqa: F401
 
@@ -181,8 +181,8 @@ def test_chunked_vocoder_matches_jax_and_unchunked(loaded, monkeypatch):  # noqa
     model, params, voc, voc_params, _ = loaded["jax"]
     port_model, port_voc, _ = loaded["port"]
     jax_pipe = jax_cli.TTSPipeline(model, params, voc, voc_params, None, CLEANER, vocoder_chunk=48)
-    full, chunked = (port_cli.TTSPipeline(port_model, port_voc, None, CLEANER, device="cpu",
-                                          vocoder_chunk=c) for c in (0, 48))
+    full, chunked = (port_pipeline.TTSPipeline(port_model, port_voc, None, CLEANER, device="cpu",
+                                               vocoder_chunk=c) for c in (0, 48))
     rng = np.random.default_rng(9)
     x = rng.integers(1, 178, size=(2, 60)).astype(np.int32)
     xl = np.asarray([60, 41], np.int32)
@@ -201,7 +201,7 @@ def test_chunked_vocoder_matches_jax_and_unchunked(loaded, monkeypatch):  # noqa
     # the first row's first 160 frames: 4 windows, the last a short one
     mel = mel[:1, :160]
     gen64 = copy.deepcopy(port_voc).double()
-    monkeypatch.setattr(port_cli, "generator_apply_fused",
+    monkeypatch.setattr(port_pipeline, "generator_apply_fused",
                         lambda gen, m, w, **kw: gen64(m.double()))
     whole64, chunked64 = full._generate(mel), chunked._generate(mel)
     assert whole64.dtype == torch.float64 and whole64.shape == (1, 160 * 256, 1)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.matcha import MatchaTTS
 
@@ -78,7 +78,7 @@ def test_decode_graph_body_equals_decode(model, noise):
     generator into the static buffer, or handed in."""
     xl, spks, mu_x, w_ceil, y_lengths = _encoded(model)
     T_y = 32
-    pipe = port_cli.TTSPipeline(model, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, device="cpu")
     graph = pipe.decode_graph(3, T_y, STEPS, TEMPERATURE, has_spk=spks is not None)
     assert not graph.cuda_graph and graph.calls == 0
     z = torch.randn(3, T_y, MODEL["n_feats"], generator=torch.Generator().manual_seed(4))
@@ -115,7 +115,7 @@ def test_split_corpus_equals_direct_decode(model, vocoder):
     """Each batch of the split path against the encoder, ``model.decode``
     and ``vocode`` run directly on the same sorted batch, the noise drawn
     batch after batch from one generator seeded alike: every output equal."""
-    pipe = port_cli.TTSPipeline(model, vocoder, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, vocoder, device="cpu")
     spk = _spk(model)
     got = _split_corpus(pipe, spk)
     utts = _utterances()
@@ -125,7 +125,7 @@ def test_split_corpus_equals_direct_decode(model, vocoder):
     with torch.inference_mode():
         for bi, (chunk, out) in enumerate(got):
             assert chunk == order[2 * bi:2 * bi + 2]
-            T_x = port_cli.pick_bucket(max(len(utts[i]) for i in chunk), port_cli.X_BUCKETS)
+            T_x = port_pipeline.pick_bucket(max(len(utts[i]) for i in chunk), port_pipeline.X_BUCKETS)
             x = torch.zeros((len(chunk), T_x), dtype=torch.int64)
             for row, i in enumerate(chunk):
                 x[row, :len(utts[i])] = torch.from_numpy(utts[i])
@@ -133,8 +133,8 @@ def test_split_corpus_equals_direct_decode(model, vocoder):
             spks = None if spk is None else torch.full((len(chunk),), spk)
             mu_x, w_ceil, y_lengths = model.encode(x, xl, 1.0, spks)
             max_y = int(y_lengths.max())
-            T_y = port_cli.pick_bucket(max_y, port_cli.Y_BUCKETS)
-            T_voc = min(T_y, port_cli.pick_bucket(min(max_y, T_y), port_cli.VOC_BUCKETS))
+            T_y = port_pipeline.pick_bucket(max_y, port_pipeline.Y_BUCKETS)
+            T_voc = min(T_y, port_pipeline.pick_bucket(min(max_y, T_y), port_pipeline.VOC_BUCKETS))
             want = model.decode(mu_x, w_ceil, xl, y_lengths, STEPS, TEMPERATURE, y_max_length=T_y,
                                 generator=gen, spks=spks)
             want["waveform"] = pipe.vocode(want["mel"].transpose(1, 2)[:, :T_voc])
@@ -147,7 +147,7 @@ def test_one_decode_graph_per_batch_and_mel_bucket(model, vocoder):
     """``_graphs`` holds one decode body per distinct (B, T_y), none per x
     or vocoder bucket; each batch counts one capture (its key new) or one
     replay, and a second pass only replays."""
-    pipe = port_cli.TTSPipeline(model, vocoder, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, vocoder, device="cpu")
     spk = _spk(model)
     outs = _split_corpus(pipe, spk)
     keys = {(len(c), o["mel"].shape[-1]) for c, o in outs}
@@ -169,7 +169,7 @@ def test_one_decode_graph_per_batch_and_mel_bucket(model, vocoder):
 def test_fused_stage_counts_no_decode_graph(model, vocoder):
     """``fuse_stages=True`` runs the stage body: no decode body is built
     and the decode counters stay at 0."""
-    pipe = port_cli.TTSPipeline(model, vocoder, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, vocoder, device="cpu")
     outs = list(pipe.synthesise_corpus(_utterances()[:4], n_timesteps=1, batch_size=2,
                                        fuse_stages=True, spk=_spk(model),
                                        generator=torch.Generator().manual_seed(1)))

@@ -26,9 +26,11 @@ import torch
 from matcha_tpu import cli as jax_cli
 from matcha_tpu.text import segment as jax_segment
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch.audio import stft
 from matcha_tpu_torch.models.components import common, flow_matching
 from matcha_tpu_torch.text import segment as port_segment
+from matcha_tpu_torch.utils.utils import PCM24_SCALE
 from tests.test_cli_e2e import fabricated_ckpts  # noqa: F401  (module fixture)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -56,9 +58,9 @@ def _pipes(loaded, vocoder=True, **kw):
     port_model, port_voc, port_bias = loaded["port"]
     if not vocoder:
         return (jax_cli.TTSPipeline(model, params, cleaner=CLEANER, **kw),
-                port_cli.TTSPipeline(port_model, cleaner=CLEANER, device="cpu", **kw))
+                port_pipeline.TTSPipeline(port_model, cleaner=CLEANER, device="cpu", **kw))
     return (jax_cli.TTSPipeline(model, params, voc, voc_params, bias, CLEANER, **kw),
-            port_cli.TTSPipeline(port_model, port_voc, port_bias, CLEANER, device="cpu", **kw))
+            port_pipeline.TTSPipeline(port_model, port_voc, port_bias, CLEANER, device="cpu", **kw))
 
 
 def _ids(text):
@@ -105,12 +107,12 @@ def test_fixed_bucket_matches_jax(loaded):
     assert wav_t.shape == wav_j.shape == (1, 256 * 256) and np.isfinite(wav_t).all()
     np.testing.assert_allclose(wav_t, wav_j, atol=WAV_TOL)
 
-    wavs_t, mls_t = port_cli.fetch_fused_host(got)
+    wavs_t, mls_t = port_pipeline.fetch_fused_host(got)
     wavs_j, mls_j = jax_cli.fetch_fused_host(want)
     np.testing.assert_array_equal(mls_t, mls_j)
-    np.testing.assert_allclose(wavs_t, wavs_j, atol=WAV_TOL + 2.0 / port_cli.PCM24_SCALE)
+    np.testing.assert_allclose(wavs_t, wavs_j, atol=WAV_TOL + 2.0 / PCM24_SCALE)
     # the PCM24 bytes unpack to the clipped wav (the denoiser may overshoot +-1)
-    np.testing.assert_allclose(wavs_t, np.clip(wav_t, -1, 1), atol=2.0 / port_cli.PCM24_SCALE)
+    np.testing.assert_allclose(wavs_t, np.clip(wav_t, -1, 1), atol=2.0 / PCM24_SCALE)
 
 
 def test_f32_wire_packs_the_same_result(loaded):
@@ -122,7 +124,7 @@ def test_f32_wire_packs_the_same_result(loaded):
     got = port_pipe.synthesise_batch(x, xl, n_timesteps=2, z=_noise(jax.random.PRNGKey(4)),
                                      fixed_y_bucket=128)
     assert "wav_pcm24" not in got
-    wavs, mls = port_cli.fetch_fused_host(got)
+    wavs, mls = port_pipeline.fetch_fused_host(got)
     np.testing.assert_array_equal(wavs, got["waveform"].numpy())
     np.testing.assert_array_equal(mls, got["mel_lengths"].numpy())
 
@@ -195,31 +197,33 @@ def test_auto_fallback_keeps_raw_pcm24_delivery(loaded):
     assert raw_t.dtype == np.uint8 and raw_t.shape == raw_j.shape
     np.testing.assert_array_equal(got["mel_lengths_host"], want["mel_lengths_host"])
     assert int(got["mel_lengths_host"][0]) == 85
-    wav_t, ml_t = port_cli.fetch_fused_host(got)
+    wav_t, ml_t = port_pipeline.fetch_fused_host(got)
     wav_j, ml_j = jax_cli.fetch_fused_host(want)
     np.testing.assert_array_equal(ml_t, ml_j)
-    np.testing.assert_allclose(wav_t, wav_j, atol=WAV_TOL + 2.0 / port_cli.PCM24_SCALE)
+    np.testing.assert_allclose(wav_t, wav_j, atol=WAV_TOL + 2.0 / PCM24_SCALE)
 
 
 def test_calibration_matches_jax():
-    """(c) ``observe_dur_ratio`` and ``_auto_y_bucket`` over a seeded
-    sequence of ratios (with outliers that leave the 64-long window),
-    token counts and length scales."""
+    """(c) ``observe_dur_ratio`` and the fit of ``"auto"`` (``fit_y_bucket``
+    over ``FUSED_Y_BUCKETS``) against JAX's ``_auto_y_bucket`` over a
+    seeded sequence of ratios (with outliers that leave the 64-long
+    window), token counts and length scales."""
     jax_pipe = jax_cli.TTSPipeline(None, None)  # the calibration needs no model
-    port_pipe = port_cli.TTSPipeline(torch.nn.Module(), device="cpu")
-    assert port_cli.TTSPipeline.FUSED_Y_BUCKETS == jax_cli.TTSPipeline.FUSED_Y_BUCKETS
-    assert port_cli.TTSPipeline.FUSED_MARGIN == jax_cli.TTSPipeline.FUSED_MARGIN
+    port_pipe = port_pipeline.TTSPipeline(torch.nn.Module(), device="cpu")
+    assert port_pipeline.TTSPipeline.FUSED_Y_BUCKETS == jax_cli.TTSPipeline.FUSED_Y_BUCKETS
+    assert port_pipeline.TTSPipeline.FUSED_MARGIN == jax_cli.TTSPipeline.FUSED_MARGIN
     rng = np.random.default_rng(21)
     cases = [(int(n), float(s)) for n, s in zip(rng.integers(1, 700, 12),
                                                 rng.choice([0.5, 0.85, 0.95, 1.0, 1.3, 2.0], 12))]
+    buckets = port_pipeline.TTSPipeline.FUSED_Y_BUCKETS
     for n, s in cases:
-        assert port_pipe._auto_y_bucket(n, s) == jax_pipe._auto_y_bucket(n, s) == 2048
+        assert port_pipe.fit_y_bucket(buckets, n, s) == jax_pipe._auto_y_bucket(n, s) == 2048
     for obs in np.concatenate([rng.uniform(0.5, 4.0, 100), [40.0], rng.uniform(0.5, 2.0, 80)]):
         jax_pipe.observe_dur_ratio(obs)
         port_pipe.observe_dur_ratio(obs)
         assert port_pipe._dur_ratio == jax_pipe._dur_ratio
         for n, s in cases:
-            assert port_pipe._auto_y_bucket(n, s) == jax_pipe._auto_y_bucket(n, s)
+            assert port_pipe.fit_y_bucket(buckets, n, s) == jax_pipe._auto_y_bucket(n, s)
 
 
 def test_guarded_fetch_reruns_a_saturated_bucket_like_jax(loaded):

@@ -315,7 +315,7 @@ def _tiny_pipeline(device, **kw):
     """A small Matcha (seed weights) with the full-width HiFi-GAN v1 and its
     denoiser, so that the fixed-bucket body runs K1 twice; ``kw`` go to the
     ``TTSPipeline``."""
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.matcha import MatchaTTS
 
@@ -551,7 +551,7 @@ def test_chunked_vocoder_on_cuda(cuda_f32):
     """``vocoder_chunk`` on the card, 5 windows of a (2, 300) mel, against
     the whole utterance (no denoiser), as numpy's allclose at 1e-5; K1
     launched twice per window."""
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
 
     pipe = _tiny_pipeline(cuda_f32)
     mel = torch.randn(2, 300, 80, generator=torch.Generator().manual_seed(4)).to(cuda_f32)
@@ -653,7 +653,7 @@ def test_mas_kernel_equals_plain_on_bf16_log_priors(cuda_f32, B, T_x, T_y, t_xs,
 def _tiny_ms_pipeline(device):
     """A small 4-speaker Matcha (seed weights) with the full-width
     HiFi-GAN v1."""
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.denoiser import compute_bias_spec
     from matcha_tpu_torch.models.matcha import MatchaTTS
 
@@ -1162,7 +1162,7 @@ def test_bigvgan_pipeline_paths_on_cuda(cuda_f32):
     per activation), the fused stage as CUDA graphs and the fixed-bucket
     graph against the plain generator (``vocoder_pallas=False``) on the
     same noise."""
-    from matcha_tpu_torch.cli import TTSPipeline
+    from matcha_tpu_torch.pipeline import TTSPipeline
     from matcha_tpu_torch.models.matcha import MatchaTTS
     from matcha_tpu_torch.ops import aa_snake
 

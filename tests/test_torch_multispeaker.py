@@ -26,6 +26,7 @@ import torch
 
 from matcha_tpu.models import MatchaTTS as JaxMatchaTTS
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch.convert import matcha_state_dict
 from matcha_tpu_torch.models.matcha import MatchaTTS as PortMatchaTTS
 from matcha_tpu_torch.models.matcha import check_speakers
@@ -211,11 +212,11 @@ def test_cli_spk_on_every_path(ms_home, tmp_path, monkeypatch, mode):
     text = (["--file", str(tmp_path / "in.txt")] if "batched" in mode
             else ["--text", "Hello world. A second sentence."])
     seen = []
-    real = port_cli.TTSPipeline.synthesise_batch
-    monkeypatch.setattr(port_cli.TTSPipeline, "synthesise_batch",
+    real = port_pipeline.TTSPipeline.synthesise_batch
+    monkeypatch.setattr(port_pipeline.TTSPipeline, "synthesise_batch",
                         lambda self, *a, **k: (seen.append(k.get("spks")), real(self, *a, **k))[1])
-    real_corpus = port_cli.TTSPipeline.synthesise_corpus
-    monkeypatch.setattr(port_cli.TTSPipeline, "synthesise_corpus",
+    real_corpus = port_pipeline.TTSPipeline.synthesise_corpus
+    monkeypatch.setattr(port_pipeline.TTSPipeline, "synthesise_corpus",
                         lambda self, *a, **k: (seen.append(k.get("spk")),
                                                real_corpus(self, *a, **k))[1])
     out = tmp_path / "out"
@@ -256,7 +257,7 @@ def test_pipeline_refuses_out_of_range_speakers_on_the_host(ms_home):
     """``synthesise_batch`` and ``synthesise_corpus`` check speaker ids
     before anything runs."""
     _, ckpt = ms_home
-    pipe = port_cli.TTSPipeline(port_cli.load_matcha(ckpt, "cpu"), device="cpu")
+    pipe = port_pipeline.TTSPipeline(port_cli.load_matcha(ckpt, "cpu"), device="cpu")
     x, xl = np.ones((2, 8), np.int32), np.full((2,), 8, np.int32)
     for kw in ({}, {"fixed_y_bucket": 64}):
         with pytest.raises(ValueError, match="out of range"):

@@ -34,12 +34,14 @@ from matcha_tpu.models.hifigan import HiFiGANConfig as JaxHiFiGANConfig
 from matcha_tpu.training import data as jax_data
 from matcha_tpu.training import trainer as jax_trainer
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch import serve
 from matcha_tpu_torch.convert import hifigan_state_dict
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.parallel import dist, mesh
 from matcha_tpu_torch.training import trainer as port_trainer
 from matcha_tpu_torch.training.data import TextMelDataModule
+from matcha_tpu_torch.utils.utils import PCM24_SCALE, unpack_pcm24
 from tests.test_cli_e2e import fabricated_ckpts  # noqa: F401  (module fixture)
 from tests.test_convert import TINY
 from tests.test_torch_losses import jax_noise, tiny_pair
@@ -307,8 +309,8 @@ def pipelines():
     pvoc = Generator(HiFiGANConfig(**VOC))
     pvoc.load_state_dict(hifigan_state_dict(voc_params))
     jax_pipe = jax_cli.TTSPipeline(jm, variables, jvoc, voc_params, None, CLEANER)
-    one = port_cli.TTSPipeline(port.eval(), pvoc.eval(), None, CLEANER, device="cpu")
-    two = port_cli.TTSPipeline(port, pvoc, None, CLEANER, devices=["cpu", "cpu"])
+    one = port_pipeline.TTSPipeline(port.eval(), pvoc.eval(), None, CLEANER, device="cpu")
+    two = port_pipeline.TTSPipeline(port, pvoc, None, CLEANER, devices=["cpu", "cpu"])
     return {"jax": jax_pipe, "one": one, "two": two}
 
 
@@ -341,7 +343,7 @@ def test_replicas_hold_copies_on_their_devices(pipelines):
     assert two._parts(4) == [(two, slice(0, 2)), (two.replicas[1], slice(2, 4))]
     assert two._parts(3) == [(two, slice(0, 3))]  # by rule: all on the first replica
     with pytest.raises(ValueError, match="devices="):
-        port_cli.TTSPipeline(a, None, devices=[])
+        port_pipeline.TTSPipeline(a, None, devices=[])
 
 
 @pytest.mark.parametrize("B", [2, 3, 4])
@@ -357,10 +359,10 @@ def test_replicas_match_one_device_dynamic(pipelines, B):
     _same(got, want, ("mel", "waveform", "attn", "encoder_outputs"))
     packed = pipelines["two"].synthesise_batch(
         x, xl, generator=torch.Generator().manual_seed(3), pack_wav=True, **kw)["wav_pcm24"]
-    wav, ml = port_cli._unpack_pcm24(packed.numpy())
+    wav, ml = unpack_pcm24(packed.numpy())
     np.testing.assert_array_equal(ml, want["mel_lengths"].numpy())
     np.testing.assert_allclose(wav, np.clip(want["waveform"].numpy(), -1, 1),
-                               atol=SERVE_ATOL + 2.0 / port_cli.PCM24_SCALE)
+                               atol=SERVE_ATOL + 2.0 / PCM24_SCALE)
 
 
 def test_replicas_match_one_device_fixed_bucket(pipelines):
@@ -372,9 +374,9 @@ def test_replicas_match_one_device_fixed_bucket(pipelines):
                                    generator=torch.Generator().manual_seed(9))
                 for p in (pipelines["one"], pipelines["two"])]
         _same(outs[1], outs[0])
-        (wav1, ml1), (wav0, ml0) = (port_cli.fetch_fused_host(o) for o in outs[::-1])
+        (wav1, ml1), (wav0, ml0) = (port_pipeline.fetch_fused_host(o) for o in outs[::-1])
         np.testing.assert_array_equal(ml1, ml0)
-        np.testing.assert_allclose(wav1, wav0, atol=SERVE_ATOL + 2.0 / port_cli.PCM24_SCALE)
+        np.testing.assert_allclose(wav1, wav0, atol=SERVE_ATOL + 2.0 / PCM24_SCALE)
     assert set(pipelines["two"].replicas[1]._graphs) and set(pipelines["two"]._graphs)
 
 
@@ -434,7 +436,7 @@ def test_daemon_serves_from_two_replicas(pipelines, monkeypatch):
         n = int(want["mel_lengths"][0])
         assert r.n_frames == n
         np.testing.assert_allclose(r.wav, want["waveform"][0, :len(r.wav)].numpy(),
-                                   atol=2.0 / port_cli.PCM24_SCALE)
+                                   atol=2.0 / PCM24_SCALE)
         # two requests in one batch: a row on each replica
         import threading
 
@@ -454,7 +456,7 @@ def test_daemon_serves_from_two_replicas(pipelines, monkeypatch):
         for i, r in enumerate(got):
             assert r.error is None and r.n_frames == int(want["mel_lengths"][i])
             np.testing.assert_allclose(r.wav, want["waveform"][i, :len(r.wav)].numpy(),
-                                       atol=SERVE_ATOL + 2.0 / port_cli.PCM24_SCALE)
+                                       atol=SERVE_ATOL + 2.0 / PCM24_SCALE)
     finally:
         b.shutdown()
 
@@ -466,7 +468,7 @@ def test_cli_data_parallel_is_a_no_op_on_one_device(fabricated_ckpts, tmp_path, 
     monkeypatch.setenv("MATCHA_HOME", fabricated_ckpts)
     assert port_cli.build_parser().parse_args(["--text", "x", "--data-parallel"]).data_parallel
     seen = {}
-    make = port_cli.TTSPipeline
+    make = port_pipeline.TTSPipeline
 
     def spy(*a, **kw):
         seen.update(kw)

@@ -26,6 +26,8 @@ import torch
 
 from matcha_tpu import cli as jax_cli
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
+from matcha_tpu_torch.utils.utils import PCM24_SCALE, pack_pcm24, unpack_pcm24
 from tests.test_cli_e2e import fabricated_ckpts  # noqa: F401  (module fixture)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -42,9 +44,9 @@ def test_pipeline_matches_jax_dynamic_path(fabricated_ckpts):  # noqa: F811
     model, params = jax_cli.load_matcha("matcha_ljspeech", matcha_path)
     vocoder, voc_params, bias = jax_cli.load_vocoder("hifigan_T2_v1", voc_path)
     jax_pipe = jax_cli.TTSPipeline(model, params, vocoder, voc_params, bias, CLEANER)
-    port_pipe = port_cli.TTSPipeline(port_cli.load_matcha(matcha_path, "cpu"),
-                                     *port_cli.load_vocoder(voc_path, "cpu"),
-                                     cleaner=CLEANER, device="cpu")
+    port_pipe = port_pipeline.TTSPipeline(port_cli.load_matcha(matcha_path, "cpu"),
+                                          *port_cli.load_vocoder(voc_path, "cpu"),
+                                          cleaner=CLEANER, device="cpu")
 
     tp = port_cli.process_text(0, "Hello world, the 2nd test.", CLEANER)
     assert tp["x"].tolist() == jax_cli.process_text(0, "Hello world, the 2nd test.",
@@ -64,10 +66,10 @@ def test_pipeline_matches_jax_dynamic_path(fabricated_ckpts):  # noqa: F811
 
     packed = port_pipe.synthesise_batch(tp["x"], tp["x_lengths"], n_timesteps=2,
                                         z=torch.from_numpy(z), pack_wav=True)["wav_pcm24"]
-    wav_u, ml = port_cli._unpack_pcm24(packed.numpy())
+    wav_u, ml = unpack_pcm24(packed.numpy())
     np.testing.assert_array_equal(ml, got["mel_lengths"].numpy())
     # the denoiser may overshoot +-1 slightly; packing clips
-    np.testing.assert_allclose(wav_u, np.clip(wav_t, -1, 1), atol=2.0 / port_cli.PCM24_SCALE)
+    np.testing.assert_allclose(wav_u, np.clip(wav_t, -1, 1), atol=2.0 / PCM24_SCALE)
 
 
 def test_pack_pcm24_bytes_are_identical():
@@ -77,20 +79,21 @@ def test_pack_pcm24_bytes_are_identical():
     lengths = np.array([7, 1234567], np.int32)
     want = np.asarray(jax_cli._pack_pcm24(jax.numpy, jax.numpy.asarray(wav),
                                           jax.numpy.asarray(lengths)))
-    got = port_cli._pack_pcm24(torch.from_numpy(wav), torch.from_numpy(lengths)).numpy()
+    got = pack_pcm24(torch.from_numpy(wav), torch.from_numpy(lengths)).numpy()
     assert got.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
-    w, ml = port_cli._unpack_pcm24(got)
+    w, ml = unpack_pcm24(got)
     np.testing.assert_array_equal(ml, lengths)
     np.testing.assert_array_equal(w, jax_cli._unpack_pcm24(want)[0])
 
 
 def test_buckets_match():
-    assert port_cli.X_BUCKETS == jax_cli.X_BUCKETS
-    assert port_cli.Y_BUCKETS == jax_cli.Y_BUCKETS
-    assert port_cli.VOC_BUCKETS == jax_cli.VOC_BUCKETS
+    assert port_pipeline.X_BUCKETS == jax_cli.X_BUCKETS
+    assert port_pipeline.Y_BUCKETS == jax_cli.Y_BUCKETS
+    assert port_pipeline.VOC_BUCKETS == jax_cli.VOC_BUCKETS
     for n in (1, 32, 33, 2048, 2049, 5000):
-        assert port_cli.pick_bucket(n, port_cli.Y_BUCKETS) == jax_cli.pick_bucket(n, jax_cli.Y_BUCKETS)
+        assert (port_pipeline.pick_bucket(n, port_pipeline.Y_BUCKETS)
+                == jax_cli.pick_bucket(n, jax_cli.Y_BUCKETS))
 
 
 def _read_wav(path):
@@ -130,7 +133,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(fabricated_ckpts, tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli.load_vocoder(voc_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_cli.TTSPipeline(port_cli.load_matcha(matcha_path, "cpu"))
+        port_pipeline.TTSPipeline(port_cli.load_matcha(matcha_path, "cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli.cli(["--text", "hi", "--cleaner", CLEANER, "--output_folder", str(tmp_path)])
 

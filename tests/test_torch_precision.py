@@ -33,13 +33,16 @@ from matcha_tpu.models.hifigan_pallas import generator_apply_pallas
 from matcha_tpu.models.matcha import MatchaTTS as JaxMatchaTTS
 from matcha_tpu.ops.mrf_pallas import fused_mrf_stage as jax_fused_mrf_stage
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch import serve
 from matcha_tpu_torch.convert import hifigan_state_dict
 from matcha_tpu_torch.models.components.flow_matching import cfm_sample
+from matcha_tpu_torch.models.denoiser import denoise
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.hifigan_fused import fused_stage_weights, generator_apply_fused
 from matcha_tpu_torch.models.matcha import decoder_cast
 from matcha_tpu_torch.ops import mrf
+from matcha_tpu_torch.utils.utils import PCM24_SCALE
 from tests.test_cli_e2e import fabricated_ckpts  # noqa: F401  (module fixture)
 from tests.test_torch_corpus import _corpus, _jax_noise
 from tests.test_torch_fused import CLEANER, MEL_TOL, WAV_TOL, _ids, _noise, loaded  # noqa: F401
@@ -75,7 +78,7 @@ def jax_pipes(loaded):  # noqa: F811
 
 def _port(loaded, **kw):  # noqa: F811
     port_model, port_voc, port_bias = loaded["port"]
-    return port_cli.TTSPipeline(port_model, port_voc, port_bias, CLEANER, device="cpu", **kw)
+    return port_pipeline.TTSPipeline(port_model, port_voc, port_bias, CLEANER, device="cpu", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -291,10 +294,10 @@ def test_vocoder_bf16_dynamic_and_fixed_bucket_match_jax(loaded, jax_pipes):  # 
         got32 = port32.synthesise_batch(x, xl, n_timesteps=1, z=_noise(key), **kw)
         np.testing.assert_allclose(got["mel"].numpy(), np.asarray(want["mel"]), atol=MEL_TOL)
         _held(got, want, want32, WAV16_VOCODER_MEAN, got32)
-    wavs, mls = port_cli.fetch_fused_host(got)
+    wavs, mls = port_pipeline.fetch_fused_host(got)
     np.testing.assert_array_equal(mls, got["mel_lengths"].numpy())
     np.testing.assert_allclose(wavs, np.clip(got["waveform"].numpy(), -1, 1),
-                               atol=2.0 / port_cli.PCM24_SCALE)
+                               atol=2.0 / PCM24_SCALE)
 
 
 def test_vocoder_bf16_staged_corpus_matches_jax(loaded, jax_pipes):  # noqa: F811
@@ -371,8 +374,8 @@ def test_no_pallas_vocoder_is_the_plain_generator(loaded, jax_pipes):  # noqa: F
             assert pipe.max_fused_channels == 0 and pipe.vocoder_weights == {}
             got = pipe.synthesise_batch(x, xl, n_timesteps=1, z=_noise(key), **kw)
             mel = got["mel"].transpose(1, 2)[:, :got["waveform"].shape[-1] // 256]
-            plain = port_cli.denoise(torch.clamp(pipe.vocoder(mel)[..., 0], -1, 1),
-                                     pipe.denoiser_bias, strength=pipe.denoiser_strength)
+            plain = denoise(torch.clamp(pipe.vocoder(mel)[..., 0], -1, 1),
+                            pipe.denoiser_bias, strength=pipe.denoiser_strength)
             if not chunk:
                 torch.testing.assert_close(got["waveform"], plain, rtol=0, atol=0)
             want = jax_pipes["f32"].synthesise_batch(x, xl, key, n_timesteps=1, **kw)
@@ -404,7 +407,7 @@ def test_cli_precision_flags(fabricated_ckpts, tmp_path, monkeypatch, tf32_resto
     monkeypatch.setenv("MATCHA_HOME", fabricated_ckpts)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     seen = {}
-    make = port_cli.TTSPipeline
+    make = port_pipeline.TTSPipeline
 
     def spy(*a, **kw):
         seen.update(kw)
@@ -435,6 +438,7 @@ def test_not_ported_holds_only_data_parallel_and_spk():
 
     class Pipeline:
         pcm24_transfer, _dur_ratio = False, None
+        fit_y_bucket = port_pipeline.TTSPipeline.fit_y_bucket
 
         def __init__(self, n):
             self.replicas = [None] * n

@@ -30,10 +30,12 @@ import torch
 
 from matcha_tpu import cli as jax_cli
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch import serve
 from matcha_tpu_torch.scripts import bench_serve
 from matcha_tpu_torch.serve import BatchingServer, make_http_server
 from matcha_tpu_torch.text import text_to_sequence
+from matcha_tpu_torch.utils.utils import PCM24_SCALE
 from tests.test_cli_e2e import fabricated_ckpts  # noqa: F401  (fixture reuse)
 from tests.test_torch_multispeaker import ms_home  # noqa: F401  (fixture reuse)
 
@@ -48,7 +50,7 @@ def serve_pipeline(fabricated_ckpts):  # noqa: F811
     d = os.path.join(fabricated_ckpts, "matcha_tpu")
     model = port_cli.load_matcha(os.path.join(d, "matcha_ljspeech.ckpt"), "cpu")
     vocoder, bias = port_cli.load_vocoder(os.path.join(d, "hifigan_T2_v1"), "cpu")
-    return port_cli.TTSPipeline(model, vocoder, bias, CLEANER, device="cpu")
+    return port_pipeline.TTSPipeline(model, vocoder, bias, CLEANER, device="cpu")
 
 
 @pytest.fixture()
@@ -247,7 +249,7 @@ def test_fused_single_fast_path_and_saturation_fallback(batcher, monkeypatch):
     r0 = batcher.submit(text, timeout_s=600.0)
     assert r0.error is None
     n = r0.n_frames
-    T_x = port_cli.pick_bucket(len(r0.seq), port_cli.X_BUCKETS)
+    T_x = port_pipeline.pick_bucket(len(r0.seq), port_pipeline.X_BUCKETS)
 
     calls = []
     orig = batcher.pipeline.synthesise_batch
@@ -508,9 +510,74 @@ def test_lone_request_equals_fixed_bucket_path(batcher):
     n = int(want["mel_lengths"][0])
     assert r.n_frames == n < T_y
     wav = np.clip(want["waveform"][0, :n * 256].numpy(), -1, 1)
-    np.testing.assert_allclose(r.wav, wav, rtol=0, atol=2.0 / port_cli.PCM24_SCALE)
+    np.testing.assert_allclose(r.wav, wav, rtol=0, atol=2.0 / PCM24_SCALE)
     again = batcher.submit(text, timeout_s=300.0)
     assert again.n_frames == n and np.abs(again.wav - r.wav).max() > 1e-3
+
+
+@pytest.mark.parametrize("ratios", [[], [1.3], [0.9, 2.4, 3.1, 40.0]],
+                         ids=["uncalibrated", "one", "outlier"])
+def test_daemon_and_auto_fit_the_same_bucket(serve_pipeline, ratios):
+    """Over the same candidates (``FUSED_Y_BUCKETS``, all warmed) and the
+    same calibration, the fast path's bucket (``_pick_fused_bucket``) is
+    the first bucket ``"auto"`` asks its graph for; a key with nothing
+    warmed has none."""
+    pipe = port_pipeline.TTSPipeline(serve_pipeline.model, cleaner=CLEANER, device="cpu")
+    for r in ratios:
+        pipe.observe_dur_ratio(r)
+    b = _bare_batcher()
+    b.pipeline = pipe
+    asked = []
+    fused_graph = pipe.fused_graph
+    pipe.fused_graph = lambda B, T_x, T_y, *a: asked.append(T_y) or fused_graph(B, T_x, T_y, *a)
+    for n, rate in ((9, 1.0), (23, 0.85)):
+        T_x = port_pipeline.pick_bucket(n, port_pipeline.X_BUCKETS)
+        b._fused_warm = {(T_x, rate, False): list(pipe.FUSED_Y_BUCKETS)}
+        assert b._pick_fused_bucket(T_x, rate, True, n) is None
+        want = b._pick_fused_bucket(T_x, rate, False, n)
+        del asked[:]
+        pipe.synthesise_batch(*port_pipeline.pad_ids([np.arange(1, n + 1)], n), n_timesteps=1,
+                              length_scale=rate, fixed_y_bucket="auto",
+                              generator=torch.Generator().manual_seed(n))
+        assert asked[0] == want
+
+
+def test_warmup_vocodes_every_shape_the_dynamic_path_reaches(serve_pipeline, monkeypatch):
+    """``warmup(pairs)`` runs the shared decode -> vocode step
+    (``TTSPipeline.vocode_decoded``) at exactly the (B, T_x, T_y, T_voc)
+    that its per-bucket loops enumerate: every power-of-two B up to
+    ``max_batch``, every ``Y_BUCKETS`` mel bucket up to T_y (T_y itself
+    below the table) and every ``VOC_BUCKETS`` length inside each. For a
+    T_y of the table these are the buckets the dynamic path picks for
+    mels of 1 to T_y frames."""
+    seen = set()
+
+    def spy(self, out, T_voc, pack=False):
+        assert pack == self.pcm24_transfer
+        seen.add((out["mel"].shape[0], out["attn"].shape[1], out["mel"].shape[-1], T_voc))
+        return out
+
+    monkeypatch.setattr(port_pipeline.TTSPipeline, "vocode_decoded", spy)
+    pairs = [(32, 64), (64, 768)]
+    b = BatchingServer(serve_pipeline, max_batch=4, n_timesteps=1, fused_single=False)
+    try:
+        b.warmup(pairs)
+    finally:
+        b.shutdown()
+    Y, V = port_pipeline.Y_BUCKETS, port_pipeline.VOC_BUCKETS
+    want = set()
+    for T_x, T_y in pairs:
+        for B in (1, 2, 4):
+            for T_yb in [y for y in Y if y <= T_y] or [T_y]:
+                prev_y = max([y for y in Y if y < T_yb], default=0)
+                for T_voc in [v for v in V if prev_y < v <= T_yb] or [T_yb]:
+                    want.add((B, T_x, T_yb, T_voc))
+    assert seen == want
+    reach = set()
+    for m in range(1, 769):
+        T_y = port_pipeline.pick_bucket(m, Y)
+        reach |= {(B, 64, T_y, port_pipeline.voc_bucket(m, T_y)) for B in (1, 2, 4)}
+    assert reach == {s for s in seen if s[1] == 64}
 
 
 def test_call_generators_differ_per_call(serve_pipeline):
@@ -696,7 +763,7 @@ def test_main_spk_sets_the_default_speaker(ms_home, monkeypatch):
     serve.main(["--cpu", "--warmup", "", "--steps", "1", "--spk", "3", "--checkpoint_path",
                 ckpt, "--cleaner", CLEANER])
     assert seen["default_spk"] == 3
-    np.testing.assert_allclose(seen["wav"], seen[3], rtol=0, atol=2.0 / port_cli.PCM24_SCALE)
+    np.testing.assert_allclose(seen["wav"], seen[3], rtol=0, atol=2.0 / PCM24_SCALE)
     other = seen[0]
     assert other.shape != seen["wav"].shape or np.abs(other - seen["wav"]).max() > 1e-3
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from matcha_tpu_torch import cli as port_cli
+from matcha_tpu_torch import pipeline as port_pipeline
 from matcha_tpu_torch.deploy import export as port_export
 from matcha_tpu_torch.models.matcha import MatchaTTS
 from matcha_tpu_torch.serve import BatchingServer
@@ -193,7 +194,7 @@ def test_fast_path_and_rerun_spans(traced, batcher):
     text = "hello there"
     r0 = batcher.submit(text, timeout_s=600.0)
     n = r0.n_frames
-    T_x = port_cli.pick_bucket(len(r0.seq), port_cli.X_BUCKETS)
+    T_x = port_pipeline.pick_bucket(len(r0.seq), port_pipeline.X_BUCKETS)
     T_small = max(16, (n - 1) // 16 * 16)
     batcher._fused_warm[(T_x, batcher.default_rate, False)] = [T_small]
     before = batcher.counters()
@@ -245,7 +246,7 @@ def test_corpus_spans_and_counters(loaded, traced, fuse_stages):  # noqa: F811
     and one capture or replay counted a batch; the frame counters are the
     host lengths and B x T_y."""
     model, voc, bias = loaded["port"]
-    pipe = port_cli.TTSPipeline(model, voc, bias, CLEANER, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, voc, bias, CLEANER, device="cpu")
     gen = pipe.synthesise_corpus(_corpus(), n_timesteps=1, batch_size=3, stage_window=2,
                                  fuse_stages=fuse_stages, generator=torch.Generator().manual_seed(3))
     outs = []
@@ -288,7 +289,7 @@ def test_fixed_bucket_body_with_tracing_on_equals_off(loaded, traced):  # noqa: 
     tracing on it gives the same result as with it off; its spans are the
     call's and its vocoder's (none inside the model's ``synthesise``)."""
     model, voc, bias = loaded["port"]
-    pipe = port_cli.TTSPipeline(model, voc, bias, CLEANER, device="cpu")
+    pipe = port_pipeline.TTSPipeline(model, voc, bias, CLEANER, device="cpu")
     tp = port_cli.process_text(0, "Hello world, the 2nd test.", CLEANER)
 
     def run():
