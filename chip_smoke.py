@@ -94,8 +94,11 @@ Phases, one output line each (any failure exits non-zero):
    data-parallel serving phase, the ``bigvgan`` line: BigVGAN-v2 at its
    published widths behind the LJSpeech Matcha (``bigvgan_phase``: the
    daemon's fast path and the corpus, split and ``--fused-stage``, with
-   K4's 109 launches per vocoder call counted, and K4 against its plain
-   version at every shape they ran);
+   K4's 109 launches per vocoder call and its relayouts (none) counted,
+   and K4 against its plain version at every shape they ran), then K4
+   timed at the published stages' shapes on channels-last and on
+   channels-first input, beside its bound and the plain sequence
+   (``k4_time``);
 6. the training path at full width (the LJSpeech config, batch 32, no
    segment cut) on a synthetic corpus written from the seed: 5 steps of
    ``python -m matcha_tpu_torch.train`` (through ``train.main``) with
@@ -249,6 +252,13 @@ SERVE_WARMUP, SERVE_REPS, SERVE_CLIENTS, SERVE_SECONDS = "384:768", 5, 8, 10.0
 # output's largest magnitude (tests/test_torch_kernels_cuda.py::K4_TOL), its
 # launches per vocoder call, and the daemon's warmed pair
 K4_TOL, K4_PER_CALL, BIGVGAN_WARMUP = 1e-4, 109, "128:512"
+# K4's timed shapes (B, C, L), channels-last: PERF.md's two (the last stage
+# at 1,152 mel frames, the first at 128), then the six stages at 512 frames
+# (activation_post runs at the last stage's); its bound per output sample
+# (benchmark/harness/vocoders/bigvgan.py): 58 FLOPs, 8 bytes
+K4_TIME_SHAPES = [(8, 24, 294_912), (8, 768, 512), (8, 768, 2_048), (8, 384, 8_192),
+                  (8, 192, 16_384), (8, 96, 32_768), (8, 48, 65_536), (8, 24, 131_072)]
+K4_FLOPS_PER_SAMPLE, K4_BYTES_PER_SAMPLE = 58, 8
 N_TRAIN, N_VAL = 64, 8
 # serving precision: the fixed-bucket path's modes, each (TTSPipeline
 # options, cuDNN TF32 on, K1 launches per stage pass of the 3xTF32 and the
@@ -3855,7 +3865,7 @@ class K4Shapes:
         rows = []
         h = aa_snake.kaiser_sinc_filter().to(dev)
         for B, C, L in sorted(self.seen):
-            x = torch.randn(B, C, L, generator=gen).to(dev)
+            x = aa_snake.channels_last(torch.randn(B, C, L, generator=gen).to(dev))
             freq, inv_mag = aa_snake.snake_terms((0.5 * torch.randn(C, generator=gen)).to(dev),
                                                  (0.5 * torch.randn(C, generator=gen)).to(dev))
             got = aa_snake.aa_snake(x, freq, inv_mag, h)
@@ -3866,6 +3876,65 @@ class K4Shapes:
             if not rows[-1]["rel_err"] <= K4_TOL:
                 raise AssertionError(f"K4 disagrees with its plain version at {rows[-1]}")
         return rows
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, its replay timed with CUDA events (no host launch cost between
+    the calls, which small shapes would otherwise show)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 3) / reps
+
+
+def k4_time(dev) -> list:
+    """K4 at K4_TIME_SHAPES on channels-last input (its path in the
+    generator) and on channels-first input (the relayout copy, then K4),
+    beside its bound (the larger of its FLOPs over the f32 peak and its
+    bytes over HBM's) and the plain sequence (``aa_snake_reference``); the
+    run and vector width ``plan`` chose, and K4 against the plain version."""
+    import torch
+
+    from matcha_tpu_torch.ops import aa_snake
+
+    gen = torch.Generator().manual_seed(SEED)
+    h = aa_snake.kaiser_sinc_filter().to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for B, C, L in K4_TIME_SHAPES:
+        x = aa_snake.channels_last(torch.randn(B, C, L, generator=gen).to(dev))
+        freq, inv_mag = aa_snake.snake_terms((0.5 * torch.randn(C, generator=gen)).to(dev),
+                                             (0.5 * torch.randn(C, generator=gen)).to(dev))
+        xf = x.contiguous()
+        n = B * C * L
+        bound_ms = 1e3 * max(K4_FLOPS_PER_SAMPLE * n / PEAK_F32_FLOPS,
+                             K4_BYTES_PER_SAMPLE * n / PEAK_BYTES_PER_S)
+        V = aa_snake.vector_width(C, x.data_ptr())
+        ms = graph_ms(lambda: aa_snake.aa_snake(x, freq, inv_mag, h), 20)
+        want = aa_snake.aa_snake(x, freq, inv_mag, h, fused=False)
+        err = ((aa_snake.aa_snake(x, freq, inv_mag, h) - want).abs().max()
+               / want.abs().max()).item()
+        if not err <= K4_TOL:
+            raise AssertionError(f"K4 disagrees with its plain version at {(B, C, L)}: {err}")
+        rows.append({"B": B, "C": C, "L": L, "V": V, "run": aa_snake.plan(B, C, L, V, sms)[0],
+                     "ms": ms, "bound_ms": bound_ms, "roofline_pct": 100 * bound_ms / ms,
+                     "channels_first_ms": graph_ms(lambda: aa_snake.aa_snake(xf, freq, inv_mag,
+                                                                             h), 5),
+                     "plain_ms": cuda_ms(lambda: aa_snake.aa_snake_reference(x, freq, inv_mag,
+                                                                             h, h), 3),
+                     "rel_err": err})
+        del x, xf, want
+    torch.cuda.empty_cache()
+    return rows
 
 
 def bigvgan_phase(dev, model) -> dict:
@@ -3936,9 +4005,10 @@ def bigvgan_phase(dev, model) -> dict:
             return res, t
 
         corpus(pipe, True)  # captures every triple's stage graph
-        k0 = aa_snake.LAUNCHES["aa_snake"]
+        k0 = dict(aa_snake.LAUNCHES)
         split, _ = corpus(pipe, False)
-        k4_split = aa_snake.LAUNCHES["aa_snake"] - k0
+        k4_split = aa_snake.LAUNCHES["aa_snake"] - k0["aa_snake"]
+        relayout = aa_snake.LAUNCHES["aa_snake_relayout"] - k0["aa_snake_relayout"]
         fused, prof = corpus(pipe, True, prof=True)
         plain = TTSPipeline(model, gen, None, cleaner=CLEANER, device=dev, vocoder_pallas=False)
         want, _ = corpus(plain, False)
@@ -3949,9 +4019,10 @@ def bigvgan_phase(dev, model) -> dict:
             err["fused"] = max(err["fused"], (a["waveform"] - b["waveform"]).abs().max().item())
             err["plain"] = max(err["plain"], (a["waveform"] - w["waveform"]).abs().max().item())
         n = len(split)
-        out["corpus"] = {"batches": n, "k4_wrapper_split": k4_split,
+        out["corpus"] = {"batches": n, "k4_wrapper_split": k4_split, "k4_relayouts": relayout,
                          "k4_events_fused": k4_events(prof), "max_abs_err": err}
         if not (k4_split == K4_PER_CALL * n and out["corpus"]["k4_events_fused"] == K4_PER_CALL * n
+                and relayout == 0
                 and err["fused"] <= 10 * GRAPH_TOL and err["plain"] <= 10 * GRAPH_TOL):
             raise AssertionError(f"bigvgan corpus: {out['corpus']}")
         del split, fused, want
@@ -4125,6 +4196,9 @@ def main() -> int:
     t0 = time.perf_counter()
     emit({"phase": "bigvgan", **bigvgan_phase(dev, model), "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+    for row in k4_time(dev):
+        emit({"phase": "k4_time", **row, "note": "CUDA events over a graph of 20 launches "
+              "(5 channels-first, 3 plain calls); x channels-last unless named"})
 
     # K1 at the dynamic path's shape, at 512 frames, and at every mel bucket
     # the fixed-bucket graphs ran (their replays are held only against the

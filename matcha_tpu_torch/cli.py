@@ -10,6 +10,7 @@ saturated ``--fixed-y-bucket N`` on the dynamic path. ``--batched
 ``corpus_frames_decoded``: the share of the decoded mel frames that are
 speech, not bucket padding), split, how many batches replayed a decode
 graph and how many captured one, and with BigVGAN the launches of K4
+and the inputs it copied to channels-last first, each when not zero
 (``ops/aa_snake.py::LAUNCHES``); ``--trace-spans PATH`` records the
 pipeline's spans (``utils/tracing.py``) and writes them as a Chrome trace.
 Models are named as in JAX's registry (``--model matcha_ljspeech |
@@ -321,7 +322,7 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
     total_samples = 0
     true0, decoded0 = pipeline.corpus_frames_true, pipeline.corpus_frames_decoded
     replays0, captures0 = pipeline.corpus_decode_replays, pipeline.corpus_decode_captures
-    k4_0 = aa_snake.LAUNCHES["aa_snake"]
+    k4_0 = dict(aa_snake.LAUNCHES)
     n_batches = 0
     for chunk, out in pipeline.synthesise_corpus(
             utts, n_timesteps=args.steps, temperature=args.temperature,
@@ -344,9 +345,11 @@ def staged_batched_synthesis(args, pipeline: TTSPipeline, texts, folder: Path) -
     if not args.fused_stage:
         print(f"[🍵] Corpus decode: {pipeline.corpus_decode_replays - replays0} replays, "
               f"{pipeline.corpus_decode_captures - captures0} captures, of {n_batches} batches")
-    k4 = aa_snake.LAUNCHES["aa_snake"] - k4_0
+    k4, relayout = (aa_snake.LAUNCHES[k] - k4_0[k] for k in ("aa_snake", "aa_snake_relayout"))
     if k4:
         print(f"[🍵] Corpus K4 (anti-aliased SnakeBeta) launches: {k4} (replays run it uncounted)")
+    if relayout:
+        print(f"[🍵] Corpus K4 inputs copied to channels-last first: {relayout}")
     _print_rtf_summary([rtf])
 
 

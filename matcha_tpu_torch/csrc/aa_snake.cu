@@ -1,5 +1,5 @@
 // One whole anti-aliased SnakeBeta activation (BigVGAN's Activation1d) on
-// Hopper (sm_90a), f32, in one pass.
+// Hopper (sm_90a), f32, in one pass, on channels-last rows.
 //
 // Replaces no TPU kernel: the JAX package has no BigVGAN. It exists because
 // BigVGAN-v2 runs 18 of these activations per upsampling stage and one
@@ -8,7 +8,12 @@
 // ops, a depthwise conv), each reading and writing the 2x-rate signal.
 // ops/aa_snake.py::aa_snake_reference is the plain version.
 //
-// Per channel c of x (B, C, L), channels first, with p the input sample:
+// x and y are (B, C, L) seen through (B, L, C) storage: sample q of channel
+// c of row b lies at (b L + q) C + c, so one time step of all channels is
+// one contiguous run of C floats. That is the layout cuDNN's NHWC convs
+// read and write, so the generator keeps every activation in it.
+//
+// Per channel c, with p the input sample:
 //   u[2p]     = 2 sum_j h_up[11 - 2j] x[clamp(p - 3 + j)],  j = 0..5
 //   u[2p + 1] = 2 sum_j h_up[10 - 2j] x[clamp(p - 2 + j)]
 //          (replicate pad 5, transposed conv at stride 2, 15 cut each end;
@@ -16,57 +21,50 @@
 //   v[m] = u[m] + inv_mag[c] sin(u[m] freq[c])^2,  m in [0, 2L)
 //   y[q] = sum_k h_down[k] v[clamp(2q + k - 5, 0, 2L - 1)],  k = 0..11
 //          (replicate pad 5 left, 6 right, conv at stride 2)
-// The edges are the published ones exactly: Up replicates x's edge, Down
-// replicates the activated signal's edge. A position m < 0 of Down's pad
-// reads v[0], the even sample of pair p = 0; m > 2L - 1 reads v[2L - 1],
-// the odd sample of pair p = L - 1.
+// Pair p gives E = v[2p] and O = v[2p + 1]. Output q reads the pairs
+// q - 3 .. q + 3 (O of the first six, E of the last six), and pair p reads
+// the inputs p - 3 .. p + 3. The edges are the published ones exactly: Up
+// replicates x's edge, Down replicates the activated signal's edge, so a
+// pair p < 0 stands for v[0] (E and O both the E of pair 0) and a pair
+// p > L - 1 for v[2L - 1] (both the O of pair L - 1).
 //
 // What bounds it on this card: bytes. Per output sample it reads 4 bytes
 // and writes 4, against two Up dots of 6 taps, two sines and a 12-tap Down
 // dot (~58 FLOPs), below the card's 20 f32 FLOPs a byte; but only if the
 // instructions per sample stay few (at 8 bytes a sample the memory allows
-// ~80 instructions a sample). The design:
-//   * A tile is (row b*C + c, TQ = 1024 outputs). A persistent grid of
-//     BLOCKS_PER_SM blocks of 256 threads per SM walks the tiles in strides.
-//     For each it reads x[q0 - 6 .. q0 + TQ + 9] once, clamped at the row's
-//     ends, into shared memory (coalesced), and while it computes one tile
-//     the next tile's inputs are already in flight into registers (one tile
-//     per block at a time left the loads unoverlapped). A block advances its
-//     tile's (row, channel, tile in the row) by carries: two 64-bit
-//     divisions a tile cost as much as the arithmetic.
-//   * Phase 1, by pairs: pair i (p = q0 - 3 + i, i in [0, TQ + 8)) gives
-//     E[i] = v at position 2p and O[i] = v at 2p + 1 (clamped as above). A
-//     thread takes 4 consecutive pairs from one window of 10 inputs (three
-//     float4 shared loads), so every tap index is a constant and the 24
-//     taps live in registers.
-//   * Phase 2: output t = q - q0 is sum_j h_down[2j] O[t + j] + h_down[2j+1]
-//     E[t + j + 1]; a thread takes 4 consecutive outputs from 12 of E and
-//     12 of O (six float4 shared loads) and stores them as one float4 when
-//     the row length is a multiple of 4.
+// ~70 instructions a sample). The design:
+//   * A thread owns V adjacent channels (V = 2 where C allows: 8-byte
+//     loads and stores) and one run of output samples of one row.
+//     Neighbouring threads take neighbouring channel vectors of the same
+//     run, so every load of a time step is coalesced, whatever C is. Four
+//     channels a thread (16-byte vectors) took 134 registers against 72
+//     and ran 5-15 % slower at the published stages on an H100.
+//   * The thread walks its run in steps of R = 4 outputs, sliding a window
+//     in registers: each step loads the R inputs it has not seen, computes
+//     the R new pairs, writes R outputs, and carries the last HALO = 6
+//     inputs and pairs to the next step. Nothing goes through shared
+//     memory. A run's first step recomputes the 6 pairs before it from 12
+//     inputs (the halo), which the run before read too, so from L2.
+//   * The run length is chosen by the wrapper from B, C and L (ops/
+//     aa_snake.py::plan): the longest that still gives every SM enough
+//     threads, so that the small stages fill the card as the large do.
 //   * The sine: |freq u| is not bounded, so it is reduced to [-pi, pi]
 //     first (two FMAs against 2 pi split in two floats), then __sinf (the
 //     SFU, absolute error 2^-21.4 there). sinf's general path costs ~40
-//     instructions and a stack frame; it held K4 to 25 % of its bound.
+//     instructions and a stack frame.
 //   * The filters come in as device pointers (12 floats each), so no call
 //     copies anything from the host and a CUDA graph captures the launch.
 //     Up's taps are doubled (2 h x is exact as 2 (h x)).
-//   * The halo costs 8 pairs of 1032 and 16 loads of 1040.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int TAPS = 12;     // the Kaiser-sinc filter's length (Up and Down)
-constexpr int PAD = 5;       // Up's replicate pad of x; Down's left pad of v
-constexpr int TQ = 1024;     // output samples per block (ops/aa_snake.py TILE)
-constexpr int THREADS = 256;
-constexpr int R = 4;                         // pairs, then outputs, per thread and step
-constexpr int XOFF = PAD + 1;                // xs[i] = x[clamp(q0 - XOFF + i)]
-constexpr int NPAIR = TQ + 8;                // pairs i in [0, NPAIR), a multiple of R
-constexpr int NX = NPAIR + 8;                // inputs a block reads (three float4 past 4g)
-constexpr int NGROUP = NPAIR / R;
-constexpr int PER_THREAD = (NX + THREADS - 1) / THREADS;  // prefetched inputs per thread
-constexpr int BLOCKS_PER_SM = 4;  // resident at <= 64 registers a thread
+constexpr int R = 4;         // outputs a thread computes per step (ops/aa_snake.py STEP)
+constexpr int HALO = 6;      // inputs and pairs a step carries to the next
+constexpr int W = HALO + R;  // the window: inputs q .. q + 9, pairs q - 3 .. q + 6
+constexpr int THREADS = 128;
 constexpr float TWO_PI_HI = 6.28318548202514648f;   // 2 pi rounded to float
 constexpr float TWO_PI_LO = -1.74845553e-7f;        // 2 pi - TWO_PI_HI
 constexpr float INV_TWO_PI = 0.159154943091895336f;
@@ -80,174 +78,174 @@ __device__ __forceinline__ float snake(float u, float a, float ib)
     return fmaf(ib, s * s, u);
 }
 
-}  // namespace
-
-// A tile's place: its row b*C + c, the row's channel c, and its first
-// output q0. A block walks tiles blockIdx.x, + gridDim.x, ...; the place
-// advances by (rows, tiles) = divmod(gridDim.x, n_tiles) and carries, so no
-// thread divides per tile.
-struct Place {
-    int row, c, tq;
-};
-
-struct Stride {
-    int rows, c, tq;
-};
-
-__device__ __forceinline__ Place advance(Place t, Stride s, int n_tiles, int C)
+// V floats from p (aligned to 4 V bytes) into d, and back
+template <int V>
+__device__ __forceinline__ void load(float (&d)[V], const float* p)
 {
-    t.tq += s.tq;
-    int carry = t.tq >= n_tiles;
-    t.tq -= carry * n_tiles;
-    t.row += s.rows + carry;
-    t.c += s.c + carry;
-    t.c -= (t.c >= C) * C;
-    return t;
-}
-
-__device__ __forceinline__ void prefetch(float (&pre)[PER_THREAD], const float* __restrict__ x,
-                                         Place t, int L)
-{
-    const float* xr = x + (long long)t.row * L;
-    const int q0 = t.tq * TQ;
-#pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-        const int i = threadIdx.x + k * THREADS;
-        if (i < NX) pre[k] = __ldg(xr + min(max(q0 - XOFF + i, 0), L - 1));
+    if constexpr (V == 2) {
+        const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+        d[0] = t.x; d[1] = t.y;
+    } else {
+        d[0] = __ldg(p);
     }
 }
 
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&s)[V])
+{
+    if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(s[0], s[1]);
+    } else {
+        p[0] = s[0];
+    }
+}
+
+// the pair whose inputs are w[0 .. 6] (p - 3 .. p + 3): E and O, per channel
+template <int V>
+__device__ __forceinline__ void pair(float (&e)[V], float (&o)[V], float (*w)[V],
+                                     const float (&hu)[TAPS], const float (&a)[V],
+                                     const float (&ib)[V])
+{
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+        float ue = 0.0f, uo = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+            ue = fmaf(hu[11 - 2 * j], w[j][v], ue);
+            uo = fmaf(hu[10 - 2 * j], w[j + 1][v], uo);
+        }
+        e[v] = snake(ue, a[v], ib[v]);
+        o[v] = snake(uo, a[v], ib[v]);
+    }
+}
+
+// pair i, past the row's end: both samples the O of pair i - 1
+template <int V>
+__device__ __forceinline__ void past_end(float (*E)[V], float (*O)[V], int i)
+{
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+        E[i][v] = O[i - 1][v];
+        O[i][v] = O[i - 1][v];
+    }
+}
+
+}  // namespace
+
+// One thread: channels c0 .. c0 + V - 1 of row b, outputs q0 .. q0 + run - 1
+// (fewer at the row's end). Task t of n_tasks: vector t % (C / V), run
+// t / (C / V), the run (b, q0 / run) in row-major order.
+template <int V>
+__global__ void __launch_bounds__(THREADS)
 aa_snake_kernel(const float* __restrict__ x, float* __restrict__ y,
                 const float* __restrict__ freq, const float* __restrict__ inv_mag,
                 const float* __restrict__ h_up, const float* __restrict__ h_down,
-                int C, int L, int n_tiles, int n_total)
+                int C, int L, int run, int runs_per_row, long long n_tasks)
 {
-    __shared__ __align__(16) float xs[NX];
-    __shared__ __align__(16) float E[NPAIR];
-    __shared__ __align__(16) float O[NPAIR];
+    const long long task = (long long)blockIdx.x * THREADS + threadIdx.x;
+    if (task >= n_tasks) return;
+    const int nv = C / V;
+    const long long r = task / nv;
+    const int c0 = (int)(task - r * nv) * V;
+    const int b = (int)(r / runs_per_row);
+    const int q0 = (int)(r - (long long)b * runs_per_row) * run;
+    const float* __restrict__ xr = x + (long long)b * L * C + c0;
+    float* __restrict__ yr = y + (long long)b * L * C + c0;
 
-    float hu[TAPS], hd[TAPS];
+    float hu[TAPS], hd[TAPS], a[V], ib[V];
 #pragma unroll
     for (int k = 0; k < TAPS; ++k) {
         hu[k] = 2.0f * __ldg(h_up + k);
         hd[k] = __ldg(h_down + k);
     }
-    const int b = (int)blockIdx.x, grid = (int)gridDim.x;
-    const Stride step = {grid / n_tiles, (grid / n_tiles) % C, grid % n_tiles};
-    Place place = {b / n_tiles, (b / n_tiles) % C, b % n_tiles};
-    float pre[PER_THREAD];
-    prefetch(pre, x, place, L);
-
-    for (int tile = b; tile < n_total; tile += grid) {
-        const int row = place.row, c = place.c, q0 = place.tq * TQ;
-        // the previous tile's phase 1 read xs before the barrier its phase 2
-        // began with, so xs is free; E and O are free after this barrier
 #pragma unroll
-        for (int k = 0; k < PER_THREAD; ++k) {
-            const int i = threadIdx.x + k * THREADS;
-            if (i < NX) xs[i] = pre[k];
+    for (int v = 0; v < V; ++v) {
+        a[v] = __ldg(freq + c0 + v);
+        ib[v] = __ldg(inv_mag + c0 + v);
+    }
+
+    // xw[k] = x[q + k]; E[i], O[i] = pair q - 3 + i (q the step's first output)
+    float xw[W][V], E[W][V], O[W][V];
+    {   // the halo: pairs q0 - 3 .. q0 + 2 from x[q0 - 6 .. q0 + 5]
+        float t[2 * HALO][V];
+#pragma unroll
+        for (int k = 0; k < 2 * HALO; ++k)
+            load<V>(t[k], xr + min(max(q0 - HALO + k, 0), L - 1) * C);
+#pragma unroll
+        for (int i = 0; i < HALO; ++i) pair<V>(E[i], O[i], t + i, hu, a, ib);
+#pragma unroll
+        for (int k = 0; k < HALO; ++k)
+#pragma unroll
+            for (int v = 0; v < V; ++v) xw[k][v] = t[HALO + k][v];
+        if (q0 + 2 > L - 1) {
+#pragma unroll
+            for (int i = 1; i < HALO; ++i)
+                if (q0 - 3 + i > L - 1) past_end<V>(E, O, i);
         }
-        const float a = __ldg(freq + c), ib = __ldg(inv_mag + c);
-        __syncthreads();
-        place = advance(place, step, n_tiles, C);
-        if (tile + grid < n_total) prefetch(pre, x, place, L);
-
-        // phase 1: E[i], O[i] for the pairs i = 4g .. 4g + 3, p = q0 - 3 + i
-        for (int g = threadIdx.x; g < NGROUP; g += THREADS) {
-            const int i0 = R * g, p0 = q0 - 3 + i0;
-            float ev[R], ov[R];
-            if (p0 >= 0 && p0 + R - 1 <= L - 1) {  // every pair inside the row
-                float w[12];
-                const float4* w4 = reinterpret_cast<const float4*>(xs + i0);
+        if (q0 == 0) {  // pairs -3 .. -1 stand for v[0]
 #pragma unroll
-                for (int v = 0; v < 3; ++v) {
-                    const float4 t = w4[v];
-                    w[4 * v] = t.x; w[4 * v + 1] = t.y; w[4 * v + 2] = t.z; w[4 * v + 3] = t.w;
-                }
+            for (int i = 0; i < 3; ++i)
 #pragma unroll
-                for (int r = 0; r < R; ++r) {  // pair i0 + r reads x[p - 3 .. p + 3] = w[r .. r + 6]
-                    float ue = 0.0f, uo = 0.0f;
-#pragma unroll
-                    for (int j = 0; j < 6; ++j) {
-                        ue = fmaf(hu[11 - 2 * j], w[r + j], ue);
-                        uo = fmaf(hu[10 - 2 * j], w[r + 1 + j], uo);
-                    }
-                    ev[r] = snake(ue, a, ib);
-                    ov[r] = snake(uo, a, ib);
-                }
-            } else {  // a row end: pairs outside [0, L) stand for v[0] or v[2L - 1]
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    const int p = p0 + r, pc = min(max(p, 0), L - 1);
-                    const float* w = xs + (pc - q0 + XOFF - 3);
-                    float ue = 0.0f, uo = 0.0f;
-#pragma unroll
-                    for (int j = 0; j < 6; ++j) {
-                        ue = fmaf(hu[11 - 2 * j], w[j], ue);
-                        uo = fmaf(hu[10 - 2 * j], w[j + 1], uo);
-                    }
-                    const float ve = snake(ue, a, ib), vo = snake(uo, a, ib);
-                    ev[r] = p > L - 1 ? vo : ve;
-                    ov[r] = p < 0 ? ve : vo;
-                }
-            }
-            reinterpret_cast<float4*>(E)[g] = make_float4(ev[0], ev[1], ev[2], ev[3]);
-            reinterpret_cast<float4*>(O)[g] = make_float4(ov[0], ov[1], ov[2], ov[3]);
+                for (int v = 0; v < V; ++v) E[i][v] = O[i][v] = E[3][v];
         }
-        __syncthreads();
+    }
 
-        // phase 2: outputs t = 4 tau .. 4 tau + 3 of the tile
-        const int t0 = R * threadIdx.x;
-        if (q0 + t0 < L) {
-            float e[12], o[12];
-            const float4* e4 = reinterpret_cast<const float4*>(E + t0);
-            const float4* o4 = reinterpret_cast<const float4*>(O + t0);
+    const int q_end = min(q0 + run, L);
+    for (int q = q0; q < q_end; q += R) {
 #pragma unroll
-            for (int v = 0; v < 3; ++v) {
-                const float4 te = e4[v], to = o4[v];
-                e[4 * v] = te.x; e[4 * v + 1] = te.y; e[4 * v + 2] = te.z; e[4 * v + 3] = te.w;
-                o[4 * v] = to.x; o[4 * v + 1] = to.y; o[4 * v + 2] = to.z; o[4 * v + 3] = to.w;
-            }
-            float out[R];
+        for (int k = 0; k < R; ++k)
+            load<V>(xw[HALO + k], xr + min(q + HALO + k, L - 1) * C);
 #pragma unroll
-            for (int s = 0; s < R; ++s) {
+        for (int i = HALO; i < W; ++i) pair<V>(E[i], O[i], xw + (i - HALO), hu, a, ib);
+        if (q + R + 2 > L - 1) {
+#pragma unroll
+            for (int i = HALO; i < W; ++i)
+                if (q - 3 + i > L - 1) past_end<V>(E, O, i);
+        }
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+            float out[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
                 float acc = 0.0f;
 #pragma unroll
                 for (int j = 0; j < 6; ++j) {
-                    acc = fmaf(hd[2 * j], o[s + j], acc);
-                    acc = fmaf(hd[2 * j + 1], e[s + j + 1], acc);
+                    acc = fmaf(hd[2 * j], O[s + j][v], acc);
+                    acc = fmaf(hd[2 * j + 1], E[s + j + 1][v], acc);
                 }
-                out[s] = acc;
+                out[v] = acc;
             }
-            float* yr = y + (long long)row * L + q0 + t0;
-            if ((L & 3) == 0) {  // L % 4 == 0: the row and the tile start on 16 bytes
-                *reinterpret_cast<float4*>(yr) = make_float4(out[0], out[1], out[2], out[3]);
-            } else {
-#pragma unroll
-                for (int s = 0; s < R; ++s)
-                    if (q0 + t0 + s < L) yr[s] = out[s];
-            }
+            if (q + s < L) store<V>(yr + (q + s) * C, out);
         }
+#pragma unroll
+        for (int k = 0; k < HALO; ++k)
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                xw[k][v] = xw[k + R][v];
+                E[k][v] = E[k + R][v];
+                O[k][v] = O[k + R][v];
+            }
     }
 }
 
 extern "C" int aa_snake_launch(const float* x, float* y, const float* freq, const float* inv_mag,
-                               const float* h_up, const float* h_down, long long rows, int C,
-                               int L, void* stream)
+                               const float* h_up, const float* h_down, int B, int C, int L,
+                               int V, int run, void* stream)
 {
-    if (rows < 1 || C < 1 || L < 1 || rows % C != 0) return (int)cudaErrorInvalidValue;
-    const int n_tiles = (L + TQ - 1) / TQ;
-    if (rows * n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const int n_total = (int)(rows * n_tiles);
-    int device = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = n_total < sms * BLOCKS_PER_SM ? n_total : sms * BLOCKS_PER_SM;
-    aa_snake_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        x, y, freq, inv_mag, h_up, h_down, C, L, n_tiles, n_total);
+    if (B < 1 || C < 1 || L < 1 || run < R || run % R != 0 || (V != 1 && V != 2)
+        || C % V != 0 || (long long)L * C > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const int runs_per_row = (L + run - 1) / run;
+    const long long n_tasks = (long long)(C / V) * B * runs_per_row;
+    const long long blocks = (n_tasks + THREADS - 1) / THREADS;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (V == 2)
+        aa_snake_kernel<2><<<(unsigned)blocks, THREADS, 0, s>>>(
+            x, y, freq, inv_mag, h_up, h_down, C, L, run, runs_per_row, n_tasks);
+    else
+        aa_snake_kernel<1><<<(unsigned)blocks, THREADS, 0, s>>>(
+            x, y, freq, inv_mag, h_up, h_down, C, L, run, runs_per_row, n_tasks);
     return (int)cudaGetLastError();
 }
 

@@ -20,20 +20,31 @@ Parameter and buffer names are the published ones with weight norm folded
 ``cli.load_vocoder`` folds a published file. The filters are computed on
 the CPU in f32 and copied to the module's device, so the module can be
 built on ``meta``. ``prepare()`` computes every activation's e^alpha and
-1 / (e^beta + 1e-9) once (the pipeline calls it when it takes the
-generator); moving the module or loading a state dict drops them, and an
-unprepared activation computes them per call.
+1 / (e^beta + 1e-9) once and lays every conv weight out channels-last
+(the pipeline calls it when it takes the generator); moving the module or
+loading a state dict drops the terms, and an unprepared activation
+computes them per call.
+
+Every activation between ``conv_pre`` and ``conv_post`` is channels-last:
+a (B, C, L) view of (B, L, C) storage, strides (L C, 1, C). The convs run
+as 2-d convs over (B, C, 1, L) views (``Conv1d``, ``ConvTranspose1d``), so
+cuDNN computes in NHWC on the tensors as they lie and transposes nothing;
+K4 (``aa_snake``) reads and writes the same layout, and the residual adds
+and the stage means see operands of one layout.
 ``Generator.forward`` maps a mel (B, T, num_mels) to a waveform (B, T *
-hop, 1), ``generate`` (B, num_mels, T) to (B, 1, T * hop), as HiFi-GAN's.
+hop, 1), ``generate`` (B, num_mels, T) to (B, 1, T * hop), as HiFi-GAN's;
+(B, T, num_mels) contiguous is already channels-last for ``conv_pre``.
 """
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from matcha_tpu_torch.ops.aa_snake import aa_snake, kaiser_sinc_filter, snake_terms
+from matcha_tpu_torch.ops.aa_snake import (aa_snake, channels_last, is_channels_last,
+                                           kaiser_sinc_filter, snake_terms)
 
 
 #: the config values the port runs: BigVGAN-v2's published form
@@ -73,6 +84,28 @@ def _filter() -> torch.Tensor:
     """The Kaiser-sinc filter on the default device."""
     h = kaiser_sinc_filter()
     return torch.empty(h.shape).copy_(h)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computed as a 2-d conv over (B, C, 1, L) views.
+    PyTorch's conv1d copies its input to channels-first before the library
+    sees it; the 2-d views hand a channels-last input and weight over as
+    they lie, and cuDNN writes a channels-last output."""
+
+    def _conv_forward(self, x, weight, bias):
+        return F.conv2d(x.unsqueeze(2), weight.unsqueeze(2), bias, (1, self.stride[0]),
+                        (0, self.padding[0]), (1, self.dilation[0]), self.groups).squeeze(2)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` computed as a 2-d transposed conv, as
+    ``Conv1d``."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(x.unsqueeze(2), self.weight.unsqueeze(2), self.bias,
+                                  (1, self.stride[0]), (0, self.padding[0]),
+                                  (0, self.output_padding[0]), self.groups,
+                                  (1, self.dilation[0])).squeeze(2)
 
 
 class SnakeBeta(nn.Module):
@@ -130,10 +163,10 @@ class AMPBlock1(nn.Module):
     def __init__(self, channels: int, kernel_size: int, dilation):
         super().__init__()
         self.convs1 = nn.ModuleList(
-            nn.Conv1d(channels, channels, kernel_size, dilation=d,
-                      padding=get_padding(kernel_size, d)) for d in dilation)
+            Conv1d(channels, channels, kernel_size, dilation=d,
+                   padding=get_padding(kernel_size, d)) for d in dilation)
         self.convs2 = nn.ModuleList(
-            nn.Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, 1))
+            Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, 1))
             for _ in dilation)
         self.activations = nn.ModuleList(
             Activation1d(channels) for _ in range(2 * len(dilation)))
@@ -156,26 +189,31 @@ class Generator(nn.Module):
             raise ValueError(f"{other}: the port runs BigVGAN-v2's published form {SUPPORTED}")
         self.h = h
         self.num_kernels = len(h.resblock_kernel_sizes)
-        self.conv_pre = nn.Conv1d(h.num_mels, h.upsample_initial_channel, 7, padding=3)
+        self.conv_pre = Conv1d(h.num_mels, h.upsample_initial_channel, 7, padding=3)
         self.ups = nn.ModuleList()
         for i, (u, k) in enumerate(zip(h.upsample_rates, h.upsample_kernel_sizes)):
             ch = h.upsample_initial_channel // 2 ** (i + 1)
-            self.ups.append(nn.ModuleList([nn.ConvTranspose1d(2 * ch, ch, k, u,
-                                                              padding=(k - u) // 2)]))
+            self.ups.append(nn.ModuleList([ConvTranspose1d(2 * ch, ch, k, u,
+                                                           padding=(k - u) // 2)]))
         self.resblocks = nn.ModuleList(
             AMPBlock1(h.upsample_initial_channel // 2 ** (i + 1), k, tuple(d))
             for i in range(len(self.ups))
             for k, d in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes))
         self.activation_post = Activation1d(ch)
-        self.conv_post = nn.Conv1d(ch, 1, 7, padding=3, bias=False)
+        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
 
     def activations(self) -> list:
         return [m for m in self.modules() if isinstance(m, Activation1d)]
 
     def prepare(self) -> "Generator":
-        """Compute every activation's snake terms once, on the module's
-        device; returns the module."""
+        """Lay every conv weight out channels-last in place (a conv weight
+        (O, I, K) as strides (K I, 1, I), a transposed conv's (I, O, K) as
+        (K O, 1, O)) and compute every activation's snake terms once, on
+        the module's device; returns the module."""
         with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (Conv1d, ConvTranspose1d)) and not is_channels_last(m.weight):
+                    m.weight.data = channels_last(m.weight)
             for a in self.activations():
                 a.prepare()
         return self
@@ -197,8 +235,8 @@ class Generator(nn.Module):
         return self.resblocks[i * self.num_kernels:(i + 1) * self.num_kernels]
 
     def generate(self, mel: torch.Tensor, fused: bool = True) -> torch.Tensor:
-        """Mel (B, num_mels, T) -> waveform (B, 1, T * hop), channels first."""
-        x = self.conv_pre(mel)
+        """Mel (B, num_mels, T), any strides -> waveform (B, 1, T * hop)."""
+        x = self.conv_pre(channels_last(mel))
         for i, up in enumerate(self.ups):
             x = up[0](x)
             xs = None

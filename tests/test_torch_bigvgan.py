@@ -2,7 +2,8 @@
 CPU, against the plain reference the benchmark holds it to
 (``benchmark/reference/models/bigvgan.py``, written from the published
 code, which imports nothing of the port): the generator, the
-anti-aliased SnakeBeta and its edges, the arithmetic K4 computes, every
+anti-aliased SnakeBeta and its edges, K4's walk over channels-last rows
+and its work split, the channels-last layout of every layer, every
 ``TTSPipeline`` path with BigVGAN as its vocoder, the loader, and the
 published widths on ``meta``. No JAX: the JAX package has no BigVGAN.
 
@@ -128,66 +129,144 @@ def test_aa_snake_plain_equals_reference_activation(L):
         assert (zero - want).abs().max().item() > 100 * TOL * want.abs().max().item()
 
 
-def _polyphase(x, freq, inv_mag, h_up, h_down, tile):
-    """What csrc/aa_snake.cu computes, tile by tile: the inputs x[q0 - 6 ..]
-    clamped at the row's ends; per pair i (input sample p = q0 - 3 + i) the
-    two Up dots on x[p - 3 .. p + 3] and the snake, E[i] and O[i] the
-    activated samples at 2p and 2p + 1, a pair outside the row standing for
-    v[0] (p < 0) or v[2L - 1] (p > L - 1); then each output's Down dot over
-    O[t + j] and E[t + j + 1]."""
+def _walk(x, freq, inv_mag, h_up, h_down, run):
+    """What csrc/aa_snake.cu computes, run by run (every row and channel of
+    a run at once): a run's halo, pairs q0 - 3 .. q0 + 2 from the inputs
+    x[q0 - 6 .. q0 + 5] (each clamped to the row), then the pairs past the
+    row's end and, in the row's first run, the pairs before its start; then
+    steps of STEP outputs, each loading the STEP inputs it has not seen,
+    computing the STEP new pairs (those past the row's end after), writing
+    the outputs inside the row and carrying the last 6 inputs and pairs.
+    Pair p gives E = v[2p] and O = v[2p + 1]."""
     B, C, L = x.shape
     hu, hd = 2 * h_up.flatten(), h_down.flatten()
-    y = torch.empty_like(x)
-    xoff = K4.PAD + 1
-    for q0 in range(0, L, tile):
-        p = q0 - 3 + torch.arange(tile + 8)
-        pc = p.clamp(0, L - 1)
-        start = pc - 3  # x[p - 3 .. p + 3], through the clamp of the loaded row
-        win = torch.stack([x[..., (start + d).clamp(0, L - 1)] for d in range(7)], -1)
-        assert int((pc - q0 + xoff - 3).min()) >= 0  # inside the block's loaded inputs
-        ue = sum(hu[11 - 2 * j] * win[..., j] for j in range(6))
-        uo = sum(hu[10 - 2 * j] * win[..., j + 1] for j in range(6))
-        ve = ue + inv_mag[:, None] * torch.sin(ue * freq[:, None]) ** 2
-        vo = uo + inv_mag[:, None] * torch.sin(uo * freq[:, None]) ** 2
-        E = torch.where(p > L - 1, vo, ve)
-        O = torch.where(p < 0, ve, vo)
-        t = torch.arange(min(tile, L - q0))
-        y[..., q0:q0 + len(t)] = sum(hd[2 * j] * O[..., t + j] + hd[2 * j + 1] * E[..., t + j + 1]
-                                     for j in range(6))
-    return y
+    rows = x.transpose(1, 2)  # (B, L, C): one time step of every channel
+    y = torch.full_like(rows, float("nan"))
+    H, S = 6, K4.STEP
+
+    def load(q):
+        return rows[:, min(max(q, 0), L - 1)]
+
+    def snake(u):
+        return u + inv_mag * torch.sin(u * freq) ** 2
+
+    def pair(w):  # the inputs p - 3 .. p + 3
+        return (snake(sum(hu[11 - 2 * j] * w[j] for j in range(6))),
+                snake(sum(hu[10 - 2 * j] * w[j + 1] for j in range(6))))
+
+    def past_end(E, O, i):
+        E[i], O[i] = O[i - 1], O[i - 1]
+
+    for q0 in range(0, L, run):
+        t = [load(q0 - H + k) for k in range(2 * H)]
+        E, O = (list(v) for v in zip(*(pair(t[i:i + 7]) for i in range(H))))
+        xw = t[H:]
+        for i in range(1, H):
+            if q0 - 3 + i > L - 1:
+                past_end(E, O, i)
+        if q0 == 0:
+            for i in range(3):
+                E[i] = O[i] = E[3]
+        for q in range(q0, min(q0 + run, L), S):
+            xw += [load(q + H + k) for k in range(S)]
+            for i in range(H, H + S):
+                e, o = pair(xw[i - H:i + 1])
+                E.append(e)
+                O.append(o)
+            for i in range(H, H + S):
+                if q - 3 + i > L - 1:
+                    past_end(E, O, i)
+            for s in range(S):
+                if q + s < L:
+                    y[:, q + s] = sum(hd[2 * j] * O[s + j] + hd[2 * j + 1] * E[s + j + 1]
+                                      for j in range(6))
+            xw, E, O = xw[S:], E[S:], O[S:]
+    return y.transpose(1, 2)
 
 
-@pytest.mark.parametrize("L,tile", [(1, 4), (2, 4), (3, 4), (4, 4), (7, 4), (13, 8), (40, 1024)])
-def test_kernel_arithmetic_equals_plain(L, tile):
-    """K4's index arithmetic in float64 (where the orders of the sums do not
-    matter at 1e-12): every tile edge and both row ends."""
-    g = torch.Generator().manual_seed(100 + L)
-    x = 3.0 * torch.randn(2, 3, L, generator=g, dtype=torch.float64)
-    freq = torch.exp(torch.randn(3, generator=g, dtype=torch.float64))
-    inv_mag = 1.0 / (torch.exp(torch.randn(3, generator=g, dtype=torch.float64)) + 1e-9)
-    h = K4.kaiser_sinc_filter().double()
+def _f64_problem(seed, B, C, L):
+    g = torch.Generator().manual_seed(seed)
+    x = 3.0 * torch.randn(B, C, L, generator=g, dtype=torch.float64)
+    freq = torch.exp(torch.randn(C, generator=g, dtype=torch.float64))
+    inv_mag = 1.0 / (torch.exp(torch.randn(C, generator=g, dtype=torch.float64)) + 1e-9)
+    return x, freq, inv_mag, K4.kaiser_sinc_filter().double()
+
+
+@pytest.mark.parametrize("L,run", [(1, 8), (2, 8), (3, 8), (4, 4), (5, 8), (7, 4), (9, 8),
+                                   (13, 8), (17, 16), (40, 8), (64, 32), (600, 128)])
+def test_kernel_walk_equals_plain(L, run):
+    """K4's sliding window in float64 (where the orders of the sums do not
+    matter at 1e-12): a run's halo, run edges inside a row, both row ends,
+    a last run cut short and rows shorter than one step or than the halo."""
+    x, freq, inv_mag, h = _f64_problem(100 + L, 2, 3, L)
     want = K4.aa_snake_reference(x, freq, inv_mag, h, h)
-    assert (_polyphase(x, freq, inv_mag, h, h, tile) - want).abs().max().item() < 1e-12
+    assert (_walk(x, freq, inv_mag, h, h, run) - want).abs().max().item() < 1e-12
 
 
-@pytest.mark.parametrize("n_tiles,C,rows,grid", [(1, 3, 12, 5), (5, 768, 6144, 528),
-                                                  (288, 24, 192, 528), (2, 4, 6, 100)])
-def test_kernel_tile_walk_equals_division(n_tiles, C, rows, grid):
-    """K4's blocks walk tiles b, b + grid, ... and advance each tile's (row,
-    channel, tile in the row) by carries (csrc/aa_snake.cu ``advance``):
-    the same places as dividing."""
-    n_total = rows * n_tiles
-    step = (grid // n_tiles, (grid // n_tiles) % C, grid % n_tiles)
-    for b in range(min(grid, n_total)):
-        row, c, tq = b // n_tiles, (b // n_tiles) % C, b % n_tiles
-        for tile in range(b, n_total, grid):
-            assert (row, c, tq) == (tile // n_tiles, (tile // n_tiles) % C, tile % n_tiles)
-            tq += step[2]
-            carry = int(tq >= n_tiles)
-            tq -= carry * n_tiles
-            row += step[0] + carry
-            c += step[1] + carry
-            c -= int(c >= C) * C
+def _task_places(B, C, L, V, run):
+    """(b, q0, c0) of every thread of K4's grid that has a task, in thread
+    order, as the kernel derives them from blockIdx * THREADS + threadIdx."""
+    runs_per_row = -(-L // run)
+    nv = C // V
+    n_tasks = nv * B * runs_per_row
+    task = torch.arange(-(-n_tasks // K4.THREADS) * K4.THREADS)
+    task = task[task < n_tasks]
+    r = task // nv
+    b = r // runs_per_row
+    return b, (r - b * runs_per_row) * run, (task - r * nv) * V
+
+
+@pytest.mark.parametrize("C", [24, 48, 96, 5])
+def test_kernel_tasks_cover_every_sample_once(C):
+    """C not a multiple of a block's threads (nor of 2, at C = 5): the grid's
+    tasks write every (row, sample, channel) once, neighbouring threads of
+    a run take neighbouring channel vectors (coalesced loads), and the walk
+    at that C equals the plain version."""
+    B, L, run = 3, 37, 8
+    V = K4.vector_width(C, 0)
+    assert V == (2 if C % 2 == 0 else 1) and K4.vector_width(C, 4) == 1
+    b, q0, c0 = _task_places(B, C, L, V, run)
+    hits = torch.zeros(B, L, C, dtype=torch.int64)
+    for bi, qi, ci in zip(b.tolist(), q0.tolist(), c0.tolist()):
+        hits[bi, qi:min(qi + run, L), ci:ci + V] += 1
+    assert bool((hits == 1).all())
+    same_run = (b[1:] == b[:-1]) & (q0[1:] == q0[:-1])
+    assert bool(((c0[1:] == c0[:-1] + V) | (~same_run & (c0[1:] == 0))).all())
+    x, freq, inv_mag, h = _f64_problem(C, B, C, L)
+    want = K4.aa_snake_reference(x, freq, inv_mag, h, h)
+    assert (_walk(x, freq, inv_mag, h, h, run) - want).abs().max().item() < 1e-12
+
+
+def _published_activation_shapes():
+    """(C, upsampling) of each of the published generator's activations:
+    the six stages' AMP blocks, then activation_post."""
+    h = bigvgan.BigVGANConfig()
+    out, up = [], 1
+    for i, u in enumerate(h.upsample_rates):
+        up *= u
+        out.append((h.upsample_initial_channel // 2 ** (i + 1), up))
+    return out + [out[-1]]
+
+
+@pytest.mark.parametrize("C,up", _published_activation_shapes(),
+                         ids=[f"stage{i + 1}" for i in range(6)] + ["post"])
+def test_kernel_plan_at_published_stages(C, up):
+    """The run rule at every published activation's shape, B = 8 and every
+    vocoder bucket, on an H100's 132 SMs: 8-byte vectors, the longest run
+    that still gives each SM TASKS_PER_SM threads (the shortest where none
+    does), and a grid that covers the shape."""
+    sms, B = 132, 8
+    for T_voc in port_pipeline.VOC_BUCKETS:
+        L = T_voc * up
+        V = K4.vector_width(C, 0)
+        run, runs_per_row, n_tasks = K4.plan(B, C, L, V, sms)
+        assert V == 2 and run in K4.RUNS and run % K4.STEP == 0
+        assert runs_per_row * run >= L > (runs_per_row - 1) * run
+        assert n_tasks == C // V * B * runs_per_row
+        enough = n_tasks >= K4.TASKS_PER_SM * sms
+        assert enough or run == K4.RUNS[-1]
+        longer = K4.RUNS[:K4.RUNS.index(run)]
+        assert all(C // V * B * -(-L // r) < K4.TASKS_PER_SM * sms for r in longer)
 
 
 def test_kernel_constants_agree_with_the_wrapper():
@@ -196,10 +275,139 @@ def test_kernel_constants_agree_with_the_wrapper():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert (const("TQ"), const("TAPS"), const("PAD")) == (K4.TILE, K4.TAPS, K4.PAD)
-    assert const("TQ") % const("R") == 0 and const("THREADS") * const("R") == const("TQ")
-    assert len(re.findall(r"__global__[^(]*\b(\w+)\(", src)) == 1
-    assert "aa_snake_kernel(" in src
+    assert (const("R"), const("THREADS"), const("TAPS")) == (K4.STEP, K4.THREADS, K4.TAPS)
+    assert const("HALO") == 6 and all(run % const("R") == 0 for run in K4.RUNS)
+    assert len(re.findall(r"__global__", src)) == 1
+    assert re.search(r"__global__ void __launch_bounds__\(THREADS\)\naa_snake_kernel\(", src)
+
+
+# --------------------------------------------------------------------------
+# the channels-last layout
+
+
+@pytest.mark.parametrize("entry", ["forward", "generate_channels_first",
+                                   "generate_channels_last"])
+def test_channels_last_generator_equals_channels_first(entry):
+    """The prepared generator, channels-last throughout, against the plain
+    reference, channels-first throughout (the port's own form before it
+    went channels-last), on one state dict: within 1e-5 of the output's
+    scale, through ``forward`` and through ``generate`` on a mel of
+    either layout."""
+    port, reference = _seeded_pair()
+    port.prepare()
+    mel = torch.randn(2, 29, SMALL["num_mels"], generator=torch.Generator().manual_seed(13))
+    with torch.inference_mode():
+        want = reference(mel)
+        if entry == "forward":
+            got = port(mel)
+        else:
+            m = mel.transpose(1, 2)
+            m = m.contiguous() if entry == "generate_channels_first" else m
+            assert K4.is_channels_last(m) == (entry == "generate_channels_last")
+            got = port.generate(m).transpose(1, 2)
+    assert got.shape == want.shape == (2, 29 * HOP, 1)
+    _close(got, want, tol=1e-5)
+
+
+def _layer_layouts(port, mel):
+    """(module class name, input channels-last, output channels-last) for
+    every Conv1d, ConvTranspose1d and Activation1d call of a forward."""
+    seen = []
+
+    def hook(module, args, out):
+        seen.append((type(module).__name__, K4.is_channels_last(args[0]),
+                     K4.is_channels_last(out)))
+
+    kinds = (torch.nn.Conv1d, torch.nn.ConvTranspose1d, bigvgan.Activation1d)
+    handles = [m.register_forward_hook(hook) for m in port.modules() if isinstance(m, kinds)]
+    try:
+        port(mel)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def test_every_layer_reads_and_writes_channels_last(pair):
+    port = pair[0].prepare()
+    mel = torch.randn(2, 21, SMALL["num_mels"], generator=torch.Generator().manual_seed(14))
+    seen = _layer_layouts(port, mel)
+    n_act = len(port.activations())
+    assert [k for k, _, _ in seen].count("Activation1d") == n_act == 2 * 18 + 1
+    assert [k for k, _, _ in seen].count("ConvTranspose1d") == 2
+    assert [k for k, _, _ in seen].count("Conv1d") == 2 * 18 + 2
+    bad = [s for s in seen if not (s[1] and s[2])]
+    assert not bad, bad
+
+
+def test_relayout_rule_reads_the_strides_alone(pair):
+    """K4's wrapper copies a channels-first input to channels-last and
+    counts it (``LAUNCHES["aa_snake_relayout"]``); over a forward, the rule
+    says no copy for every activation's input."""
+    port = pair[0].prepare()
+    inputs = []
+    handles = [a.register_forward_pre_hook(lambda m, args: inputs.append(args[0]))
+               for a in port.activations()]
+    try:
+        port(torch.randn(1, 19, SMALL["num_mels"], generator=torch.Generator().manual_seed(15)))
+    finally:
+        for h in handles:
+            h.remove()
+    assert len(inputs) == len(port.activations())
+    assert not any(K4.needs_relayout(x) for x in inputs)
+    x = torch.randn(2, 8, 30)
+    assert K4.needs_relayout(x) and not K4.needs_relayout(K4.channels_last(x))
+    assert not K4.needs_relayout(torch.randn(2, 1, 30))  # one channel: both layouts at once
+    with pytest.raises(ValueError, match="channels-last or channels-first"):
+        K4.needs_relayout(x[..., ::2])
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 17, 600])
+def test_aa_snake_reference_either_layout(L):
+    """The plain version gives the same values on a channels-first and a
+    channels-last x, and the wrapper's output is channels-last on both."""
+    g = torch.Generator().manual_seed(200 + L)
+    x = 2.0 * torch.randn(2, 12, L, generator=g)
+    freq, inv_mag = K4.snake_terms(torch.randn(12, generator=g), torch.randn(12, generator=g))
+    h = K4.kaiser_sinc_filter()
+    want = K4.aa_snake_reference(x, freq, inv_mag, h, h)
+    xl = K4.channels_last(x)
+    assert L == 1 or xl.stride() != x.stride()
+    assert torch.equal(K4.aa_snake_reference(xl, freq, inv_mag, h, h), want)
+    for inp in (x, xl):
+        got = K4.aa_snake(inp, freq, inv_mag, h)
+        assert K4.is_channels_last(got) and torch.equal(got, want)
+
+
+def _conv_weights(port):
+    return {n: m.weight for n, m in port.named_modules()
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d))}
+
+
+@pytest.mark.parametrize("then", ["load_state_dict", "to"])
+def test_prepare_lays_the_weights_out_channels_last(then):
+    """``prepare`` makes every conv weight channels-last in place (the same
+    parameters, the same values); after ``load_state_dict`` of a
+    channels-first state dict, or ``.to()``, ``prepare`` leaves them so
+    again, with the snake terms computed anew."""
+    port, _ = _seeded_pair()
+    before = {n: w.detach().clone() for n, w in _conv_weights(port).items()}
+    params = {n: w for n, w in _conv_weights(port).items()}
+    assert not any(K4.is_channels_last(w) for w in params.values())
+    port.prepare()
+    assert len(params) == 2 * 18 + 4
+    for n, w in _conv_weights(port).items():
+        assert w is params[n] and K4.is_channels_last(w) and torch.equal(w, before[n])
+    if then == "load_state_dict":
+        port.load_state_dict({k: v.contiguous() for k, v in port.state_dict().items()})
+    else:
+        port.to(torch.float64).to(torch.float32)
+    assert all(a.terms is None for a in port.activations())
+    port.prepare()
+    assert all(K4.is_channels_last(w) for w in _conv_weights(port).values())
+    assert all(a.terms is not None for a in port.activations())
+    for n, w in _conv_weights(port).items():
+        torch.testing.assert_close(w, before[n], rtol=0, atol=0)
 
 
 # --------------------------------------------------------------------------

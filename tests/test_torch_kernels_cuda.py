@@ -1053,10 +1053,11 @@ K4_SHAPES = [(8, 768, 512), (8, 384, 2048), (8, 192, 4096), (8, 96, 8192), (8, 4
 
 
 def _k4_problem(seed, B, C, L, device):
+    """x channels-last, as the generator hands it over, and the terms."""
     from matcha_tpu_torch.ops import aa_snake
 
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(B, C, L, generator=g).to(device)
+    x = aa_snake.channels_last(torch.randn(B, C, L, generator=g).to(device))
     freq, inv_mag = aa_snake.snake_terms((0.5 * torch.randn(C, generator=g)).to(device),
                                          (0.5 * torch.randn(C, generator=g)).to(device))
     return x, freq, inv_mag, aa_snake.kaiser_sinc_filter().to(device)
@@ -1068,17 +1069,36 @@ def test_aa_snake_kernel_matches_plain(cuda_f32, B, C, L):
     from matcha_tpu_torch.ops import aa_snake
 
     x, freq, inv_mag, h = _k4_problem(B * C + L, B, C, L, cuda_f32)
-    before = aa_snake.LAUNCHES["aa_snake"]
+    before = dict(aa_snake.LAUNCHES)
     got = aa_snake.aa_snake(x, freq, inv_mag, h)
     want = aa_snake.aa_snake(x, freq, inv_mag, h, fused=False)
     torch.cuda.synchronize()
-    assert aa_snake.LAUNCHES["aa_snake"] == before + 1
+    assert aa_snake.LAUNCHES["aa_snake"] == before["aa_snake"] + 1
+    assert aa_snake.LAUNCHES["aa_snake_relayout"] == before["aa_snake_relayout"]
+    assert aa_snake.is_channels_last(got) and aa_snake.is_channels_last(want)
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= K4_TOL * scale
     # the same arithmetic on bf16-rounded input misses the tolerance
     rounded = aa_snake.aa_snake(x.bfloat16().float(), freq, inv_mag, h)
     if L > 2:
         assert (rounded - want).abs().max().item() > K4_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,L", [(8, 96, 8192), (2, 5, 2), (3, 16, 511)])
+def test_aa_snake_kernel_relayouts_a_channels_first_input(cuda_f32, B, C, L):
+    """A channels-first x is copied to channels-last once, counted, and
+    gives K4's output on the channels-last x bit for bit."""
+    from matcha_tpu_torch.ops import aa_snake
+
+    x, freq, inv_mag, h = _k4_problem(C + L, B, C, L, cuda_f32)
+    want = aa_snake.aa_snake(x, freq, inv_mag, h)
+    before = dict(aa_snake.LAUNCHES)
+    got = aa_snake.aa_snake(x.contiguous(), freq, inv_mag, h)
+    torch.cuda.synchronize()
+    assert aa_snake.LAUNCHES["aa_snake"] == before["aa_snake"] + 1
+    assert aa_snake.LAUNCHES["aa_snake_relayout"] == before["aa_snake_relayout"] + 1
+    assert aa_snake.is_channels_last(got) and torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -1116,16 +1136,54 @@ def test_bigvgan_generator_launches_k4_per_activation(cuda_f32):
     plain generator's (the clamp's range)."""
     from matcha_tpu_torch.ops import aa_snake
 
+    from benchmark.reference.models import bigvgan as ref
+
     gen = _small_bigvgan(cuda_f32).prepare()
     mel = torch.randn(2, 50, 80, generator=torch.Generator().manual_seed(6)).to(cuda_f32)
-    before = aa_snake.LAUNCHES["aa_snake"]
+    before = dict(aa_snake.LAUNCHES)
     got = gen(mel)
     torch.cuda.synchronize()
-    assert aa_snake.LAUNCHES["aa_snake"] - before == 3 * 18 + 1
+    assert aa_snake.LAUNCHES["aa_snake"] - before["aa_snake"] == 3 * 18 + 1
+    assert aa_snake.LAUNCHES["aa_snake_relayout"] == before["aa_snake_relayout"]
     want = gen(mel, fused=False)
-    assert aa_snake.LAUNCHES["aa_snake"] - before == 3 * 18 + 1
+    assert aa_snake.LAUNCHES["aa_snake"] - before["aa_snake"] == 3 * 18 + 1
     assert got.shape == (2, 50 * 32, 1)
     assert (got - want).abs().max().item() <= 1e-4
+    # the channels-first plain reference on the same weights
+    reference = ref.Generator(gen.h).to(cuda_f32).eval()
+    reference.load_state_dict(gen.state_dict())
+    with torch.inference_mode():
+        assert (got - reference(mel)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_published_bigvgan_runs_channels_last_without_transposes(cuda_f32):
+    """The published generator at B = 8 x 512 frames, cuDNN in TF32 as the
+    pipeline runs it: 109 K4 launches and no relayout a call, and no
+    layout transpose of cuDNN's (``nchwToNhwc``, ``nhwcToNchw``) in the
+    call's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tpu_torch.models.bigvgan import Generator as BigVGAN
+    from matcha_tpu_torch.ops import aa_snake
+
+    torch.backends.cudnn.allow_tf32 = True  # the fixture restores it
+    with torch.device(cuda_f32):
+        gen = BigVGAN().eval().prepare()
+    mel = torch.randn(8, 512, 80, device=cuda_f32)
+    gen(mel)  # cuDNN's plans
+    torch.cuda.synchronize()
+    before = dict(aa_snake.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wav = gen(mel)
+        torch.cuda.synchronize()
+    assert wav.shape == (8, 512 * 256, 1) and bool(torch.isfinite(wav).all())
+    assert aa_snake.LAUNCHES["aa_snake"] - before["aa_snake"] == 109
+    assert aa_snake.LAUNCHES["aa_snake_relayout"] == before["aa_snake_relayout"]
+    names = [e.name for e in prof.events()]
+    assert sum("aa_snake_kernel" in n for n in names) == 109
+    transposes = [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n]
+    assert not transposes, transposes[:4]
 
 
 @pytest.mark.cuda
@@ -1180,9 +1238,9 @@ def test_bigvgan_pipeline_paths_on_cuda(cuda_f32):
                                         generator=torch.Generator(cuda_f32).manual_seed(5)))
 
     want = corpus(plain, False)
-    before = aa_snake.LAUNCHES["aa_snake"]
+    before = dict(aa_snake.LAUNCHES)
     split = corpus(pipe, False)
-    assert aa_snake.LAUNCHES["aa_snake"] - before == (3 * 18 + 1) * len(want)
+    assert aa_snake.LAUNCHES["aa_snake"] - before["aa_snake"] == (3 * 18 + 1) * len(want)
     fused = corpus(pipe, True)
     for outs in (split, fused):
         for (_, a), (_, b) in zip(outs, want):
@@ -1193,3 +1251,4 @@ def test_bigvgan_pipeline_paths_on_cuda(cuda_f32):
     got = pipe.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256)
     ref = plain.synthesise_batch(x, xl, n_timesteps=2, z=z, fixed_y_bucket=256, cuda_graph=False)
     assert (got["waveform"] - ref["waveform"]).abs().max().item() <= 1e-4
+    assert aa_snake.LAUNCHES["aa_snake_relayout"] == before["aa_snake_relayout"]
